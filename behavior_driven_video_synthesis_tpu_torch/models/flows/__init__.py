@@ -1,0 +1,6 @@
+from .blocks import (ActNorm, CouplingFlowBlock, DoubleCoupling, Shuffle,
+                     UnconditionalFlow)
+from .transformer import LatentFlow, flow_loss
+
+__all__ = ["ActNorm", "CouplingFlowBlock", "DoubleCoupling", "LatentFlow",
+           "Shuffle", "UnconditionalFlow", "flow_loss"]
