@@ -1,5 +1,5 @@
 """Serving CLI (``bdvs-generate-torch``): behavior-transfer RGB videos from
-trained weights, on one GPU (or the CPU).
+trained weights, on one GPU (or on the CPU with ``--device cpu``).
 
 Counterpart of ``behavior_driven_video_synthesis_tpu/generate.py``.  The JAX
 package's run directories are orbax checkpoints, which need JAX to read;
@@ -43,6 +43,7 @@ import torch.nn.functional as F
 
 from .data.human36m import detailed_joint_model
 from .geometry.stickman import JointModel
+from .main import resolve_device
 from .models.behavior import ResidualBehaviorNet
 from .models.convert import (behavior_net_from_flax, latent_flow_from_flax,
                              load_flax_npz, vunet_alter_from_flax)
@@ -113,8 +114,9 @@ def parse_args(argv=None):
     ap.add_argument("--length", type=int, default=50)
     ap.add_argument("--fps", type=int, default=12)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda when available)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; pass cpu to serve "
+                         "on the CPU)")
     # options of the JAX CLI that this port does not have yet
     ap.add_argument("--from_dataset", action="store_true")
     ap.add_argument("--quant", choices=["none", "int8_static"],
@@ -136,8 +138,7 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    device = torch.device(args.device or (
-        "cuda" if torch.cuda.is_available() else "cpu"))
+    device = resolve_device(args.device)
 
     btree, bcfg = _load_params(args.behavior_params)
     barch = bcfg.get("architecture", {})

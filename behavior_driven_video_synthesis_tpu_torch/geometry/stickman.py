@@ -57,7 +57,7 @@ def _segment_coverage(px, py, a, b, half_thickness):
     return (dist <= half_thickness).float()
 
 
-def _lines_coverage(j, lines, px, py, half):
+def lines_coverage(j, lines, px, py, half):
     """Union of the valid segments ``lines`` of joints j (N, K, 2)."""
     cov = torch.zeros((j.shape[0],) + px.shape, dtype=torch.float32,
                       device=j.device)
@@ -69,7 +69,7 @@ def _lines_coverage(j, lines, px, py, half):
     return cov
 
 
-def _polygon_mask(px, py, verts, valid):
+def polygon_mask(px, py, verts, valid):
     """Crossing-number point-in-polygon; verts (N, V, 2), valid (N, V).
     An edge touching an invalid vertex is skipped."""
     V = verts.shape[1]
@@ -87,10 +87,10 @@ def _polygon_mask(px, py, verts, valid):
 
 
 def _render_frames(j, joint_model: JointModel, px, py, half):
-    r_cov = _lines_coverage(j, joint_model.right_lines, px, py, half)
-    l_cov = _lines_coverage(j, joint_model.left_lines, px, py, half)
+    r_cov = lines_coverage(j, joint_model.right_lines, px, py, half)
+    l_cov = lines_coverage(j, joint_model.left_lines, px, py, half)
     if len(joint_model.head_lines):
-        h_cov = _lines_coverage(j, joint_model.head_lines, px, py, half)
+        h_cov = lines_coverage(j, joint_model.head_lines, px, py, half)
     else:
         rs, ls = j[:, joint_model.rshoulder], j[:, joint_model.lshoulder]
         cn = j[:, joint_model.headup]
@@ -100,7 +100,7 @@ def _render_frames(j, joint_model: JointModel, px, py, half):
                  * ok.float()[:, None, None])
     verts = j[:, list(joint_model.body)]
     bvalid = (verts >= 0.0).all(-1)
-    poly = (_polygon_mask(px, py, verts, bvalid)
+    poly = (polygon_mask(px, py, verts, bvalid)
             & (bvalid.sum(-1) > 2)[:, None, None]).float()
     ch0 = torch.maximum(l_cov * 255.0, h_cov * 127.0)
     ch1 = torch.maximum(r_cov * 255.0, h_cov * 127.0)

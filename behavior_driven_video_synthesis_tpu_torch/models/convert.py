@@ -229,3 +229,32 @@ def vunet_alter_to_flax(state_dict: Mapping) -> Dict[str, Any]:
                    and k.endswith(".conv.weight_v"))
     return to_flax(state_dict, vunet_alter_plan(
         n_blocks("du") // 2, n_blocks("eu") // 2, n_latent))
+
+
+# -- VUNet latent regressor ---------------------------------------------------
+
+def vunet_regressor_plan(n_embedders: int, n_linear: int) -> Plan:
+    """``VunetRegressor``: ``embedders.{i}`` <-> flax ``Conv_{i}`` (HWIO
+    kernel), ``linears.{j}`` <-> ``Dense_{j}`` ((in, out) kernel)."""
+    plan: Plan = []
+    for i in range(n_embedders):
+        plan += [(f"embedders.{i}.weight", (f"Conv_{i}", "kernel"), "hwio"),
+                 (f"embedders.{i}.bias", (f"Conv_{i}", "bias"), "id")]
+    for j in range(n_linear):
+        plan += [(f"linears.{j}.weight", (f"Dense_{j}", "kernel"), "T"),
+                 (f"linears.{j}.bias", (f"Dense_{j}", "bias"), "id")]
+    return plan
+
+
+def vunet_regressor_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    p = _params(tree)
+    return from_flax(p, vunet_regressor_plan(_count(p, "Conv_"),
+                                             _count(p, "Dense_")))
+
+
+def vunet_regressor_to_flax(state_dict: Mapping) -> Dict[str, Any]:
+    def n(prefix):
+        return sum(1 for k in state_dict
+                   if k.startswith(prefix) and k.endswith(".weight"))
+    return to_flax(state_dict, vunet_regressor_plan(n("embedders."),
+                                                    n("linears.")))

@@ -1,17 +1,26 @@
-"""Random weights from a seed, for smoke runs and parity tests.
+"""Weights from a seed.
 
-Training is not ported, so the port has no trained initializers; this fills
-a module in place with seeded values of sensible scale, by parameter name:
-weights N(0, 1/fan_in), weight-norm magnitudes g in [0.4, 0.8], gamma and
-ActNorm scale near 1, biases, beta and ActNorm loc near 0, and a random
-permutation for every Shuffle.  ``rng`` is a ``torch.Generator`` (values
-drawn on the module's device) or a ``numpy.random.RandomState``.
+:func:`init_random_` fills a module in place with seeded values of sensible
+scale, by parameter name, for smoke runs and parity tests: weights
+N(0, 1/fan_in), weight-norm magnitudes g in [0.4, 0.8], gamma and ActNorm
+scale near 1, biases, beta and ActNorm loc near 0, and a random permutation
+for every Shuffle.  ``rng`` is a ``torch.Generator`` (values drawn on the
+module's device) or a ``numpy.random.RandomState``.
+
+:func:`init_like_jax_` gives a fresh training run the JAX package's
+initializers, matched in distribution (not in bits).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 from torch import nn
+
+from ..ops.nn import NormConv2d, NormDense
+
+# flax's variance_scaling(..., "truncated_normal") divides the standard
+# deviation by this, the std of a unit normal truncated to [-2, 2]
+_TRUNC_STD = 0.87962566103423978
 
 
 @torch.no_grad()
@@ -41,4 +50,34 @@ def init_random_(module: nn.Module, rng) -> nn.Module:
         else:
             v = normal(t) / float(np.sqrt(np.prod(t.shape[1:])))
         t.copy_(v.to(device=t.device, dtype=t.dtype))
+    return module
+
+
+def _truncated_normal_(t: torch.Tensor, scale: float, fan_in: int,
+                       generator) -> None:
+    std = (scale / fan_in) ** 0.5 / _TRUNC_STD
+    nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=generator)
+
+
+@torch.no_grad()
+def init_like_jax_(module: nn.Module, generator=None) -> nn.Module:
+    """The JAX package's initializers, in place: a NormConv2d or NormDense
+    draws v from he_normal over its fan-in (kh, kw, cin) and sets g = |v|
+    per output channel, bias and beta 0, gamma 1 (``ops/nn.py:225-241``);
+    an ``nn.Conv2d`` or ``nn.Linear`` (the regressor's flax Conv and
+    Dense) draws lecun_normal weights and a zero bias."""
+    for m in module.modules():
+        if isinstance(m, (NormConv2d, NormDense)):
+            v = m.conv.weight_v
+            _truncated_normal_(v, 2.0, v[0].numel(), generator)
+            m.conv.weight_g.copy_(
+                torch.sqrt(torch.sum(v * v, dim=(1, 2, 3), keepdim=True)))
+            m.conv.bias.zero_()
+            m.gamma.fill_(1.0)
+            m.beta.zero_()
+        elif isinstance(m, (nn.Conv2d, nn.Linear)):
+            _truncated_normal_(m.weight, 1.0, m.weight[0].numel(),
+                               generator)
+            m.bias.zero_()
     return module

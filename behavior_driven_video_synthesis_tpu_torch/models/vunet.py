@@ -1,15 +1,18 @@
-"""VUNet-alter: the appearance/shape image synthesizer, NHWC, eval mode.
+"""VUNet-alter: the appearance/shape image synthesizer, NHWC.
 
-Counterpart of ``behavior_driven_video_synthesis_tpu/models/vunet.py`` for
-the serving path: EncUp (eu, du), EncDown (ed) and DecDown (dd) in the
-"alter" variant, with ``encode_means``, ``transfer_cached``, ``transfer``
-and ``test_forward``.  Module names follow the reference's state dict
-(``eu.blocks.{k}``, ``ed.make_latent_params.{i}``, ``dd.auto_blocks.{i}``,
-``dd.out_conv``, ...), which is the layout
+Counterpart of ``behavior_driven_video_synthesis_tpu/models/vunet.py``:
+EncUp (eu, du), EncDown (ed) and DecDown (dd) in the "alter" variant, with
+the training ``forward`` (posterior samples, dropout), ``encode_means``,
+``transfer_cached``, ``transfer`` and ``test_forward``, and the latent
+pose regressor ``VunetRegressor``.  Module names follow the reference's
+state dict (``eu.blocks.{k}``, ``ed.make_latent_params.{i}``,
+``dd.auto_blocks.{i}``, ``dd.out_conv``, ...), which is the layout
 ``models.convert.vunet_alter_reference_state_dict`` writes.
 
 Latent sampling takes explicit noise (a list of tensors, one per latent
-scale) or draws it from a ``torch.Generator``.
+scale) or draws it from a ``torch.Generator``; dropout masks come from a
+second generator, ``dropout_generator`` (the JAX package's "sample" and
+"dropout" rng collections).
 """
 from __future__ import annotations
 
@@ -19,7 +22,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.nn import Downsample, NormConv2d, Upsample, VunetRNB
+from ..ops.nn import (Downsample, NormConv2d, Upsample, VunetRNB,
+                      conv2d_nhwc)
 
 
 def compute_n_scales(spatial_size: int, bottleneck_factor: int,
@@ -41,16 +45,20 @@ class EncUp(nn.Module):
     """Bottom-up encoder: 2 RNBs per scale, stride-2 downsample between."""
 
     def __init__(self, in_channels: int, n_scales: int, nf_start: int,
-                 nf_max: int, dtype=torch.float32, device=None):
+                 nf_max: int, dropout_prob: float = 0.0,
+                 dropout_impl: str = "flax", dtype=torch.float32,
+                 device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
+        rnb_kw = dict(dropout_prob=dropout_prob, dropout_impl=dropout_impl,
+                      **kw)
         nf = nf_start
         self.out_channels: List[int] = []
         self.nin = NormConv2d(in_channels, nf, 1, **kw)
         blocks, downs = [], []
         for i in range(n_scales):
             for _ in range(2):
-                blocks.append(VunetRNB(nf, **kw))
+                blocks.append(VunetRNB(nf, **rnb_kw))
                 self.out_channels.append(nf)
             if i + 1 < n_scales:
                 nf_next = min(2 * nf, nf_max)
@@ -59,12 +67,13 @@ class EncUp(nn.Module):
         self.blocks = nn.ModuleList(blocks)
         self.downs = nn.ModuleList(downs)
 
-    def forward(self, x) -> List[torch.Tensor]:
+    def forward(self, x, train: bool = False,
+                dropout_generator=None) -> List[torch.Tensor]:
         hs = []
         h = self.nin(x)
         for i, down in enumerate(list(self.downs) + [None]):
             for block in self.blocks[2 * i:2 * i + 2]:
-                h = block(h)
+                h = block(h, None, train, dropout_generator)
                 hs.append(h)
             if down is not None:
                 h = down(h)
@@ -76,31 +85,37 @@ class EncDown(nn.Module):
     over ``n_latent_scales`` scales, fed by EncUp's skips."""
 
     def __init__(self, skip_channels: Sequence[int], nf: int,
-                 n_latent_scales: int = 2, dtype=torch.float32, device=None):
+                 n_latent_scales: int = 2, dropout_prob: float = 0.0,
+                 dropout_impl: str = "flax", dtype=torch.float32,
+                 device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
+        rnb_kw = dict(dropout_prob=dropout_prob, dropout_impl=dropout_impl,
+                      **kw)
         skips = list(skip_channels)
         self.nin = NormConv2d(skips[-1], nf, 1, **kw)
         blocks, mus, logstds, ups = [], [], [], []
         for _ in range(n_latent_scales):
-            blocks.append(VunetRNB(nf, True, skips.pop(), **kw))
+            blocks.append(VunetRNB(nf, True, skips.pop(), **rnb_kw))
             mus.append(NormConv2d(nf, nf, 3, padding=1, **kw))
             logstds.append(NormConv2d(nf, nf, 3, padding=1, **kw))
-            blocks.append(VunetRNB(nf, True, skips.pop() + nf, **kw))
+            blocks.append(VunetRNB(nf, True, skips.pop() + nf, **rnb_kw))
             ups.append(Upsample(nf, nf, **kw))
         self.blocks = nn.ModuleList(blocks)
         self.make_latent_params = nn.ModuleList(mus)
         self.make_logstds = nn.ModuleList(logstds)
         self.ups = nn.ModuleList(ups)
-        self.fin_block = VunetRNB(nf, True, skips.pop(), **kw)
+        self.fin_block = VunetRNB(nf, True, skips.pop(), **rnb_kw)
 
-    def forward(self, gs, eps=None, generator=None):
+    def forward(self, gs, eps=None, generator=None, train: bool = False,
+                dropout_generator=None):
         """Returns (hs, means, logstds, zs); z = mean + exp(logstd) * eps."""
         gs = list(gs)
         hs, means, logstds, zs = [], [], [], []
         h = self.nin(gs[-1])
+        drop = (train, dropout_generator)
         for i, up in enumerate(self.ups):
-            h = self.blocks[2 * i](h, gs.pop())
+            h = self.blocks[2 * i](h, gs.pop(), *drop)
             hs.append(h)
             mu = self.make_latent_params[i](h)
             means.append(mu)
@@ -108,10 +123,11 @@ class EncDown(nn.Module):
             logstds.append(logstd)
             z = mu + torch.exp(logstd) * _noise(eps, i, mu, generator)
             zs.append(z)
-            h = self.blocks[2 * i + 1](h, torch.cat([gs.pop(), z], dim=-1))
+            h = self.blocks[2 * i + 1](h, torch.cat([gs.pop(), z], dim=-1),
+                                       *drop)
             hs.append(h)
             h = up(h)
-        h = self.fin_block(h, gs.pop())
+        h = self.fin_block(h, gs.pop(), *drop)
         hs.append(h)
         return hs, means, logstds, zs
 
@@ -123,19 +139,22 @@ class DecDown(nn.Module):
     def __init__(self, skip_channels: Sequence[int], n_scales: int,
                  nf_in: int, nf_last: int, nf_out: int = 3,
                  n_latent_scales: int = 2, subpixel_upsampling: bool = True,
+                 dropout_prob: float = 0.0, dropout_impl: str = "flax",
                  dtype=torch.float32, device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
+        rnb_kw = dict(dropout_prob=dropout_prob, dropout_impl=dropout_impl,
+                      **kw)
         skips = list(skip_channels)
         self.n_latent_scales = n_latent_scales
         nf = nf_in
         self.nin = NormConv2d(skips[-1], nf, 1, **kw)
         blocks, autos, ups = [], [], []
         for i in range(n_scales):
-            blocks.append(VunetRNB(nf, True, skips.pop(), **kw))
+            blocks.append(VunetRNB(nf, True, skips.pop(), **rnb_kw))
             if i < n_latent_scales:
-                autos.append(VunetRNB(nf, True, nf, **kw))
-            blocks.append(VunetRNB(nf, True, skips.pop(), **kw))
+                autos.append(VunetRNB(nf, True, nf, **rnb_kw))
+            blocks.append(VunetRNB(nf, True, skips.pop(), **rnb_kw))
             if i + 1 < n_scales:
                 out_c = min(nf_in, nf_last * 2 ** (n_scales - (i + 2)))
                 ups.append(Upsample(nf, out_c, subpixel=(
@@ -146,30 +165,36 @@ class DecDown(nn.Module):
         self.ups = nn.ModuleList(ups)
         self.out_conv = NormConv2d(nf, nf_out, 3, padding=1, **kw)
 
-    def forward(self, gs, zs_posterior=None, eps=None, generator=None):
+    def forward(self, gs, zs_posterior=None, eps=None, generator=None,
+                train: bool = False, dropout_generator=None):
         """With ``zs_posterior`` the latents are those; else each is drawn
         from the N(0, 1) prior (``eps`` or ``generator``).  Returns the
-        image (NHWC, nf_out channels)."""
+        image (NHWC, nf_out channels) and the features after each block
+        pair's blocks (the JAX package's ``hs``)."""
         gs = list(gs)
         h = self.nin(gs[-1])
+        hs = []
+        drop = (train, dropout_generator)
         n_scales = len(self.blocks) // 2
         for i in range(n_scales):
-            h = self.blocks[2 * i](h, gs.pop())
+            h = self.blocks[2 * i](h, gs.pop(), *drop)
+            hs.append(h)
             if i < self.n_latent_scales:
                 z = (zs_posterior[i] if zs_posterior is not None
                      else _noise(eps, i, h, generator))
-                h = self.auto_blocks[i](h, z)
-            h = self.blocks[2 * i + 1](h, gs.pop())
+                h = self.auto_blocks[i](h, z, *drop)
+            h = self.blocks[2 * i + 1](h, gs.pop(), *drop)
+            hs.append(h)
             if i + 1 < n_scales:
                 h = self.ups[i](h)
-        return self.out_conv(h)
+        return self.out_conv(h), hs
 
 
 class VUNet(nn.Module):
-    """VUNet in the alter variant, inference only.
+    """VUNet in the alter variant.
 
     Every method takes and returns NHWC tensors.  Options of the JAX
-    package that this slice does not port raise NotImplementedError.
+    package that this package does not port raise NotImplementedError.
     """
 
     def __init__(self, spatial_size: int = 256, n_channels_x: int = 3,
@@ -178,6 +203,7 @@ class VUNet(nn.Module):
                  box_factor: int = 2, n_scales_cfg: int = 0,
                  subpixel_upsampling: bool = True,
                  conv_layer_type: str = "l1", variant: str = "alter",
+                 dropout_prob: float = 0.0, dropout_impl: str = "flax",
                  quant: str = "none", upsample_transpose: bool = False,
                  remat=False, dtype=torch.float32, device=None):
         super().__init__()
@@ -196,13 +222,28 @@ class VUNet(nn.Module):
         n_scales = compute_n_scales(spatial_size, bottleneck_factor,
                                     n_scales_cfg)
         n_scales_x = n_scales - box_factor if n_channels_x > 3 else n_scales
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dropout_prob=dropout_prob, dropout_impl=dropout_impl,
+                  dtype=dtype, device=device)
         self.eu = EncUp(n_channels_x, n_scales_x, nf_start, nf_max, **kw)
         self.ed = EncDown(self.eu.out_channels, nf_max, n_latent_scales,
                           **kw)
         self.du = EncUp(3, n_scales, nf_start, nf_max, **kw)
         self.dd = DecDown(self.du.out_channels, n_scales, nf_max, nf_start,
                           3, n_latent_scales, subpixel_upsampling, **kw)
+
+    def forward(self, x, c, train: bool = False, eps=None, generator=None,
+                dropout_generator=None):
+        """The training path: appearance x and stickman c (NHWC) through
+        eu, ed (posterior samples), du and dd; dropout only with
+        ``train=True``.  Returns (imgs, means,
+        logstds, ps, activations) as the JAX ``VUNet.__call__``: ``ps`` is
+        empty for the alter variant, activations are (hs, es, gs, ds)."""
+        drop = dict(train=train, dropout_generator=dropout_generator)
+        hs = self.eu(x, **drop)
+        es, means, logstds, zs = self.ed(hs, eps, generator, **drop)
+        gs = self.du(c, **drop)
+        imgs, ds = self.dd(gs, zs, **drop)
+        return imgs, means, logstds, [], (hs, es, gs, ds)
 
     def encode_means(self, x, eps=None, generator=None):
         """Posterior means and logstds of appearance x (once per video)."""
@@ -212,7 +253,7 @@ class VUNet(nn.Module):
     def transfer_cached(self, means, c):
         """Appearance transfer from pre-computed posterior means: only the
         shape encoder and the generator (du + dd) run per frame."""
-        return self.dd(self.du(c), list(means))
+        return self.dd(self.du(c), list(means))[0]
 
     def transfer(self, x, c, eps=None, generator=None):
         """Appearance transfer with the posterior means of x."""
@@ -221,14 +262,14 @@ class VUNet(nn.Module):
 
     def test_forward(self, c, eps=None, generator=None):
         """Appearance sampled from the prior given only the stickman."""
-        return self.dd(self.du(c), None, eps, generator)
+        return self.dd(self.du(c), None, eps, generator)[0]
 
 
 def vunet_from_config(config: Optional[dict], variant: str,
                       n_channels_x: Optional[int] = None, **overrides):
     """Build a VUNet from a run config (a plain dict with "architecture",
     "data" and "training" keys) with the JAX package's defaults;
-    ``overrides`` set serving-only options (dtype, device, ...)."""
+    ``overrides`` set options such as dtype and device."""
     config = config or {}
     arch = config.get("architecture", {})
     data = config.get("data", {})
@@ -247,9 +288,70 @@ def vunet_from_config(config: Optional[dict], variant: str,
         subpixel_upsampling=bool(arch.get("subpixel_upsampling", True)),
         conv_layer_type=str(arch.get("conv_layer_type", "l1")),
         variant=variant,
+        dropout_prob=float(training.get("dropout_prob", 0.0)),
+        dropout_impl=str(training.get("dropout_impl", "flax")),
         remat=training.get("remat", False) or False,
         dtype=(torch.bfloat16 if bool(training.get("bf16", True))
                else torch.float32),
     )
     kw.update(overrides)
     return VUNet(**kw)
+
+
+def latent_widths(spatial_size: int, bottleneck_factor: int = 2,
+                  n_scales_cfg: int = 0, n_latent_scales: int = 2
+                  ) -> List[int]:
+    """Sizes of the posterior means' maps, smallest first (the regressor's
+    ``latent_widths`` in the JAX experiment driver)."""
+    n_scales = compute_n_scales(spatial_size, bottleneck_factor,
+                                n_scales_cfg)
+    bottleneck = spatial_size // 2 ** (n_scales - 1)
+    return [bottleneck * 2 ** i for i in range(n_latent_scales)]
+
+
+class VunetRegressor(nn.Module):
+    """Latent -> 2D-pose probe (JAX ``models/vunet.py:528-558``): a VALID
+    conv embedder over each posterior mean, ReLU, flatten, concat, MLP.
+
+    As in the JAX package, embedder i takes ``latent_widths[i]`` as its
+    kernel size and the i-th mean from the END of the list, whose map is
+    ``latent_widths[-1 - i]`` wide.  An embedder whose kernel exceeds its
+    map gives an empty output there (XLA's VALID conv), so it adds no
+    features; its parameters exist all the same, so trees convert 1:1.
+    Layers: ``embedders.{i}`` (flax ``Conv_{i}``), ``linears.{j}``
+    (``Dense_{j}``); the math runs in f32 on NHWC maps.
+    """
+
+    def __init__(self, n_out: int, latent_widths: Sequence[int],
+                 nf_max: int = 128, linear_width_factor: int = 1,
+                 n_linear: int = 2, device=None):
+        super().__init__()
+        widths = list(latent_widths)
+        features = linear_width_factor * nf_max
+        self.embedders = nn.ModuleList(
+            nn.Conv2d(nf_max, features, w, device=device) for w in widths)
+        self.out_sizes = [max(widths[-1 - i] - w + 1, 0)
+                          for i, w in enumerate(widths)]
+        width = sum(features * s * s for s in self.out_sizes)
+        linears = []
+        for i in range(n_linear):
+            out = max(width // 2, n_out) if i < n_linear - 1 else n_out
+            linears.append(nn.Linear(width, out, device=device))
+            width = out
+        self.linears = nn.ModuleList(linears)
+
+    def forward(self, embeddings: Sequence[torch.Tensor]) -> torch.Tensor:
+        outs = []
+        for i, e in enumerate(reversed(list(embeddings))):
+            if self.out_sizes[i] == 0:
+                continue
+            conv = self.embedders[i]
+            y = torch.relu(conv2d_nhwc(e.float(), conv.weight, conv.bias,
+                                       1, 0))
+            outs.append(y.reshape(y.shape[0], -1))
+        h = torch.cat(outs, dim=-1)
+        for i, lin in enumerate(self.linears):
+            h = lin(h)
+            if i < len(self.linears) - 1:
+                h = torch.relu(h)
+        return h

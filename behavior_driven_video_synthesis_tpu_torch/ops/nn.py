@@ -1,4 +1,4 @@
-"""NN primitives of the serving path, NHWC at every public function.
+"""NN primitives of the VUNet and the flows, NHWC at every public function.
 
 Counterpart of ``behavior_driven_video_synthesis_tpu/ops/nn.py``.  Images
 stay NHWC as in the JAX package; a conv views its NHWC input as an NCHW
@@ -17,6 +17,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .cuda.elu_dropout import elu_dropout
 
 
 def space_to_depth(x: torch.Tensor, block_size: int = 2) -> torch.Tensor:
@@ -166,20 +168,58 @@ class Upsample(nn.Module):
         return depth_to_space(self.up(x), 2)
 
 
+DROPOUT_IMPLS = ("flax", "pallas")
+
+
+def check_dropout_impl(impl: str) -> None:
+    """Raise for a ``training.dropout_impl`` this package does not run."""
+    if impl in ("packed", "bits"):
+        raise NotImplementedError(
+            f"dropout_impl {impl!r} is not ported (TPU-only mask "
+            "representations, ROADMAP)")
+    if impl == "pallas_sharded":
+        raise NotImplementedError(
+            "dropout_impl 'pallas_sharded' is not ported yet (multi-device, "
+            "ROADMAP A14)")
+    if impl not in DROPOUT_IMPLS:
+        raise ValueError(f"unknown dropout_impl {impl!r}; expected one of "
+                         f"{DROPOUT_IMPLS}")
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - rate, survivors
+    scaled by 1 / (1 - rate); the mask comes from ``generator``."""
+    if rate <= 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    return x * keep / (1.0 - rate)
+
+
 class VunetRNB(nn.Module):
-    """Pre-activation residual block in eval mode (no dropout):
-    out = x + conv(elu([x] or [x, nin(elu(a))])).
+    """Pre-activation residual block:
+    out = x + conv(dropout(elu([x] or [x, nin(elu(a))]))).
 
     A residual block (``residual=True``) takes an auxiliary input of
     ``aux_channels`` channels through the 1x1 ``nin`` conv; its main conv
-    then sees 2*channels.
+    then sees 2*channels.  Dropout runs only with ``train=True`` and
+    ``dropout_prob > 0``: ``dropout_impl="flax"`` is ELU then
+    :func:`dropout`; ``"pallas"`` is the fused ELU+dropout kernel
+    (``ops/cuda/elu_dropout.py``) at each branch.  The masks come from the
+    ``generator`` passed to :meth:`forward`.
     """
 
     def __init__(self, channels: int, residual: bool = False,
                  aux_channels: Optional[int] = None, kernel_size: int = 3,
-                 activate: bool = True, dtype=torch.float32, device=None):
+                 activate: bool = True, dropout_prob: float = 0.0,
+                 dropout_impl: str = "flax", dtype=torch.float32,
+                 device=None):
         super().__init__()
+        check_dropout_impl(dropout_impl)
         self.residual, self.activate = residual, activate
+        self.dropout_prob, self.dropout_impl = dropout_prob, dropout_impl
         if residual:
             self.nin = NormConv2d(aux_channels or channels, channels, 1,
                                   dtype=dtype, device=device)
@@ -190,14 +230,24 @@ class VunetRNB(nn.Module):
     def _act(self, v):
         return F.elu(v) if self.activate else v
 
-    def forward(self, x: torch.Tensor,
-                a: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def _act_dropout(self, train: bool, generator):
+        """The activation of a conv input, with dropout when training."""
+        if not train or self.dropout_prob <= 0.0:
+            return self._act
+        if self.dropout_impl == "pallas" and self.activate:
+            return lambda v: elu_dropout(v, self.dropout_prob, generator)
+        return lambda v: dropout(self._act(v), self.dropout_prob, generator)
+
+    def forward(self, x: torch.Tensor, a: Optional[torch.Tensor] = None,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        act = self._act_dropout(train, generator)
         if a is not None:
             if not self.residual:
                 raise ValueError("auxiliary input to a non-residual VunetRNB")
             a = self.nin(self._act(a))
-            return x + self.conv(self._act(x), aux=self._act(a))
-        return x + self.conv(self._act(x))
+            return x + self.conv(act(x), aux=act(a))
+        return x + self.conv(act(x))
 
 
 class FullyConnectedNet(nn.Module):

@@ -1,0 +1,158 @@
+"""The cvbae VUNet training step.
+
+Counterpart of ``behavior_driven_video_synthesis_tpu/train/vunet_exp.py:
+107-252`` (``make_cvbae_train_step``).  One step:
+
+  loss = ll_weight * sum(vgg_loss levels)
+         + gamma * compute_kl_with_prior     [from step n_init_batches on;
+                                              gamma = 1 for ``cvae``]
+  one Adam update of the VUNet from the gradients averaged over
+  ``grad_accum`` sequential microbatches;
+  R Adam updates of the regressor, each predicting the keypoints of
+  ``reg_imgs[:, i]`` from the VUNet's posterior means taken without
+  gradient (with the VUNet's parameters from before its update);
+  the logged loss minus clip(loss_reg, max=1.2) * weight_regressor, a term
+  without gradient, as in the JAX step;
+  the gamma controller after the step.
+
+Parameters and optimizer states change in place; ``VunetTrainState`` holds
+the step count and gamma.  Posterior noise comes from ``eps`` (one list of
+tensors per microbatch) or the ``generator``; the regressor's encodings
+take ``reg_eps`` (one list per regressor image) or the same generator;
+dropout masks come from ``dropout_generator``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable, Dict, Optional, Sequence
+
+import torch
+
+from ..core import schedules
+from .losses import compute_kl_with_prior, vgg_loss
+
+
+@dataclass
+class VunetTrainState:
+    step: int = 0
+    gamma: torch.Tensor = field(default_factory=lambda: torch.zeros(()))
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm)."""
+    return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in tensors))
+
+
+def make_cvbae_train_step(vunet, regressor, perceptual, optimizers: dict,
+                          config: dict) -> Callable:
+    """``train_step(state, batch, generator=None, dropout_generator=None,
+    eps=None, reg_eps=None) -> metrics`` for a run config (a dict with
+    "training" and "architecture" sections).  ``batch`` holds NHWC
+    ``pose_img``, ``stickman``, optionally ``app_img`` (else the pose
+    image), and ``reg_imgs`` (B, R, S, S, 3) and ``reg_targets``
+    (B, R, K, 2) when the regressor trains."""
+    tr = config.get("training", {})
+    if bool(tr.get("use_gan", False)):
+        raise NotImplementedError("the cvbae GAN branch (use_gan) is not "
+                                  "ported yet (A11)")
+    ll_weight = float(tr.get("ll_weight", 1.0))
+    vgg_weights = list(tr.get("vgg_weights", [1.0] * 6))
+    w_reg = float(tr.get("weight_regressor", 4.0))
+    train_reg = bool(tr.get("train_regressor", True)) and regressor is not None
+    gamma_step = float(tr.get("gamma_step", 1e-5))
+    imax = float(tr.get("information_max", 1000.0))
+    imax_mode = str(tr.get("imax_scaling", "none"))
+    imax_total = int(tr.get("end_iteration", 150000))
+    n_init_batches = int(tr.get("n_init_batches", 4))
+    is_cvae = bool(config.get("architecture", {}).get("cvae", False))
+    grad_accum = int(tr.get("grad_accum", 1))
+    params = list(vunet.parameters())
+    opt, lr_schedule = optimizers["vunet"], optimizers["vunet_lr"]
+    opt_reg = optimizers.get("regressor")
+
+    def loss_fn(state, app, shape, target, eps, generator,
+                dropout_generator):
+        out, means, logstds, _, _ = vunet(
+            app, shape, train=True, eps=eps, generator=generator,
+            dropout_generator=dropout_generator)
+        ll_dict = vgg_loss(perceptual(target),
+                           perceptual(out.to(target.dtype)), vgg_weights)
+        likelihood = ll_weight * sum(ll_dict.values())
+        kl = compute_kl_with_prior(means, logstds)
+        loss = likelihood
+        if state.step >= n_init_batches:
+            loss = loss + (1.0 if is_cvae else state.gamma) * kl
+        aux = {"likelihood_loss": likelihood, "kl_loss": kl}
+        aux.update({f"ll_{k}": v for k, v in ll_dict.items()})
+        return loss, aux
+
+    def regressor_updates(batch, generator, reg_eps):
+        reg_imgs, reg_targets = batch["reg_imgs"], batch["reg_targets"]
+        loss_reg = None
+        for i in range(reg_imgs.shape[1]):
+            with torch.no_grad():
+                means, _ = vunet.encode_means(
+                    reg_imgs[:, i], None if reg_eps is None else reg_eps[i],
+                    generator)
+            tgt = reg_targets[:, i].reshape(reg_targets.shape[0], -1)
+            opt_reg.zero_grad(set_to_none=True)
+            preds = regressor(means)
+            loss_reg = torch.mean(torch.sqrt(
+                torch.sum((preds - tgt) ** 2, dim=1) + 1e-12))
+            loss_reg.backward()
+            opt_reg.step()
+        return loss_reg.detach()
+
+    def train_step(state: VunetTrainState, batch: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator] = None,
+                   dropout_generator: Optional[torch.Generator] = None,
+                   eps: Optional[Sequence[Sequence[torch.Tensor]]] = None,
+                   reg_eps: Optional[Sequence[Sequence[torch.Tensor]]] = None
+                   ) -> Dict[str, torch.Tensor]:
+        target = batch["pose_img"]
+        tensors = (batch.get("app_img", target), batch["stickman"], target)
+        bsz = target.shape[0]
+        if bsz % grad_accum:
+            raise ValueError(f"batch {bsz} not divisible by "
+                             f"grad_accum={grad_accum}")
+        micro = [t.split(bsz // grad_accum) for t in tensors]
+        opt.zero_grad(set_to_none=True)
+        losses, auxs = [], []
+        for i in range(grad_accum):
+            loss_i, aux_i = loss_fn(
+                state, micro[0][i], micro[1][i], micro[2][i],
+                None if eps is None else eps[i], generator,
+                dropout_generator)
+            loss_i.backward()
+            losses.append(loss_i.detach())
+            auxs.append({k: v.detach() for k, v in aux_i.items()})
+        grads = [p.grad for p in params if p.grad is not None]
+        if grad_accum > 1:
+            for g in grads:
+                g.div_(grad_accum)
+        loss = torch.mean(torch.stack(losses))
+        aux = {k: torch.mean(torch.stack([a[k] for a in auxs]))
+               for k in auxs[0]}
+
+        loss_reg = torch.zeros((), device=target.device)
+        if train_reg:
+            loss_reg = regressor_updates(batch, generator, reg_eps)
+            loss = loss - torch.clamp(loss_reg, max=1.2) * w_reg
+
+        grad_norm = global_norm(grads)
+        opt.step()
+        lr_schedule.step()
+        imax_t = schedules.imax_schedule(state.step, imax_total, imax,
+                                         imax_mode)
+        state.gamma = schedules.update_gamma(
+            state.gamma.to(target.device), aux["kl_loss"], imax_t,
+            gamma_step)
+        state.step += 1
+        metrics = {"loss": loss, "grad_norm": grad_norm,
+                   "likelihood_loss": aux["likelihood_loss"],
+                   "kl_loss": aux["kl_loss"], "gamma": state.gamma,
+                   "loss_reg": loss_reg}
+        metrics.update({k: v for k, v in aux.items() if k.startswith("ll_")})
+        return metrics
+
+    return train_step

@@ -7,10 +7,13 @@ Run it from the root of a checkout, on a machine with one CUDA device, the
 CUDA toolkit (nvcc) and PyTorch.  It imports no JAX.  Phases:
 
 1. the card: its name and power limit;
-2. the build of every CUDA kernel of the serving path from ``csrc/``, with
-   nvcc's register, shared-memory and spill report;
-3. each kernel against its plain PyTorch version at the serving path's
-   shapes, both timed with CUDA events;
+2. the build of every CUDA kernel from ``csrc/`` (one nvcc per source, all
+   started together), with nvcc's register, shared-memory and spill report;
+3. each kernel against its plain PyTorch version at its main path's
+   shapes, both timed with CUDA events: the rollout at the serving path's,
+   the ELU+dropout forward and backward at the VUNet's largest dropout
+   site (12, 256, 256, 32) bf16 and at a ragged f32 size, with
+   ``F.dropout(F.elu(x))`` timed beside them as a yardstick;
 4. the full-width serving slice at ``bench.py``'s shapes (B=20, T=50,
    256 px, HID 1024, 48 of 51 keypoints, a 15-flow LatentFlow of mid width
    2048 in f32, VUNet-alter nf 32->128 in bf16) on seeded random weights
@@ -19,7 +22,16 @@ CUDA toolkit (nvcc) and PyTorch.  It imports no JAX.  Phases:
 5. the serving CLI in-process at a small width, from .npz parameter files
    and a request file written here from a numpy seed;
 6. the port at small width against ``tests/golden/torch_port_slice_small.npz``
-   (outputs of the JAX package), in f32 with TF32 off.
+   (outputs of the JAX package), in f32 with TF32 off;
+7. cvbae VUNet training at full width through ``bdvs-train-torch``'s
+   ``main`` in-process: ``configs/shape_and_pose_net.yaml`` (256 px, B=12,
+   nf 32->128, regressor on, dropout 0.05, bf16) with
+   ``dropout_impl: pallas`` and 6 steps; every step must be finite and
+   launch each ELU+dropout kernel once per dropout site; the written
+   ``synth.npz`` then serves one ``transfer_cached`` call;
+8. the port's cvbae step at small width against
+   ``tests/golden/torch_port_train_small.npz`` (two JAX steps), in f32 with
+   TF32 off.
 
 The last two lines are a JSON object of kernel results and
 ``{"ok": true, "device": {...}}``; any failure exits non-zero before them.
@@ -33,12 +45,22 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+import yaml
 
 # the script's directory, the checkout's root, is first on sys.path
 from behavior_driven_video_synthesis_tpu_torch import generate as cli
+from behavior_driven_video_synthesis_tpu_torch import main as train_cli
+from behavior_driven_video_synthesis_tpu_torch.core.config import (
+    deep_merge, load_config)
+from behavior_driven_video_synthesis_tpu_torch.experiments import (
+    shape_and_pose_net)
+from behavior_driven_video_synthesis_tpu_torch.flax_npz import (
+    flatten_tree, unflatten_tree)
 from behavior_driven_video_synthesis_tpu_torch.data.human36m import (
     detailed_joint_model)
 from behavior_driven_video_synthesis_tpu_torch.geometry.stickman import (
@@ -48,12 +70,20 @@ from behavior_driven_video_synthesis_tpu_torch.models.behavior import (
     ResidualBehaviorNet, decoder_rollout_kernel)
 from behavior_driven_video_synthesis_tpu_torch.models.flows import LatentFlow
 from behavior_driven_video_synthesis_tpu_torch.models.init import init_random_
-from behavior_driven_video_synthesis_tpu_torch.models.vunet import VUNet
+from behavior_driven_video_synthesis_tpu_torch.models.perceptual import (
+    LaplacianPyramidFeatures)
+from behavior_driven_video_synthesis_tpu_torch.models.vunet import (
+    VUNet, VunetRegressor, latent_widths, vunet_from_config)
+from behavior_driven_video_synthesis_tpu_torch.ops.cuda import elu_dropout
 from behavior_driven_video_synthesis_tpu_torch.ops.cuda import rollout
 from behavior_driven_video_synthesis_tpu_torch.ops.cuda.build import (
     build_log, load_library)
 from behavior_driven_video_synthesis_tpu_torch.pipeline import (
     BehaviorTransferPipeline)
+from behavior_driven_video_synthesis_tpu_torch.train.state import (
+    make_vunet_optimizers)
+from behavior_driven_video_synthesis_tpu_torch.train.vunet_exp import (
+    VunetTrainState, make_cvbae_train_step)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEV = torch.device("cuda")
@@ -62,6 +92,27 @@ SLICE = dict(B=20, T=50, S=256, HID=1024, K_FULL=51, K_USE=48, NF_START=32,
              NF_MAX=128, N_FLOWS=15)
 ROLLOUT_SHAPES = [(20, 48, 1024, 50), (1, 48, 1024, 50), (3, 51, 1024, 7)]
 GOLDEN = os.path.join(ROOT, "tests", "golden", "torch_port_slice_small.npz")
+TRAIN_GOLDEN = os.path.join(ROOT, "tests", "golden",
+                            "torch_port_train_small.npz")
+TRAIN_CONFIG = os.path.join(ROOT, "configs", "shape_and_pose_net.yaml")
+TRAIN_STEPS = 6
+# the VUNet's dropout sites at 256 px, 7 scales, 2 latent scales: 14 RNBs
+# in each EncUp (one site each), 5 residual RNBs in EncDown and 16 in
+# DecDown (two sites each)
+DROPOUT_SITES = 14 + 14 + 2 * 5 + 2 * 16
+# sites whose output reaches no loss term, so autograd never runs their
+# backward (nor does XLA, which drops them as dead code): EncDown's last
+# two residual blocks (the second block of the last latent scale and
+# fin_block) feed only EncDown's returned features
+DEAD_BACKWARD_SITES = 2 * 2
+ELU_DROPOUT_SHAPES = [((12, 256, 256, 32), torch.bfloat16),
+                      ((1000003,), torch.float32)]
+ELU_DROPOUT_RATES = (0.05, 0.5)
+# NVIDIA's H100 SXM data sheet: HBM rate, bf16 dense tensor-core and f32
+# (outside the tensor cores) peaks, at 700 W
+HBM_BYTES_PER_S = 3.35e12
+BF16_TENSOR_FLOPS = 989e12
+F32_FLOPS = 67e12
 RESULTS = {}
 
 
@@ -110,12 +161,19 @@ def phase_card():
 
 
 # -- 2. the build -------------------------------------------------------------
+KERNEL_SOURCES = ("rollout", "elu_dropout")
+
+
 def phase_build():
     t0 = time.perf_counter()
-    load_library("rollout")
-    log(f"[2] csrc/rollout.cu built and loaded in "
-        f"{time.perf_counter() - t0:.1f} s")
-    log(build_log("rollout").strip())
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        for lib in pool.map(load_library, KERNEL_SOURCES):
+            check(lib is not None, "a kernel library did not load")
+    log(f"[2] csrc/{{{','.join(KERNEL_SOURCES)}}}.cu built in parallel and "
+        f"loaded in {time.perf_counter() - t0:.1f} s")
+    for name in KERNEL_SOURCES:
+        log(f"    csrc/{name}.cu:")
+        log(build_log(name).strip())
     cfg = rollout.rollout_config(20, 48, 1024)
     log(f"    launch at (B, K, H) = (20, 48, 1024): {cfg}")
     RESULTS["rollout_config"] = cfg
@@ -184,6 +242,125 @@ def phase_kernel():
         + f"; plain f32 {plain32:.4f} ms")
     RESULTS["rollout_times_ms"] = dict(order=times, plain_f32=plain32)
     return max(errs), ms, plain_ms
+
+
+def rollout_bound_ms(B, K, H, T):
+    """Least time of the rollout at (B, K, H, T): its bytes (bf16 weights
+    and f32 inputs read once, the f32 output written once) over the HBM
+    rate, against its gate and output products at the bf16 tensor-core
+    peak.  (The T steps depend on each other, which this bound ignores.)"""
+    weights = 2 * (4 * H * K + 4 * H * H + K * H)
+    vectors = 4 * (2 * 4 * H + K + B * H + B * K) + 4 * B * T * K
+    flops = T * (2 * B * (K + H) * 4 * H + 2 * B * H * K)
+    t_bytes = (weights + vectors) / HBM_BYTES_PER_S
+    t_ops = flops / BF16_TENSOR_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def elu_dropout_bound_ms(n, dtype, backward):
+    """Least time of one ELU+dropout pass over n elements: x (and ct) read
+    once, out written once, against ~4 f32 operations an element (the
+    compare, exp, product and select) at the f32 peak outside the tensor
+    cores; Philox's integer work has no entry in the data sheet's table
+    and is left out."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    t_bytes = (3 if backward else 2) * n * size / HBM_BYTES_PER_S
+    t_ops = 4 * n / F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def ulp_ok(out, ref):
+    """|out - ref| within one ulp of ref in bf16, within 1e-6 in f32."""
+    if out.dtype == torch.bfloat16:
+        ulp = torch.finfo(torch.bfloat16).eps * ref.float().abs().clamp(
+            min=torch.finfo(torch.bfloat16).tiny)
+        return bool(((out.float() - ref.float()).abs() <= ulp).all())
+    return bool(((out - ref).abs() <= 1e-6).all())
+
+
+def phase_elu_dropout():
+    log("[3] ELU+dropout kernels vs plain PyTorch (the same Philox stream: "
+        "0 keep-decision mismatches; values within 1 bf16 ulp, or 1e-6 in "
+        "f32; drop fraction within 5 sigma of the rate)")
+    g = torch.Generator(device=DEV).manual_seed(0)
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    for shape, dtype in ELU_DROPOUT_SHAPES:
+        x = torch.randn(shape, generator=g, device=DEV).to(dtype)
+        ct = torch.randn(shape, generator=g, device=DEV).to(dtype)
+        for rate in ELU_DROPOUT_RATES:
+            seed = elu_dropout.draw_seed(DEV, g)
+            y = elu_dropout.elu_dropout_forward(x, seed, rate)
+            dx = elu_dropout.elu_dropout_backward(x, ct, seed, rate)
+            torch.cuda.synchronize()
+            y_ref = elu_dropout.elu_dropout_plain(x, seed, rate)
+            dx_ref = elu_dropout.elu_dropout_backward_plain(x, ct, seed,
+                                                            rate)
+            thresh, _ = elu_dropout.keep_params(rate)
+            keep = (elu_dropout.dropout_bits(seed, x.numel()) < thresh
+                    ).reshape(shape)
+            # an element is dropped iff it is 0 where ELU is not 0
+            live = F.elu(x.float()) != 0
+            mism = int(((y != 0) != keep)[live].sum()
+                       + ((y_ref != 0) != keep)[live].sum()
+                       + ((dx != 0) != keep)[live & (ct != 0)].sum())
+            drop = 1.0 - float(keep.float().mean())
+            sigma = (rate * (1 - rate) / x.numel()) ** 0.5
+            e_fwd = float((y.float() - y_ref.float()).abs().max())
+            e_bwd = float((dx.float() - dx_ref.float()).abs().max())
+            ok = (mism == 0 and abs(drop - rate) <= 5 * sigma
+                  and ulp_ok(y, y_ref) and ulp_ok(dx, dx_ref)
+                  and y.dtype == dtype and dx.dtype == dtype)
+            log(f"    {tuple(shape)} {str(dtype)[6:]} rate {rate}: keep "
+                f"mismatches {mism}, drop fraction {drop:.6f} "
+                f"({(drop - rate) / sigma:+.2f} sigma), max|fwd-plain| "
+                f"{e_fwd:.3e}, max|bwd-plain| {e_bwd:.3e} "
+                f"({'ok' if ok else 'FAIL'})")
+            RESULTS.setdefault("elu_dropout_vs_plain", []).append(dict(
+                shape=list(shape), dtype=str(dtype), rate=rate,
+                keep_mismatches=mism, drop_fraction=drop,
+                max_abs_err_fwd=e_fwd, max_abs_err_bwd=e_bwd))
+            check(ok, f"ELU+dropout kernels disagree with their plain "
+                  f"versions at {tuple(shape)} {dtype} rate {rate}")
+            errs["fwd"] = max(errs["fwd"], e_fwd)
+            errs["bwd"] = max(errs["bwd"], e_bwd)
+    # time at the largest dropout site of the training path
+    shape, dtype = ELU_DROPOUT_SHAPES[0]
+    rate = 0.05
+    x = torch.randn(shape, generator=g, device=DEV).to(dtype)
+    ct = torch.randn(shape, generator=g, device=DEV).to(dtype)
+    seed = elu_dropout.draw_seed(DEV, g)
+    xg = x.clone().requires_grad_(True)
+    y_lib = F.dropout(F.elu(xg), rate)
+    fns = {
+        "fwd": (lambda: elu_dropout.elu_dropout_forward(x, seed, rate),
+                lambda: elu_dropout.elu_dropout_plain(x, seed, rate),
+                lambda: F.dropout(F.elu(x), rate)),
+        "bwd": (lambda: elu_dropout.elu_dropout_backward(x, ct, seed, rate),
+                lambda: elu_dropout.elu_dropout_backward_plain(x, ct, seed,
+                                                               rate),
+                lambda: torch.autograd.grad(y_lib, xg, ct,
+                                            retain_graph=True)),
+    }
+    out = {}
+    for d, (kernel, plain, library) in fns.items():
+        order = [("plain", plain, 5), ("kernel", kernel, 50),
+                 ("kernel", kernel, 50), ("plain", plain, 5)]
+        times = [(n, cuda_ms(fn, it)) for n, fn, it in order]
+        lib_ms = cuda_ms(library, 50)
+        ms = float(np.mean([t for n, t in times if n == "kernel"]))
+        plain_ms = float(np.mean([t for n, t in times if n == "plain"]))
+        bound, bound_by = elu_dropout_bound_ms(x.numel(), dtype, d == "bwd")
+        log(f"    {d} at {shape} bf16 rate {rate} (plain, kernel, kernel, "
+            f"plain): " + ", ".join(f"{n} {t:.4f} ms" for n, t in times)
+            + f"; library {lib_ms:.4f} ms; bound {bound:.4f} ms "
+            f"({bound_by})")
+        RESULTS[f"elu_dropout_{d}_times_ms"] = dict(
+            order=times, library=lib_ms, bound=bound)
+        out[d] = dict(max_abs_err=errs[d], ms=ms, plain_ms=plain_ms,
+                      library_ms=lib_ms, bound_ms=bound, bound_by=bound_by)
+    return out
 
 
 # -- 4. the full-width slice --------------------------------------------------
@@ -436,6 +613,274 @@ def phase_golden():
           and ok_xs, "golden flow/rollout out of tolerance")
 
 
+# -- 7. cvbae training at full width -----------------------------------------
+class StepRecorder:
+    """Wraps the training step that ``make_cvbae_train_step`` returns:
+    each step runs between two ``torch.cuda.synchronize()`` calls and is
+    recorded with its metrics, its ELU+dropout launches and the host time
+    since the previous step ended (the data pipeline's share)."""
+
+    def __init__(self):
+        self.steps, self.last, self._end = [], None, None
+
+    def make(self, *args, **kwargs):
+        step = make_cvbae_train_step(*args, **kwargs)
+
+        def recorded(state, batch, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            data_ms = (t0 - self._end) * 1e3 if self._end else None
+            fwd0 = elu_dropout.elu_dropout_fwd_launches
+            bwd0 = elu_dropout.elu_dropout_bwd_launches
+            metrics = step(state, batch, **kw)
+            torch.cuda.synchronize()
+            self._end = time.perf_counter()
+            self.steps.append(dict(
+                step=state.step, ms=(self._end - t0) * 1e3, data_ms=data_ms,
+                fwd_launches=elu_dropout.elu_dropout_fwd_launches - fwd0,
+                bwd_launches=elu_dropout.elu_dropout_bwd_launches - bwd0,
+                **{k: float(v) for k, v in metrics.items()}))
+            self.last = (step, state, batch, kw)
+            return metrics
+        return recorded
+
+
+def train_config(base_dir):
+    cfg = load_config(TRAIN_CONFIG)
+    return deep_merge(cfg, {
+        "general": {"base_dir": base_dir, "project_name": "chip_smoke"},
+        "training": {"dropout_impl": "pallas",
+                     "end_iteration": TRAIN_STEPS}})
+
+
+def site_shapes(recorder):
+    """(numel, dtype) of every forward and every backward launch of one
+    training step."""
+    step, state, batch, kw = recorder.last
+    shapes = {"fwd": [], "bwd": []}
+    fwd, bwd = elu_dropout._launch_fwd, elu_dropout._launch_bwd
+
+    def spy_fwd(x, seed, rate):
+        shapes["fwd"].append((x.numel(), x.dtype))
+        return fwd(x, seed, rate)
+
+    def spy_bwd(x, ct, seed, rate):
+        shapes["bwd"].append((x.numel(), x.dtype))
+        return bwd(x, ct, seed, rate)
+    elu_dropout._launch_fwd, elu_dropout._launch_bwd = spy_fwd, spy_bwd
+    try:
+        step(state, batch, **kw)
+    finally:
+        elu_dropout._launch_fwd, elu_dropout._launch_bwd = fwd, bwd
+    return shapes
+
+
+def per_step_bound_ms(shapes):
+    """Bound of a step's ELU+dropout work, launch by launch."""
+    return sum(elu_dropout_bound_ms(n, dtype, d == "bwd")[0]
+               for d, launches in shapes.items() for n, dtype in launches)
+
+
+def profile_step(recorder, step_ms):
+    """Device busy time and the costliest kernels of one training step
+    under torch.profiler; the idle share is taken against the profiled
+    step's wall time and against ``step_ms``, the unprofiled median step.
+    None where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step, state, batch, kw = recorder.last
+    step(state, batch, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, **kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # the kernels themselves: an operator's entry, or a range annotated on
+    # the device's timeline (Optimizer.step), would count kernels twice
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if busy_ms == 0:
+        return None
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    elu = {d: [(e.self_device_time_total / 1e3, e.count) for e in events
+               if "elu_dropout_kernel" in e.key and f"::{op}," in e.key]
+           for d, op in (("fwd", "Fwd"), ("bwd", "Bwd"))}
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                elu_dropout_ms={d: sum(t for t, _ in v)
+                                for d, v in elu.items()},
+                elu_dropout_launches={d: sum(c for _, c in v)
+                                      for d, v in elu.items()},
+                idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+                idle_share_unprofiled=max(0.0, 1.0 - busy_ms / step_ms),
+                top=[(e.key[:90], e.self_device_time_total / 1e3, e.count)
+                     for e in top])
+
+
+def phase_train():
+    base = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    cfg = train_config(base)
+    path = os.path.join(base, "config.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    recorder = StepRecorder()
+    made = shape_and_pose_net.make_cvbae_train_step
+    shape_and_pose_net.make_cvbae_train_step = recorder.make
+    elu_dropout.elu_dropout_fwd_launches = 0   # counts start here: the
+    elu_dropout.elu_dropout_bwd_launches = 0   # main path of training
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        out = train_cli.main(["-c", path, "--device", "cuda"])
+    finally:
+        shape_and_pose_net.make_cvbae_train_step = made
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (elu_dropout.elu_dropout_fwd_launches,
+                elu_dropout.elu_dropout_bwd_launches)
+    peak = torch.cuda.max_memory_allocated()
+    steps = recorder.steps
+    batch = int(cfg["training"]["batch_size"])
+    log(f"[7] cvbae training, {TRAIN_STEPS} steps at full width through "
+        f"bdvs-train-torch's main: {wall:.1f} s in all; VUNet "
+        f"{out['n_params']:,} parameters")
+    for r in steps:
+        log(f"    step {r['step']}: loss {r['loss']:.6g} (likelihood "
+            f"{r['likelihood_loss']:.6g}, kl {r['kl_loss']:.6g}, gamma "
+            f"{r['gamma']:.3g}, loss_reg {r['loss_reg']:.4g}, grad_norm "
+            f"{r['grad_norm']:.4g}); {r['ms']:.2f} ms; data "
+            + ("-" if r["data_ms"] is None else f"{r['data_ms']:.2f}")
+            + f" ms; launches fwd {r['fwd_launches']} bwd "
+            f"{r['bwd_launches']}")
+    accum = int(cfg["training"].get("grad_accum", 1))
+    per_step = DROPOUT_SITES * accum
+    per_step_bwd = (DROPOUT_SITES - DEAD_BACKWARD_SITES) * accum
+    check(len(steps) == TRAIN_STEPS, f"{len(steps)} training steps")
+    check(all(np.isfinite(r[k]) for r in steps
+              for k in ("loss", "likelihood_loss", "kl_loss", "grad_norm")),
+          "a training step's loss is not finite")
+    check(all(r["fwd_launches"] == per_step
+              and r["bwd_launches"] == per_step_bwd for r in steps),
+          f"a training step did not launch the ELU+dropout kernels "
+          f"{per_step} (forward) and {per_step_bwd} (backward) times")
+    check(launches == (per_step * TRAIN_STEPS, per_step_bwd * TRAIN_STEPS),
+          f"ELU+dropout launches {launches}")
+    check(steps[-1]["gamma"] >= 0 and any(r["kl_loss"] > 0 for r in steps),
+          "the KL term never opened")
+    step_ms = float(np.median([r["ms"] for r in steps[1:]]))
+    data_ms = float(np.median([r["data_ms"] for r in steps[1:]]))
+    log(f"    median step after the first {step_ms:.2f} ms, "
+        f"{batch * 1e3 / step_ms:.1f} img/s; median host data time "
+        f"{data_ms:.2f} ms a step; peak memory {peak / 2**30:.2f} GiB")
+    shapes = site_shapes(recorder)
+    check(len(shapes["fwd"]) == per_step and len(shapes["bwd"])
+          == per_step_bwd, f"sites in one step: {shapes}")
+    bound_ms = per_step_bound_ms(shapes)
+    elems = sum(n for n, _ in shapes["fwd"])
+    prof = profile_step(recorder, step_ms)
+    if prof is None:
+        log(f"    ELU+dropout per step: {per_step} sites, {elems:,} "
+            f"elements, bound {bound_ms:.3f} ms; profiler: no device time "
+            f"seen, so kernel time and idle share not measured")
+    else:
+        log(f"    ELU+dropout per step: {per_step} sites, {elems:,} "
+            f"elements; device time (profiler) fwd "
+            f"{prof['elu_dropout_ms']['fwd']:.3f} ms in "
+            f"{prof['elu_dropout_launches']['fwd']} launches + bwd "
+            f"{prof['elu_dropout_ms']['bwd']:.3f} ms in "
+            f"{prof['elu_dropout_launches']['bwd']}; bound {bound_ms:.3f} ms")
+        log(f"    profiled step: wall {prof['wall_ms']:.2f} ms, device busy "
+            f"{prof['device_busy_ms']:.2f} ms, idle share "
+            f"{prof['idle_share']:.3f} ({prof['idle_share_unprofiled']:.3f} "
+            f"of the unprofiled median step); top kernels (ms, calls):")
+        for name, ms, count in prof["top"]:
+            log(f"      {ms:9.3f} {count:5d}  {name}")
+    RESULTS["train"] = dict(
+        steps=steps, step_ms_median=step_ms, img_per_s=batch * 1e3 / step_ms,
+        data_ms_median=data_ms, peak_gib=peak / 2**30, wall_s=wall,
+        launches=list(launches), sites=per_step, site_elements=elems,
+        kernel_bound_ms_per_step=bound_ms, profile=prof,
+        vunet_params=out["n_params"])
+    serve_trained(out["synth_params"])
+    return launches
+
+
+def serve_trained(synth_params):
+    """The run's synth.npz, strictly into a serving VUNet, and one
+    transfer_cached call."""
+    tree, cfg = cli._load_params(synth_params)
+    vunet = vunet_from_config(cfg, "alter", dtype=torch.bfloat16,
+                              remat=False, device=DEV).eval()
+    vunet.load_state_dict(convert.vunet_alter_from_flax(tree["vunet"]),
+                          strict=True)
+    S = vunet.spatial_size
+    g = torch.Generator(device=DEV).manual_seed(3)
+    app = torch.rand(2, S, S, 3, generator=g, device=DEV) * 2 - 1
+    stick = torch.rand(2, S, S, 3, generator=g, device=DEV) * 2 - 1
+    with torch.inference_mode():
+        means, _ = vunet.encode_means(app, generator=g)
+        frames = vunet.transfer_cached(means, stick)
+    check(frames.shape == (2, S, S, 3)
+          and bool(torch.isfinite(frames.float()).all()),
+          "the trained synth.npz does not serve")
+    log(f"    synth.npz loaded strictly and served: frames "
+        f"{tuple(frames.shape)}, mean |frame| "
+        f"{float(frames.float().abs().mean()):.4f}")
+
+
+# -- 8. the training step against the JAX package's golden -------------------
+def phase_train_golden():
+    with np.load(TRAIN_GOLDEN) as data:
+        g = unflatten_tree({k: data[k] for k in data.files})
+    cfg = json.loads(bytes(g["config"]).decode())
+    tr, arch = cfg["training"], cfg["architecture"]
+    S = int(cfg["data"]["spatial_size"])
+    vunet = vunet_from_config(cfg, "alter", device=DEV)
+    vunet.load_state_dict(convert.vunet_alter_from_flax(
+        g["params"]["vunet"]))
+    reg = g["params"]["regressor"]
+    n_linear = sum(1 for k in reg if k.startswith("Dense_"))
+    regressor = VunetRegressor(
+        reg[f"Dense_{n_linear - 1}"]["bias"].shape[0],
+        latent_widths(S, n_latent_scales=int(arch["n_latent_scales"])),
+        nf_max=int(arch["nf_max"]), n_linear=n_linear, device=DEV)
+    regressor.load_state_dict(convert.vunet_regressor_from_flax(reg))
+    vunet.train()
+    step = make_cvbae_train_step(
+        vunet, regressor, LaplacianPyramidFeatures(),
+        make_vunet_optimizers(vunet, regressor, tr), cfg)
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in g["batch"].items()}
+    B, R = batch["pose_img"].shape[0], batch["reg_imgs"].shape[1]
+    noise = [torch.from_numpy(g["noise"][str(B)][str(i)]).to(DEV)
+             for i in range(len(g["noise"][str(B)]))]
+    state = VunetTrainState(gamma=torch.zeros((), device=DEV))
+    worst = {}
+    for i in sorted(g["metrics"]):
+        m = step(state, batch, eps=[noise], reg_eps=[noise] * R)
+        for k, ref in g["metrics"][i].items():
+            ref = float(ref)
+            err = abs(float(m[k]) - ref)
+            tol = 1e-4 * abs(ref) + (1e-5 if k == "loss" else 0.0)
+            worst[k] = max(worst.get(k, 0.0), err / tol if tol else err)
+    after = {"vunet": convert.vunet_alter_to_flax(vunet.state_dict()),
+             "regressor": convert.vunet_regressor_to_flax(
+                 regressor.state_dict())}
+    ref_after = flatten_tree(g["after"])
+    d_params = max(float(np.abs(v - ref_after[k]).max())
+                   for k, v in flatten_tree(after).items())
+    log(f"[8] golden cvbae step x{len(g['metrics'])} (f32, TF32 off): worst "
+        f"metric error / tolerance " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(worst.items()))
+        + f"; max |param - JAX| after Adam {d_params:.2e} (<= 1e-4)")
+    RESULTS["golden_train"] = dict(err_over_tol=worst, params=d_params)
+    check(all(v <= 1.0 for k, v in worst.items())
+          and d_params <= 1e-4, "golden training step out of tolerance")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch "
                                  "port on one NVIDIA GPU")
@@ -451,16 +896,27 @@ def main(argv=None):
     name = phase_card()
     phase_build()
     max_err, ms, plain_ms = phase_kernel()
+    elu = phase_elu_dropout()
     launches = phase_slice()
     phase_cli()
     phase_golden()
+    elu_launches = phase_train()
+    phase_train_golden()
+    bound, bound_by = rollout_bound_ms(*ROLLOUT_SHAPES[0])
+    source = "behavior_driven_video_synthesis_tpu_torch/csrc/"
+    pallas = "behavior_driven_video_synthesis_tpu/ops/pallas/"
     kernels = {"kernels": [{
         "name": "residual_lstm_rollout", "route": "cuda",
-        "source": "behavior_driven_video_synthesis_tpu_torch/csrc/rollout.cu",
-        "replaces": "behavior_driven_video_synthesis_tpu/ops/pallas/"
-                    "rollout.py:26",
+        "source": source + "rollout.cu", "replaces": pallas + "rollout.py:26",
         "launches": launches, "max_abs_err": max_err, "ms": ms,
-        "plain_ms": plain_ms}]}
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+        "library_ms": None}] + [{
+            "name": f"elu_dropout_{d}", "route": "cuda",
+            "source": source + "elu_dropout.cu",
+            "replaces": pallas + f"elu_dropout.py:{line}",
+            "launches": n, **elu[d]}
+        for d, line, n in (("fwd", 83, elu_launches[0]),
+                           ("bwd", 95, elu_launches[1]))]}
     RESULTS.update(kernels)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

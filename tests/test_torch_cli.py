@@ -50,12 +50,27 @@ def param_files(tmp_path_factory):
     return d
 
 
-def _run(param_files, out, *extra):
+def _run(param_files, out, *extra, device=("--device", "cpu")):
     return generate.main([
         "--behavior_params", str(param_files / "behavior.npz"),
         "--synth_params", str(param_files / "synth.npz"),
-        "--length", "3", "--batch", "2", "--device", "cpu",
+        "--length", "3", "--batch", "2", *device,
         "--out", str(out), *extra])
+
+
+def test_cli_runs_on_cuda_unless_told_otherwise(param_files, tmp_path,
+                                                monkeypatch):
+    """Without --device the CLI takes the card; with no card it stops
+    with a message instead of serving on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as e:
+        _run(param_files, tmp_path / "served", device=())
+    assert e.value.code != 0
+    assert "no CUDA device" in str(e.value.code)
+    assert "--device cpu" in str(e.value.code)
+    assert not (tmp_path / "served").exists()
+    man = _run(param_files, tmp_path / "served")
+    assert man["device"] == "cpu" and len(man["videos"]) == 2
 
 
 def test_cli_sample_mode(param_files, tmp_path):
@@ -133,6 +148,10 @@ def test_port_imports_no_jax():
         "import behavior_driven_video_synthesis_tpu_torch.pipeline\n"
         "import behavior_driven_video_synthesis_tpu_torch.generate\n"
         "import behavior_driven_video_synthesis_tpu_torch.ops.cuda.rollout\n"
+        "import behavior_driven_video_synthesis_tpu_torch.ops.cuda.elu_dropout\n"
+        "import behavior_driven_video_synthesis_tpu_torch.main\n"
+        "import behavior_driven_video_synthesis_tpu_torch.experiments."
+        "shape_and_pose_net\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'behavior_driven_video_synthesis_tpu'))\n"
         "assert not bad, bad\n")

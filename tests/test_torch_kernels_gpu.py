@@ -1,14 +1,17 @@
-"""The CUDA rollout kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked ``gpu``; without a CUDA device every test skips.  The card's machine
 has no JAX, which ``tests/conftest.py`` imports, so run them there with
 
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu --noconftest -q
 
-Tolerance: the kernel and the bf16-operand plain version round the same
-operands to bf16 and accumulate in f32; they differ only in summation
-order (atomics included) and in the rare bf16 rounding flip of h that this
-causes, so atol 1e-2, rtol 1e-2.
+Tolerances.  Rollout: the kernel and the bf16-operand plain version round
+the same operands to bf16 and accumulate in f32; they differ only in
+summation order (atomics included) and in the rare bf16 rounding flip of h
+that this causes, so atol 1e-2, rtol 1e-2.  ELU+dropout: the plain version
+computes the kernel's Philox stream, so the keep decisions agree exactly;
+values within one bf16 ulp (bf16) or 1e-6 (f32), for expm1f/expf may
+differ from torch's in the last f32 bit.
 """
 import numpy as np
 import pytest
@@ -20,6 +23,9 @@ from behavior_driven_video_synthesis_tpu_torch.models import (
     ResidualBehaviorNet)
 from behavior_driven_video_synthesis_tpu_torch.models.init import init_random_
 from behavior_driven_video_synthesis_tpu_torch.models.vunet import VUNet
+from behavior_driven_video_synthesis_tpu_torch.ops import nn as pnn
+from behavior_driven_video_synthesis_tpu_torch.ops.cuda import (
+    elu_dropout as E)
 from behavior_driven_video_synthesis_tpu_torch.ops.cuda import rollout as R
 from behavior_driven_video_synthesis_tpu_torch.pipeline import (
     BehaviorTransferPipeline)
@@ -94,3 +100,65 @@ def test_pipeline_on_cuda_launches_the_kernel_once(cuda):
     assert R.rollout_launches == before + 1
     assert out["frames"].shape == (B, T, 32, 32, 3)
     assert bool(torch.isfinite(out["frames"]).all())
+
+
+def _within_one_ulp(out, ref):
+    if out.dtype == torch.bfloat16:
+        ulp = torch.finfo(torch.bfloat16).eps * ref.float().abs().clamp(
+            min=torch.finfo(torch.bfloat16).tiny)
+        return bool(((out.float() - ref.float()).abs() <= ulp).all())
+    return bool(((out - ref).abs() <= 1e-6).all())
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((12, 256, 256, 32), torch.bfloat16), ((1000003,), torch.float32),
+    ((2, 33, 17, 5), torch.bfloat16), ((3,), torch.float32),
+    ((9,), torch.bfloat16), ((4, 64, 64, 128), torch.float32)])
+@pytest.mark.parametrize("rate", [0.05, 0.5])
+def test_elu_dropout_kernels_match_plain(cuda, shape, dtype, rate):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    ct = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    seed = E.draw_seed(cuda, g)
+    before = (E.elu_dropout_fwd_launches, E.elu_dropout_bwd_launches)
+    y = E.elu_dropout_forward(x, seed, rate)
+    dx = E.elu_dropout_backward(x, ct, seed, rate)
+    torch.cuda.synchronize()
+    assert (E.elu_dropout_fwd_launches, E.elu_dropout_bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    y_ref = E.elu_dropout_plain(x, seed, rate)
+    dx_ref = E.elu_dropout_backward_plain(x, ct, seed, rate)
+    keep = E.dropout_bits(seed, x.numel()).reshape(shape) < \
+        E.keep_params(rate)[0]
+    assert y.dtype == dtype and dx.dtype == dtype
+    assert torch.equal(y == 0, (y_ref == 0)) and torch.equal(
+        y != 0, keep & (y_ref != 0))
+    assert _within_one_ulp(y, y_ref) and _within_one_ulp(dx, dx_ref)
+
+
+def test_elu_dropout_kernel_refuses_what_it_does_not_take(cuda):
+    seed = E.draw_seed(cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        E.elu_dropout_forward(torch.zeros(8, device=cuda,
+                                          dtype=torch.float16), seed, 0.5)
+    with pytest.raises(ValueError, match="int32"):
+        E.elu_dropout_forward(torch.zeros(8, device=cuda), seed.cpu(), 0.5)
+
+
+def test_rnb_trains_through_the_kernels(cuda):
+    """A residual block with dropout_impl "pallas" launches the forward
+    kernel at both branches and the backward kernel for each."""
+    rng = np.random.RandomState(0)
+    block = init_random_(pnn.VunetRNB(16, residual=True, aux_channels=8,
+                                      dropout_prob=0.1,
+                                      dropout_impl="pallas"), rng).to(cuda)
+    x = torch.randn(2, 16, 16, 16, device=cuda, requires_grad=True)
+    a = torch.randn(2, 16, 16, 8, device=cuda)
+    before = (E.elu_dropout_fwd_launches, E.elu_dropout_bwd_launches)
+    out = block(x, a, train=True,
+                generator=torch.Generator(device=cuda).manual_seed(1))
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    assert (E.elu_dropout_fwd_launches - before[0],
+            E.elu_dropout_bwd_launches - before[1]) == (2, 2)
+    assert bool(torch.isfinite(x.grad).all())
