@@ -15,7 +15,13 @@ this CLI reads the same parameter trees from ``.npz`` files instead
 optionally, ``flow/params/...`` and ``flow/buffers/...``; ``synth.npz``
 holds ``vunet/...``.  Beside each, ``<same name>.json`` may hold the run's
 ``architecture``, ``data`` and ``general`` config keys; missing keys take
-the training defaults.
+the training defaults.  A synthesis run of experiment ``vunet`` serves the
+original VUNet (variant "org", usually a 30-channel part-stack appearance);
+any other experiment the cvbae VUNet (variant "alter").
+
+``--rnb_impl fused`` runs the VUNet's RNBs without auxiliary input through
+the fused RNB kernel (``ops/cuda/fused_rnb.py``); the default ``cudnn``
+runs them as cuDNN convs with eager elementwise ops.
 
 Modes
   sample    z ~ N(0,1) -> flow inverse (when the behavior file has a flow)
@@ -46,7 +52,8 @@ from .geometry.stickman import JointModel
 from .main import resolve_device
 from .models.behavior import ResidualBehaviorNet
 from .models.convert import (behavior_net_from_flax, latent_flow_from_flax,
-                             load_flax_npz, vunet_alter_from_flax)
+                             load_flax_npz, vunet_alter_from_flax,
+                             vunet_org_from_flax)
 from .models.flows import LatentFlow
 from .models.vunet import vunet_from_config
 from .pipeline import BehaviorTransferPipeline
@@ -117,6 +124,11 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; pass cpu to serve "
                          "on the CPU)")
+    ap.add_argument("--rnb_impl", choices=["cudnn", "fused"],
+                    default="cudnn",
+                    help="the VUNet's RNBs without auxiliary input: cuDNN "
+                         "conv + eager elementwise ops, or the fused RNB "
+                         "kernel")
     # options of the JAX CLI that this port does not have yet
     ap.add_argument("--from_dataset", action="store_true")
     ap.add_argument("--quant", choices=["none", "int8_static"],
@@ -153,9 +165,7 @@ def main(argv=None):
     spatial = int(sdata.get("spatial_size", 64))
     s_inplane = bool(sdata.get("inplane_normalize", False))
     s_exp = str(scfg.get("general", {}).get("experiment", "cvbae"))
-    if s_exp == "vunet":
-        raise SystemExit("the org-variant VUNet (experiment 'vunet') is "
-                         "not ported yet")
+    variant = "org" if s_exp == "vunet" else "alter"
     s_boxf = int(sdata.get("box_factor", 2))
     app_hw = spatial // (2 ** s_boxf) if s_inplane else spatial
     app_ch = 30 if s_inplane else 3
@@ -239,9 +249,12 @@ def main(argv=None):
             n_flows=int(barch.get("n_flows", 15)), device=device)
         flow_model.load_state_dict(latent_flow_from_flax(btree["flow"]))
     # remat only changes a backward pass, so serving ignores it
-    vunet = vunet_from_config(scfg, "alter", dtype=torch.bfloat16,
-                              remat=False, device=device)
-    vunet.load_state_dict(vunet_alter_from_flax(stree["vunet"]))
+    vunet = vunet_from_config(scfg, variant, dtype=torch.bfloat16,
+                              remat=False, rnb_impl=args.rnb_impl,
+                              device=device)
+    from_flax = (vunet_org_from_flax if variant == "org"
+                 else vunet_alter_from_flax)
+    vunet.load_state_dict(from_flax(stree["vunet"]))
     for m in (behavior, flow_model, vunet):
         if m is not None:
             m.eval()
@@ -272,6 +285,7 @@ def main(argv=None):
     manifest = {"mode": args.mode, "batch": B, "length": args.length,
                 "spatial": spatial, "quant": args.quant,
                 "upsample": args.upsample, "flow": use_flow,
+                "variant": variant, "rnb_impl": args.rnb_impl,
                 "device": (torch.cuda.get_device_name(device)
                            if device.type == "cuda" else str(device)),
                 "video_format": VIDEO_FORMAT, "videos": paths}

@@ -162,7 +162,7 @@ def latent_flow_to_flax(state_dict: Mapping) -> Dict[str, Any]:
     return to_flax(state_dict, latent_flow_plan(n_flows, n_dense))
 
 
-# -- VUNet (alter) ----------------------------------------------------------
+# -- VUNet (alter and org) ---------------------------------------------------
 
 def _rnb(key: str, path: Tuple[str, ...], residual: bool) -> Plan:
     if residual:
@@ -171,9 +171,8 @@ def _rnb(key: str, path: Tuple[str, ...], residual: bool) -> Plan:
     return _norm_conv(f"{key}.conv", path + ("NormConv2d_0",))
 
 
-def vunet_alter_plan(n_scales: int, n_scales_x: int,
-                     n_latent_scales: int = 2) -> Plan:
-    """The mapping of ``convert_vunet_alter`` in the JAX package."""
+def _vunet_plan(n_scales: int, n_scales_x: int, n_latent_scales: int,
+                org: bool) -> Plan:
     plan: Plan = []
     for net, ns in (("eu", n_scales_x), ("du", n_scales)):
         plan += _norm_conv(f"{net}.nin", (net, "NormConv2d_0"))
@@ -183,12 +182,15 @@ def vunet_alter_plan(n_scales: int, n_scales_x: int,
             plan += _norm_conv(f"{net}.downs.{i}.down",
                                (net, f"Downsample_{i}", "NormConv2d_0"))
     plan += _norm_conv("ed.nin", ("ed", "NormConv2d_0"))
+    # ed's NormConv2d: the latent means (and, alter, logstds) in order
+    per_scale = 1 if org else 2
     for i in range(n_latent_scales):
         plan += _rnb(f"ed.blocks.{2 * i}", ("ed", f"VunetRNB_{2 * i}"), True)
         plan += _norm_conv(f"ed.make_latent_params.{i}",
-                           ("ed", f"NormConv2d_{1 + 2 * i}"))
-        plan += _norm_conv(f"ed.make_logstds.{i}",
-                           ("ed", f"NormConv2d_{2 + 2 * i}"))
+                           ("ed", f"NormConv2d_{1 + per_scale * i}"))
+        if not org:
+            plan += _norm_conv(f"ed.make_logstds.{i}",
+                               ("ed", f"NormConv2d_{2 + 2 * i}"))
         plan += _rnb(f"ed.blocks.{2 * i + 1}",
                      ("ed", f"VunetRNB_{2 * i + 1}"), True)
         plan += _norm_conv(f"ed.ups.{i}.up",
@@ -196,39 +198,87 @@ def vunet_alter_plan(n_scales: int, n_scales_x: int,
     plan += _rnb("ed.fin_block", ("ed", f"VunetRNB_{2 * n_latent_scales}"),
                  True)
     plan += _norm_conv("dd.nin", ("dd", "NormConv2d_0"))
-    rnb = 0
+    rnb, conv = 0, 1       # flax numbers dd's VunetRNB and NormConv2d apart
+
+    def dd_rnb(key, residual=True):
+        nonlocal rnb
+        rnb += 1
+        return _rnb(key, ("dd", f"VunetRNB_{rnb - 1}"), residual)
+
+    def dd_conv(key):
+        nonlocal conv
+        conv += 1
+        return _norm_conv(key, ("dd", f"NormConv2d_{conv - 1}"))
+
     for i in range(n_scales):
-        names = [f"dd.blocks.{2 * i}"]
-        if i < n_latent_scales:
-            names.append(f"dd.auto_blocks.{i}")
-        names.append(f"dd.blocks.{2 * i + 1}")
-        for name in names:
-            plan += _rnb(name, ("dd", f"VunetRNB_{rnb}"), True)
-            rnb += 1
+        plan += dd_rnb(f"dd.blocks.{2 * i}")
+        if i < n_latent_scales and not org:
+            plan += dd_rnb(f"dd.auto_blocks.{i}")
+        elif i < n_latent_scales:
+            # the order of the JAX DecDown._autoregressive_scale
+            plan += dd_rnb(f"dd.auto_blocks.l_{i}.0", residual=False)
+            for l in range(4):
+                plan += dd_conv(f"dd.auto_lp.l_{i}.{l}")
+                if l + 1 < 4:
+                    plan += dd_rnb(f"dd.auto_blocks.l_{i}.{l + 1}")
+            plan += dd_conv(f"dd.latent_nins.l_{i}")
+        plan += dd_rnb(f"dd.blocks.{2 * i + 1}")
         if i + 1 < n_scales:
             plan += _norm_conv(f"dd.ups.{i}.up",
                                ("dd", f"Upsample_{i}", "NormConv2d_0"))
-    plan += _norm_conv("dd.out_conv", ("dd", "NormConv2d_1"))
+    plan += dd_conv("dd.out_conv")
     return plan
 
 
-def vunet_alter_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """VUNet(variant="alter") params ({"params": ...} or bare) -> state
-    dict; the scale counts are read off the tree."""
+def vunet_alter_plan(n_scales: int, n_scales_x: int,
+                     n_latent_scales: int = 2) -> Plan:
+    """The mapping of ``convert_vunet_alter`` in the JAX package."""
+    return _vunet_plan(n_scales, n_scales_x, n_latent_scales, org=False)
+
+
+def vunet_org_plan(n_scales: int, n_scales_x: int,
+                   n_latent_scales: int = 2) -> Plan:
+    """The mapping of ``convert_vunet_org`` in the JAX package: the
+    autoregressive prior's ``dd.auto_blocks.l_{i}.{0..3}``,
+    ``dd.auto_lp.l_{i}.{0..3}`` and ``dd.latent_nins.l_{i}``."""
+    return _vunet_plan(n_scales, n_scales_x, n_latent_scales, org=True)
+
+
+def _vunet_from_flax(tree: Mapping, plan_fn) -> Dict[str, torch.Tensor]:
     p = _params(tree)
-    return from_flax(p, vunet_alter_plan(
+    return from_flax(p, plan_fn(
         _count(p["du"], "VunetRNB_") // 2, _count(p["eu"], "VunetRNB_") // 2,
         _count(p["ed"], "Upsample_")))
 
 
-def vunet_alter_to_flax(state_dict: Mapping) -> Dict[str, Any]:
+def _vunet_to_flax(state_dict: Mapping, plan_fn) -> Dict[str, Any]:
     def n_blocks(net):
         return sum(1 for k in state_dict if k.startswith(f"{net}.blocks.")
                    and k.endswith(".conv.conv.weight_v"))
     n_latent = sum(1 for k in state_dict if k.startswith("ed.ups.")
                    and k.endswith(".conv.weight_v"))
-    return to_flax(state_dict, vunet_alter_plan(
+    return to_flax(state_dict, plan_fn(
         n_blocks("du") // 2, n_blocks("eu") // 2, n_latent))
+
+
+def vunet_alter_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """VUNet(variant="alter") params ({"params": ...} or bare) -> state
+    dict; the scale counts are read off the tree."""
+    return _vunet_from_flax(tree, vunet_alter_plan)
+
+
+def vunet_alter_to_flax(state_dict: Mapping) -> Dict[str, Any]:
+    return _vunet_to_flax(state_dict, vunet_alter_plan)
+
+
+def vunet_org_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """VUNet(variant="org") params ({"params": ...} or bare) -> state dict;
+    the scale counts are read off the tree."""
+    return _vunet_from_flax(tree, vunet_org_plan)
+
+
+def vunet_org_to_flax(state_dict: Mapping) -> Dict[str, Any]:
+    return _vunet_to_flax(state_dict, vunet_org_plan)
 
 
 # -- VUNet latent regressor ---------------------------------------------------

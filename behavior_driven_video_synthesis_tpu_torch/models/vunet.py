@@ -1,18 +1,28 @@
-"""VUNet-alter: the appearance/shape image synthesizer, NHWC.
+"""VUNet: the appearance/shape image synthesizer, NHWC.
 
 Counterpart of ``behavior_driven_video_synthesis_tpu/models/vunet.py``:
-EncUp (eu, du), EncDown (ed) and DecDown (dd) in the "alter" variant, with
-the training ``forward`` (posterior samples, dropout), ``encode_means``,
-``transfer_cached``, ``transfer`` and ``test_forward``, and the latent
-pose regressor ``VunetRegressor``.  Module names follow the reference's
-state dict (``eu.blocks.{k}``, ``ed.make_latent_params.{i}``,
-``dd.auto_blocks.{i}``, ``dd.out_conv``, ...), which is the layout
-``models.convert.vunet_alter_reference_state_dict`` writes.
+EncUp (eu, du), EncDown (ed) and DecDown (dd) in the "alter" and "org"
+variants, with the training ``forward`` (posterior samples, dropout),
+``encode_means``, ``transfer_cached``, ``transfer`` and ``test_forward``,
+and the latent pose regressor ``VunetRegressor``.  Module names follow the
+reference's state dict (``eu.blocks.{k}``, ``ed.make_latent_params.{i}``,
+``dd.auto_blocks.{i}`` or, org, ``dd.auto_blocks.l_{i}.{j}``,
+``dd.out_conv``, ...), the layouts ``models.convert.vunet_alter_plan`` and
+``vunet_org_plan`` write.
 
-Latent sampling takes explicit noise (a list of tensors, one per latent
-scale) or draws it from a ``torch.Generator``; dropout masks come from a
-second generator, ``dropout_generator`` (the JAX package's "sample" and
-"dropout" rng collections).
+The variants differ at the latent scales.  "alter": a learned,
+sigmoid-squashed posterior logstd, and one z-injection RNB per scale in
+DecDown.  "org" (the original VUNet): a posterior of fixed std 1, and in
+DecDown the 4-group space-to-depth autoregressive prior, whose latent
+enters through a 1x1 ``latent_nins`` conv.
+
+Latent sampling takes explicit noise (a list with one entry per latent
+scale; for the org prior each entry is a list of the four groups' tensors)
+or draws it from a ``torch.Generator``; dropout masks come from a second
+generator, ``dropout_generator`` (the JAX package's "sample" and "dropout"
+rng collections).  ``rnb_impl="fused"`` runs every RNB without auxiliary
+input (EncUp's, and the org prior's ``pre`` block) through the fused RNB
+kernel at inference.
 """
 from __future__ import annotations
 
@@ -23,7 +33,9 @@ import torch
 from torch import nn
 
 from ..ops.nn import (Downsample, NormConv2d, Upsample, VunetRNB,
-                      conv2d_nhwc)
+                      conv2d_nhwc, depth_to_space, space_to_depth)
+
+VARIANTS = ("alter", "org")
 
 
 def compute_n_scales(spatial_size: int, bottleneck_factor: int,
@@ -46,12 +58,12 @@ class EncUp(nn.Module):
 
     def __init__(self, in_channels: int, n_scales: int, nf_start: int,
                  nf_max: int, dropout_prob: float = 0.0,
-                 dropout_impl: str = "flax", dtype=torch.float32,
-                 device=None):
+                 dropout_impl: str = "flax", rnb_impl: str = "cudnn",
+                 dtype=torch.float32, device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         rnb_kw = dict(dropout_prob=dropout_prob, dropout_impl=dropout_impl,
-                      **kw)
+                      rnb_impl=rnb_impl, **kw)
         nf = nf_start
         self.out_channels: List[int] = []
         self.nin = NormConv2d(in_channels, nf, 1, **kw)
@@ -81,35 +93,39 @@ class EncUp(nn.Module):
 
 
 class EncDown(nn.Module):
-    """Top-down posterior (alter variant: learned, sigmoid-squashed logstd)
-    over ``n_latent_scales`` scales, fed by EncUp's skips."""
+    """Top-down posterior over ``n_latent_scales`` scales, fed by EncUp's
+    skips: "alter" learns a sigmoid-squashed logstd, "org" has std 1."""
 
     def __init__(self, skip_channels: Sequence[int], nf: int,
-                 n_latent_scales: int = 2, dropout_prob: float = 0.0,
-                 dropout_impl: str = "flax", dtype=torch.float32,
-                 device=None):
+                 n_latent_scales: int = 2, variant: str = "alter",
+                 dropout_prob: float = 0.0, dropout_impl: str = "flax",
+                 rnb_impl: str = "cudnn", dtype=torch.float32, device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         rnb_kw = dict(dropout_prob=dropout_prob, dropout_impl=dropout_impl,
-                      **kw)
+                      rnb_impl=rnb_impl, **kw)
+        self.variant = variant
         skips = list(skip_channels)
         self.nin = NormConv2d(skips[-1], nf, 1, **kw)
         blocks, mus, logstds, ups = [], [], [], []
         for _ in range(n_latent_scales):
             blocks.append(VunetRNB(nf, True, skips.pop(), **rnb_kw))
             mus.append(NormConv2d(nf, nf, 3, padding=1, **kw))
-            logstds.append(NormConv2d(nf, nf, 3, padding=1, **kw))
+            if variant == "alter":
+                logstds.append(NormConv2d(nf, nf, 3, padding=1, **kw))
             blocks.append(VunetRNB(nf, True, skips.pop() + nf, **rnb_kw))
             ups.append(Upsample(nf, nf, **kw))
         self.blocks = nn.ModuleList(blocks)
         self.make_latent_params = nn.ModuleList(mus)
-        self.make_logstds = nn.ModuleList(logstds)
+        if variant == "alter":
+            self.make_logstds = nn.ModuleList(logstds)
         self.ups = nn.ModuleList(ups)
         self.fin_block = VunetRNB(nf, True, skips.pop(), **rnb_kw)
 
     def forward(self, gs, eps=None, generator=None, train: bool = False,
                 dropout_generator=None):
-        """Returns (hs, means, logstds, zs); z = mean + exp(logstd) * eps."""
+        """Returns (hs, means, logstds, zs); z = mean + exp(logstd) * eps
+        ("alter") or mean + eps ("org", whose logstds are empty)."""
         gs = list(gs)
         hs, means, logstds, zs = [], [], [], []
         h = self.nin(gs[-1])
@@ -119,9 +135,13 @@ class EncDown(nn.Module):
             hs.append(h)
             mu = self.make_latent_params[i](h)
             means.append(mu)
-            logstd = torch.sigmoid(self.make_logstds[i](h))
-            logstds.append(logstd)
-            z = mu + torch.exp(logstd) * _noise(eps, i, mu, generator)
+            noise = _noise(eps, i, mu, generator)
+            if self.variant == "alter":
+                logstd = torch.sigmoid(self.make_logstds[i](h))
+                logstds.append(logstd)
+                z = mu + torch.exp(logstd) * noise
+            else:
+                z = mu + noise
             zs.append(z)
             h = self.blocks[2 * i + 1](h, torch.cat([gs.pop(), z], dim=-1),
                                        *drop)
@@ -133,27 +153,41 @@ class EncDown(nn.Module):
 
 
 class DecDown(nn.Module):
-    """Top-down generator (alter variant): fuses DecUp's skips and injects
-    one latent per scale at the first ``n_latent_scales`` scales."""
+    """Top-down generator: fuses DecUp's skips and, at the first
+    ``n_latent_scales`` scales, injects one latent ("alter": a z-injection
+    RNB; "org": the 4-group autoregressive prior, then ``latent_nins``)."""
 
     def __init__(self, skip_channels: Sequence[int], n_scales: int,
                  nf_in: int, nf_last: int, nf_out: int = 3,
                  n_latent_scales: int = 2, subpixel_upsampling: bool = True,
-                 dropout_prob: float = 0.0, dropout_impl: str = "flax",
+                 variant: str = "alter", dropout_prob: float = 0.0,
+                 dropout_impl: str = "flax", rnb_impl: str = "cudnn",
                  dtype=torch.float32, device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         rnb_kw = dict(dropout_prob=dropout_prob, dropout_impl=dropout_impl,
-                      **kw)
+                      rnb_impl=rnb_impl, **kw)
         skips = list(skip_channels)
-        self.n_latent_scales = n_latent_scales
+        self.n_latent_scales, self.variant = n_latent_scales, variant
         nf = nf_in
         self.nin = NormConv2d(skips[-1], nf, 1, **kw)
-        blocks, autos, ups = [], [], []
+        blocks, ups = [], []
+        autos, auto_lp, latent_nins = [], {}, {}
         for i in range(n_scales):
             blocks.append(VunetRNB(nf, True, skips.pop(), **rnb_kw))
-            if i < n_latent_scales:
+            if i < n_latent_scales and variant == "alter":
                 autos.append(VunetRNB(nf, True, nf, **rnb_kw))
+            elif i < n_latent_scales:
+                # pre (no aux), then 3 residual blocks at 4*nf fed by the
+                # group feedback; 4 group-mean convs; the latent's 1x1 nin
+                autos.append((f"l_{i}", nn.ModuleList(
+                    [VunetRNB(nf, **rnb_kw)]
+                    + [VunetRNB(4 * nf, True, nf, **rnb_kw)
+                       for _ in range(3)])))
+                auto_lp[f"l_{i}"] = nn.ModuleList(
+                    NormConv2d(4 * nf, nf, 3, padding=1, **kw)
+                    for _ in range(4))
+                latent_nins[f"l_{i}"] = NormConv2d(2 * nf, nf, 1, **kw)
             blocks.append(VunetRNB(nf, True, skips.pop(), **rnb_kw))
             if i + 1 < n_scales:
                 out_c = min(nf_in, nf_last * 2 ** (n_scales - (i + 2)))
@@ -161,37 +195,81 @@ class DecDown(nn.Module):
                     subpixel_upsampling or i < n_latent_scales), **kw))
                 nf = out_c
         self.blocks = nn.ModuleList(blocks)
-        self.auto_blocks = nn.ModuleList(autos)
+        if variant == "alter":
+            self.auto_blocks = nn.ModuleList(autos)
+        else:
+            self.auto_blocks = nn.ModuleDict(autos)
+            self.auto_lp = nn.ModuleDict(auto_lp)
+            self.latent_nins = nn.ModuleDict(latent_nins)
         self.ups = nn.ModuleList(ups)
         self.out_conv = NormConv2d(nf, nf_out, 3, padding=1, **kw)
 
     def forward(self, gs, zs_posterior=None, eps=None, generator=None,
-                train: bool = False, dropout_generator=None):
+                train: bool = False, dropout_generator=None,
+                prior: bool = False):
         """With ``zs_posterior`` the latents are those; else each is drawn
-        from the N(0, 1) prior (``eps`` or ``generator``).  Returns the
-        image (NHWC, nf_out channels) and the features after each block
-        pair's blocks (the JAX package's ``hs``)."""
+        from the prior (``eps`` or ``generator``): N(0, 1) for "alter",
+        the autoregressive prior for "org".  Returns the image (NHWC,
+        nf_out channels), the features after each block pair's blocks (the
+        JAX package's ``hs``) and the org prior's means, one per latent
+        scale.  Given ``zs_posterior``, those means feed nothing but the
+        training KL, so they are computed only with ``prior=True``."""
         gs = list(gs)
         h = self.nin(gs[-1])
-        hs = []
+        hs, ps = [], []
         drop = (train, dropout_generator)
         n_scales = len(self.blocks) // 2
         for i in range(n_scales):
             h = self.blocks[2 * i](h, gs.pop(), *drop)
             hs.append(h)
             if i < self.n_latent_scales:
-                z = (zs_posterior[i] if zs_posterior is not None
-                     else _noise(eps, i, h, generator))
-                h = self.auto_blocks[i](h, z, *drop)
+                z = None if zs_posterior is None else zs_posterior[i]
+                if self.variant == "alter":
+                    if z is None:
+                        z = _noise(eps, i, h, generator)
+                    h = self.auto_blocks[i](h, z, *drop)
+                else:
+                    if z is None or prior:
+                        p, z = self._autoregressive_prior(
+                            i, h, z, None if eps is None else eps[i],
+                            generator, drop)
+                        ps.append(p)
+                    h = self.latent_nins[f"l_{i}"](torch.cat([h, z], -1))
             h = self.blocks[2 * i + 1](h, gs.pop(), *drop)
             hs.append(h)
             if i + 1 < n_scales:
                 h = self.ups[i](h)
-        return self.out_conv(h), hs
+        return self.out_conv(h), hs, ps
+
+    def _autoregressive_prior(self, i, h, z_posterior, eps, generator, drop):
+        """The org prior at latent scale i (JAX ``vunet.py:275-316``): the
+        latent splits into 4 space-to-depth groups; each group's prior
+        mean comes from features that have seen the previous groups, fed
+        back as their posterior values (given ``z_posterior``) or as
+        samples ``mean + eps[l]`` (or a draw from ``generator``).  Returns
+        (prior means, latent), both at h's size."""
+        blocks, lps = self.auto_blocks[f"l_{i}"], self.auto_lp[f"l_{i}"]
+        if z_posterior is not None:
+            post = torch.chunk(space_to_depth(z_posterior, 2), 4, dim=-1)
+        feats = space_to_depth(blocks[0](h, None, *drop), 2)
+        p_groups, z_groups = [], []
+        for l in range(4):
+            p = lps[l](feats)
+            p_groups.append(p)
+            if z_posterior is None:
+                z_groups.append(p + _noise(eps, l, p, generator))
+            if l + 1 < 4:
+                feats = blocks[l + 1](
+                    feats, z_groups[l] if z_posterior is None else post[l],
+                    *drop)
+        p = depth_to_space(torch.cat(p_groups, -1), 2)
+        if z_posterior is not None:
+            return p, z_posterior
+        return p, depth_to_space(torch.cat(z_groups, -1), 2)
 
 
 class VUNet(nn.Module):
-    """VUNet in the alter variant.
+    """VUNet in the "alter" (cvbae) or "org" (original) variant.
 
     Every method takes and returns NHWC tensors.  Options of the JAX
     package that this package does not port raise NotImplementedError.
@@ -204,11 +282,14 @@ class VUNet(nn.Module):
                  subpixel_upsampling: bool = True,
                  conv_layer_type: str = "l1", variant: str = "alter",
                  dropout_prob: float = 0.0, dropout_impl: str = "flax",
-                 quant: str = "none", upsample_transpose: bool = False,
-                 remat=False, dtype=torch.float32, device=None):
+                 rnb_impl: str = "cudnn", quant: str = "none",
+                 upsample_transpose: bool = False, remat=False,
+                 dtype=torch.float32, device=None):
         super().__init__()
+        if variant not in VARIANTS:
+            raise ValueError(f"unknown VUNet variant {variant!r}; expected "
+                             f"one of {VARIANTS}")
         unported = {
-            "variant": (variant, "alter"),
             "conv_layer_type": (conv_layer_type, "l1"),
             "quant": (quant, "none"),
             "upsample_transpose": (upsample_transpose, False),
@@ -219,34 +300,37 @@ class VUNet(nn.Module):
                 raise NotImplementedError(
                     f"VUNet {name}={value!r} is not ported yet")
         self.spatial_size, self.dtype = spatial_size, dtype
+        self.variant = variant
         n_scales = compute_n_scales(spatial_size, bottleneck_factor,
                                     n_scales_cfg)
         n_scales_x = n_scales - box_factor if n_channels_x > 3 else n_scales
         kw = dict(dropout_prob=dropout_prob, dropout_impl=dropout_impl,
-                  dtype=dtype, device=device)
+                  rnb_impl=rnb_impl, dtype=dtype, device=device)
         self.eu = EncUp(n_channels_x, n_scales_x, nf_start, nf_max, **kw)
         self.ed = EncDown(self.eu.out_channels, nf_max, n_latent_scales,
-                          **kw)
+                          variant, **kw)
         self.du = EncUp(3, n_scales, nf_start, nf_max, **kw)
         self.dd = DecDown(self.du.out_channels, n_scales, nf_max, nf_start,
-                          3, n_latent_scales, subpixel_upsampling, **kw)
+                          3, n_latent_scales, subpixel_upsampling, variant,
+                          **kw)
 
     def forward(self, x, c, train: bool = False, eps=None, generator=None,
                 dropout_generator=None):
         """The training path: appearance x and stickman c (NHWC) through
         eu, ed (posterior samples), du and dd; dropout only with
-        ``train=True``.  Returns (imgs, means,
-        logstds, ps, activations) as the JAX ``VUNet.__call__``: ``ps`` is
-        empty for the alter variant, activations are (hs, es, gs, ds)."""
+        ``train=True``.  Returns (imgs, means, logstds, ps, activations)
+        as the JAX ``VUNet.__call__``: ``ps`` are the org prior's means
+        (empty for "alter"), activations are (hs, es, gs, ds)."""
         drop = dict(train=train, dropout_generator=dropout_generator)
         hs = self.eu(x, **drop)
         es, means, logstds, zs = self.ed(hs, eps, generator, **drop)
         gs = self.du(c, **drop)
-        imgs, ds = self.dd(gs, zs, **drop)
-        return imgs, means, logstds, [], (hs, es, gs, ds)
+        imgs, ds, ps = self.dd(gs, zs, prior=True, **drop)
+        return imgs, means, logstds, ps, (hs, es, gs, ds)
 
     def encode_means(self, x, eps=None, generator=None):
-        """Posterior means and logstds of appearance x (once per video)."""
+        """Posterior means and logstds (empty for "org") of appearance x
+        (once per video)."""
         _, means, logstds, _ = self.ed(self.eu(x), eps, generator)
         return means, logstds
 
@@ -269,7 +353,7 @@ def vunet_from_config(config: Optional[dict], variant: str,
                       n_channels_x: Optional[int] = None, **overrides):
     """Build a VUNet from a run config (a plain dict with "architecture",
     "data" and "training" keys) with the JAX package's defaults;
-    ``overrides`` set options such as dtype and device."""
+    ``overrides`` set options such as dtype, device and rnb_impl."""
     config = config or {}
     arch = config.get("architecture", {})
     data = config.get("data", {})

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .cuda.elu_dropout import elu_dropout
+from .cuda.fused_rnb import fused_rnb
 
 
 def space_to_depth(x: torch.Tensor, block_size: int = 2) -> torch.Tensor:
@@ -169,6 +170,7 @@ class Upsample(nn.Module):
 
 
 DROPOUT_IMPLS = ("flax", "pallas")
+RNB_IMPLS = ("cudnn", "fused")
 
 
 def check_dropout_impl(impl: str) -> None:
@@ -209,17 +211,29 @@ class VunetRNB(nn.Module):
     :func:`dropout`; ``"pallas"`` is the fused ELU+dropout kernel
     (``ops/cuda/elu_dropout.py``) at each branch.  The masks come from the
     ``generator`` passed to :meth:`forward`.
+
+    ``rnb_impl="fused"`` runs a block without auxiliary input (activate,
+    3x3 conv, not training) as one fused RNB kernel
+    (``ops/cuda/fused_rnb.py``); every other block, and every block under
+    the default ``"cudnn"``, runs the cuDNN conv and eager elementwise ops.
     """
 
     def __init__(self, channels: int, residual: bool = False,
                  aux_channels: Optional[int] = None, kernel_size: int = 3,
                  activate: bool = True, dropout_prob: float = 0.0,
-                 dropout_impl: str = "flax", dtype=torch.float32,
-                 device=None):
+                 dropout_impl: str = "flax", rnb_impl: str = "cudnn",
+                 dtype=torch.float32, device=None):
         super().__init__()
         check_dropout_impl(dropout_impl)
+        if rnb_impl not in RNB_IMPLS:
+            raise ValueError(f"unknown rnb_impl {rnb_impl!r}; expected one "
+                             f"of {RNB_IMPLS}")
         self.residual, self.activate = residual, activate
         self.dropout_prob, self.dropout_impl = dropout_prob, dropout_impl
+        # the blocks the fused kernel computes: no auxiliary input, which
+        # only a residual block takes
+        self.fused = (rnb_impl == "fused" and activate and kernel_size == 3
+                      and not residual)
         if residual:
             self.nin = NormConv2d(aux_channels or channels, channels, 1,
                                   dtype=dtype, device=device)
@@ -241,6 +255,8 @@ class VunetRNB(nn.Module):
     def forward(self, x: torch.Tensor, a: Optional[torch.Tensor] = None,
                 train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.fused and a is None and not train:
+            return fused_rnb(x.to(self.conv.dtype), self)
         act = self._act_dropout(train, generator)
         if a is not None:
             if not self.residual:

@@ -3,8 +3,9 @@
 Counterpart of ``behavior_driven_video_synthesis_tpu/pipeline.py``: flow
 inverse -> decoder rollout (the CUDA rollout kernel for LSTM decoders
 without nin) -> unnormalize -> camera projection -> stickman raster ->
-VUNet-alter, which encodes the appearance once per video and then runs the
-shape encoder and generator per frame in chunks of at most ``vunet_chunk``
+VUNet (either variant), which encodes the appearance once per video (its
+posterior means; the org variant has no logstds) and then runs the shape
+encoder and generator per frame in chunks of at most ``vunet_chunk``
 frames.  PyTorch runs it eagerly; ``lax.map`` over chunks becomes a loop.
 """
 from __future__ import annotations
@@ -125,7 +126,8 @@ class BehaviorTransferPipeline:
           z: (B, H) base-gaussian codes (or behavior latents when not
              use_flow).
           x_start: (B, K_norm) start posture (normalized coords).
-          app_img: (B, S, S, 3) appearance image in [-1, 1].
+          app_img: (B, S', S', C) appearance in [-1, 1]: RGB (C=3), or
+             the 30-channel part stack of an inplane VUNet.
           extrinsics: (B, 3, 4); intrinsics: (B, 4); image_size: (B, 2).
           eps / generator: the appearance encoder's posterior noise, one
              tensor per latent scale, or the generator to draw it from.

@@ -35,10 +35,11 @@ def compute_kl_loss(prior_means: Sequence, posterior_means: Sequence):
 
 
 def compute_kl_with_prior(means: Sequence, logstds: Sequence):
-    """Mean over scales of kl_loss on the flattened latent maps (cvbae).
-    The maps are taken in f32 whatever the compute dtype."""
-    per_scale = [kl_loss(m.float().reshape(m.shape[0], -1),
-                         s.float().reshape(s.shape[0], -1))
+    """Mean over scales of kl_loss on the flattened latent maps (cvbae),
+    in the maps' own dtype, as the JAX step computes it (bf16 for a bf16
+    VUNet)."""
+    per_scale = [kl_loss(m.reshape(m.shape[0], -1),
+                         s.reshape(s.shape[0], -1))
                  for m, s in zip(means, logstds)]
     return torch.mean(torch.stack(per_scale))
 

@@ -13,16 +13,23 @@ CUDA toolkit (nvcc) and PyTorch.  It imports no JAX.  Phases:
    shapes, both timed with CUDA events: the rollout at the serving path's,
    the ELU+dropout forward and backward at the VUNet's largest dropout
    site (12, 256, 256, 32) bf16 and at a ragged f32 size, with
-   ``F.dropout(F.elu(x))`` timed beside them as a yardstick;
+   ``F.dropout(F.elu(x))`` timed beside them as a yardstick; the fused RNB
+   at the VUNet's 125-frame chunk sites (256/128/64/32/4 px) and a ragged
+   shape, with the default ``VunetRNB`` eval forward (cuDNN conv and eager
+   elementwise ops) timed beside it;
 4. the full-width serving slice at ``bench.py``'s shapes (B=20, T=50,
    256 px, HID 1024, 48 of 51 keypoints, a 15-flow LatentFlow of mid width
    2048 in f32, VUNet-alter nf 32->128 in bf16) on seeded random weights
    made on the device: generate (sample mode, with the flow), reenact, and
    generate at B=3; every request must launch the rollout kernel once;
+   then one B=20 request with ``rnb_impl="fused"`` (126 fused RNB
+   launches);
 5. the serving CLI in-process at a small width, from .npz parameter files
-   and a request file written here from a numpy seed;
+   and a request file written here from a numpy seed; also an org
+   synthesis run (experiment "vunet") with ``--rnb_impl fused``;
 6. the port at small width against ``tests/golden/torch_port_slice_small.npz``
-   (outputs of the JAX package), in f32 with TF32 off;
+   (outputs of the JAX package), in f32 with TF32 off, and the small org
+   VUNet against ``tests/golden/torch_port_org_small.npz``;
 7. cvbae VUNet training at full width through ``bdvs-train-torch``'s
    ``main`` in-process: ``configs/shape_and_pose_net.yaml`` (256 px, B=12,
    nf 32->128, regressor on, dropout 0.05, bf16) with
@@ -31,7 +38,14 @@ CUDA toolkit (nvcc) and PyTorch.  It imports no JAX.  Phases:
    ``synth.npz`` then serves one ``transfer_cached`` call;
 8. the port's cvbae step at small width against
    ``tests/golden/torch_port_train_small.npz`` (two JAX steps), in f32 with
-   TF32 off.
+   TF32 off;
+9. org-VUNet serving at full width: ``configs/vunet.yaml``'s VUNet (256 px,
+   nf 32->128, a 30-channel 64x64 part-stack appearance, box_factor 2,
+   bf16) behind phase 4's behavior net and flow, B=20, T=50, a warm-up and
+   two timed requests under each ``rnb_impl``; the fused route must launch
+   the fused RNB kernel 122 times a request and stay within a relative L2
+   of 2e-2 of the same request through the kernel's plain version; one
+   org ``test_forward`` chunk (the autoregressive prior).
 
 The last two lines are a JSON object of kernel results and
 ``{"ok": true, "device": {...}}``; any failure exits non-zero before them.
@@ -74,7 +88,9 @@ from behavior_driven_video_synthesis_tpu_torch.models.perceptual import (
     LaplacianPyramidFeatures)
 from behavior_driven_video_synthesis_tpu_torch.models.vunet import (
     VUNet, VunetRegressor, latent_widths, vunet_from_config)
+from behavior_driven_video_synthesis_tpu_torch.ops import nn as ops_nn
 from behavior_driven_video_synthesis_tpu_torch.ops.cuda import elu_dropout
+from behavior_driven_video_synthesis_tpu_torch.ops.cuda import fused_rnb
 from behavior_driven_video_synthesis_tpu_torch.ops.cuda import rollout
 from behavior_driven_video_synthesis_tpu_torch.ops.cuda.build import (
     build_log, load_library)
@@ -94,7 +110,9 @@ ROLLOUT_SHAPES = [(20, 48, 1024, 50), (1, 48, 1024, 50), (3, 51, 1024, 7)]
 GOLDEN = os.path.join(ROOT, "tests", "golden", "torch_port_slice_small.npz")
 TRAIN_GOLDEN = os.path.join(ROOT, "tests", "golden",
                             "torch_port_train_small.npz")
+ORG_GOLDEN = os.path.join(ROOT, "tests", "golden", "torch_port_org_small.npz")
 TRAIN_CONFIG = os.path.join(ROOT, "configs", "shape_and_pose_net.yaml")
+ORG_CONFIG = os.path.join(ROOT, "configs", "vunet.yaml")
 TRAIN_STEPS = 6
 # the VUNet's dropout sites at 256 px, 7 scales, 2 latent scales: 14 RNBs
 # in each EncUp (one site each), 5 residual RNBs in EncDown and 16 in
@@ -108,6 +126,19 @@ DEAD_BACKWARD_SITES = 2 * 2
 ELU_DROPOUT_SHAPES = [((12, 256, 256, 32), torch.bfloat16),
                       ((1000003,), torch.float32)]
 ELU_DROPOUT_RATES = (0.05, 0.5)
+# the fused RNB's sites in a 125-frame chunk (B=20, T=50 is 8 chunks of
+# 125): EncUp at 256, 128, 64, 32 and 4 px, and a ragged shape; the first
+# three are timed
+FUSED_RNB_SHAPES = [(125, 256, 256, 32), (125, 128, 128, 64),
+                    (125, 64, 64, 128), (125, 32, 32, 128),
+                    (125, 4, 4, 128), (3, 37, 53, 64)]
+# fused RNB launches of one B=20, T=50 request: the two RNBs of each EncUp
+# scale, once a video in eu (org: 5 scales on the 64x64 part stack; alter:
+# 7) and once a 125-frame chunk in du (7 scales, 8 chunks)
+ORG_RNB_LAUNCHES = 2 * 5 + 2 * 7 * 8
+ALTER_RNB_LAUNCHES = 2 * 7 + 2 * 7 * 8
+# one org test_forward chunk: du's 14 and the prior's two pre blocks
+ORG_PRIOR_RNB_LAUNCHES = 2 * 7 + 2
 # NVIDIA's H100 SXM data sheet: HBM rate, bf16 dense tensor-core and f32
 # (outside the tensor cores) peaks, at 700 W
 HBM_BYTES_PER_S = 3.35e12
@@ -161,7 +192,7 @@ def phase_card():
 
 
 # -- 2. the build -------------------------------------------------------------
-KERNEL_SOURCES = ("rollout", "elu_dropout")
+KERNEL_SOURCES = ("rollout", "elu_dropout", "fused_rnb")
 
 
 def phase_build():
@@ -363,8 +394,94 @@ def phase_elu_dropout():
     return out
 
 
+def fused_rnb_bound_ms(B, H, W, C):
+    """Least time of one fused RNB at (B, H, W, C) bf16: x read and out
+    written once, the bf16 W and the f32 scale and shift read once, against
+    the 3x3 conv's 2 * 9 * C * C operations a pixel at the bf16
+    tensor-core peak."""
+    n = B * H * W * C
+    t_bytes = (2 * n * 2 + 9 * C * C * 2 + 2 * C * 4) / HBM_BYTES_PER_S
+    t_ops = 2 * 9 * C * n / BF16_TENSOR_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_fused_rnb():
+    log("[3] fused RNB kernel vs plain PyTorch (bf16: atol 1e-2, rtol 1e-2)")
+    g = torch.Generator(device=DEV).manual_seed(0)
+    blocks, err = {}, 0.0
+    for shape in FUSED_RNB_SHAPES:
+        C = shape[-1]
+        if C not in blocks:
+            blocks[C] = on_device(ops_nn.VunetRNB(
+                C, dtype=torch.bfloat16, device="meta"), g)
+        x = (torch.randn(shape, generator=g, device=DEV) * 0.5).bfloat16()
+        with torch.inference_mode():
+            out = fused_rnb.fused_rnb(x, blocks[C])
+            torch.cuda.synchronize()
+            ref = fused_rnb.fused_rnb_plain(x, blocks[C])
+        e = float((out.float() - ref.float()).abs().max())
+        ok = (out.shape == x.shape and out.dtype == torch.bfloat16
+              and torch.allclose(out.float(), ref.float(), atol=1e-2,
+                                 rtol=1e-2))
+        log(f"    {shape}: max|kernel-plain| {e:.3e} "
+            f"({'ok' if ok else 'FAIL'}), max|out| "
+            f"{float(out.float().abs().max()):.3f}")
+        RESULTS.setdefault("fused_rnb_vs_plain", []).append(
+            dict(shape=list(shape), max_abs_err=e))
+        check(ok, f"fused RNB kernel disagrees with its plain version at "
+              f"{shape}")
+        err = max(err, e)
+    timed = {}
+    for shape in FUSED_RNB_SHAPES[:3]:
+        block = blocks[shape[-1]]
+        x = (torch.randn(shape, generator=g, device=DEV) * 0.5).bfloat16()
+        with torch.inference_mode():
+            order = [("plain", lambda: fused_rnb.fused_rnb_plain(x, block),
+                      3),
+                     ("kernel", lambda: fused_rnb.fused_rnb(x, block), 20),
+                     ("kernel", lambda: fused_rnb.fused_rnb(x, block), 20),
+                     ("plain", lambda: fused_rnb.fused_rnb_plain(x, block),
+                      3)]
+            times = [(n, cuda_ms(fn, it)) for n, fn, it in order]
+            lib_ms = cuda_ms(lambda: block(x), 20)
+        ms = float(np.mean([t for n, t in times if n == "kernel"]))
+        plain_ms = float(np.mean([t for n, t in times if n == "plain"]))
+        bound, bound_by = fused_rnb_bound_ms(*shape)
+        log(f"    time at {shape} (plain, kernel, kernel, plain): "
+            + ", ".join(f"{n} {t:.4f} ms" for n, t in times)
+            + f"; library (VunetRNB cuDNN route) {lib_ms:.4f} ms; bound "
+            f"{bound:.4f} ms ({bound_by}); kernel at "
+            f"{bound / ms:.1%} of its bound")
+        RESULTS.setdefault("fused_rnb_times_ms", []).append(dict(
+            shape=list(shape), order=times, library=lib_ms, bound=bound,
+            bound_by=bound_by))
+        timed[shape] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                            bound_ms=bound, bound_by=bound_by)
+    # the kernels line carries the largest site, 256 px at C=32
+    return dict(max_abs_err=err, **timed[FUSED_RNB_SHAPES[0]])
+
+
 # -- 4. the full-width slice --------------------------------------------------
-def full_width_slice():
+def serving_vunet(variant, **kw):
+    """The serving VUNet on the meta device: bench.py's alter VUNet, or
+    configs/vunet.yaml's org VUNet (30-channel part stack, box_factor 2)."""
+    if variant == "org":
+        return vunet_from_config(load_config(ORG_CONFIG), "org",
+                                 dtype=torch.bfloat16, device="meta", **kw)
+    return VUNet(spatial_size=SLICE["S"], nf_start=SLICE["NF_START"],
+                 nf_max=SLICE["NF_MAX"], dtype=torch.bfloat16,
+                 device="meta", **kw)
+
+
+def with_rnb_impl(vunet, variant, rnb_impl):
+    """A copy of a serving VUNet, its weights included, under rnb_impl."""
+    other = serving_vunet(variant, rnb_impl=rnb_impl).to_empty(device=DEV)
+    other.load_state_dict(vunet.state_dict())
+    return other.eval()
+
+
+def full_width_slice(variant="alter"):
     HID, K_FULL, K_USE, S = (SLICE[k] for k in ("HID", "K_FULL", "K_USE",
                                                  "S"))
     g = torch.Generator(device=DEV).manual_seed(0)
@@ -372,9 +489,7 @@ def full_width_slice():
         K_USE, HID, dtype=torch.bfloat16, device="meta"), g)
     flow = on_device(LatentFlow(HID, 2 * HID, n_flows=SLICE["N_FLOWS"],
                                 device="meta"), g)
-    vunet = on_device(VUNet(spatial_size=S, nf_start=SLICE["NF_START"],
-                            nf_max=SLICE["NF_MAX"], dtype=torch.bfloat16,
-                            device="meta"), g)
+    vunet = on_device(serving_vunet(variant), g)
     rng = np.random.RandomState(0)
     mean = rng.randn(K_FULL).astype(np.float32)
     std = (np.abs(rng.rand(K_FULL)) + 0.5).astype(np.float32)
@@ -388,8 +503,11 @@ def full_width_slice():
     return pipe, g, counts
 
 
-def request_inputs(B, g):
+def request_inputs(B, g, app_shape=None):
+    """A request of B videos; the appearance is (B,) + app_shape, by
+    default an RGB image at the slice's size."""
     HID, K, S = SLICE["HID"], SLICE["K_USE"], SLICE["S"]
+    app_shape = app_shape or (S, S, 3)
     extr = torch.tensor(np.hstack([np.eye(3), [[0], [0], [4.0]]]),
                         dtype=torch.float32, device=DEV).expand(B, 3, 4)
     intr = torch.tensor([1145.0, 500.0, 1143.0, 500.0],
@@ -397,7 +515,8 @@ def request_inputs(B, g):
     return dict(
         z=torch.randn(B, HID, generator=g, device=DEV),
         x_start=torch.zeros(B, K, device=DEV),
-        app_img=torch.rand(B, S, S, 3, generator=g, device=DEV) * 2 - 1,
+        app_img=torch.rand((B,) + tuple(app_shape), generator=g,
+                           device=DEV) * 2 - 1,
         extrinsics=extr, intrinsics=intr,
         image_size=torch.full((B, 2), 1000.0, device=DEV))
 
@@ -452,12 +571,65 @@ def phase_slice():
     launches = rollout.rollout_launches
     check(launches == len(reqs), f"rollout launches {launches}")
     RESULTS["slice_requests"] = times
-    stage_breakdown(pipe, inputs[B], g)
+    stage_breakdown(pipe, inputs[B], g, "slice_stages_ms")
+    alter_fused_request(pipe, inputs[B])
     return launches
 
 
-def stage_breakdown(pipe, x, g):
-    """Host-clock time of each stage of one full-batch request."""
+def serve(pipe, x, seed=1):
+    """One generate request, its posterior noise drawn from a generator
+    seeded with ``seed`` (so that two calls make the same request):
+    (outputs, host ms, peak device bytes)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pipe.generate(x["z"], x["x_start"], x["app_img"], x["extrinsics"],
+                        x["intrinsics"], x["image_size"],
+                        length=SLICE["T"], generator=g)
+    torch.cuda.synchronize()
+    return (out, (time.perf_counter() - t0) * 1e3,
+            torch.cuda.max_memory_allocated())
+
+
+def rel_l2(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def alter_fused_request(pipe, x):
+    """One B=20 alter request under rnb_impl "fused" beside the same
+    request under the default route."""
+    B, T = SLICE["B"], SLICE["T"]
+    cudnn_vunet = pipe.vunet
+    ref, _, _ = serve(pipe, x)
+    pipe.vunet = with_rnb_impl(cudnn_vunet, "alter", "fused")
+    try:
+        fused_rnb.fused_rnb_launches = 0    # counts start here: the alter
+        out, ms, peak = serve(pipe, x)      # fused route
+        launches = fused_rnb.fused_rnb_launches
+    finally:
+        pipe.vunet = cudnn_vunet
+    frames = out["frames"]
+    check(frames.shape == ref["frames"].shape
+          and bool(torch.isfinite(frames.float()).all()),
+          "alter fused request: frames")
+    check(launches == ALTER_RNB_LAUNCHES,
+          f"the alter B={B} request launched the fused RNB kernel "
+          f"{launches} times, not {ALTER_RNB_LAUNCHES}")
+    rel = rel_l2(frames, ref["frames"])
+    log(f"    generate B={B} T={T} rnb_impl=fused: {ms:9.2f} ms, "
+        f"{B * T * 1e3 / ms:8.1f} frames/s, peak {peak / 2**30:.2f} GiB; "
+        f"{launches} fused RNB launches; rel-L2 to the cudnn route "
+        f"{rel:.3e} (reported)")
+    RESULTS["slice_alter_fused"] = dict(ms=ms, fps=B * T * 1e3 / ms,
+                                        peak_gib=peak / 2**30,
+                                        launches=launches, rel_l2_cudnn=rel)
+
+
+def stage_breakdown(pipe, x, g, key):
+    """Host-clock time of each stage of one full-batch request, kept in
+    RESULTS[key]."""
     B, length, S = SLICE["B"], SLICE["T"], SLICE["S"]
 
     def timed(fn):
@@ -490,7 +662,7 @@ def stage_breakdown(pipe, x, g):
                   vunet_encode_means=t_enc, vunet_transfer_cached=t_vunet)
     log(f"    stages of one B={B} request (ms, host clock, synchronized): "
         + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
-    RESULTS["slice_stages_ms"] = stages
+    RESULTS[key] = stages
 
 
 # -- 5. the CLI ---------------------------------------------------------------
@@ -527,6 +699,38 @@ def phase_cli():
             f"CLI {mode}: videos {man['videos']}")
         log(f"[5] CLI {mode}: {len(man['videos'])} videos "
             f"({man['video_format']}) on {man['device']}")
+    # an org synthesis run (experiment "vunet": a 30-channel part stack at
+    # S/4 = 16 px, box_factor 2) through the fused RNB kernel
+    org = init_random_(VUNet(spatial_size=S, n_channels_x=30, nf_start=8,
+                             nf_max=16, box_factor=2, variant="org"), rng)
+    convert.save_flax_npz(os.path.join(tmp, "synth_org.npz"), {
+        "vunet": convert.vunet_org_to_flax(org.state_dict())})
+    with open(os.path.join(tmp, "synth_org.json"), "w") as f:
+        json.dump({"data": {"spatial_size": S, "inplane_normalize": True,
+                            "box_factor": 2},
+                   "architecture": {"nf_start": 8, "nf_max": 16},
+                   "general": {"experiment": "vunet"}}, f)
+    req_org = os.path.join(tmp, "request_org.npz")
+    np.savez(req_org, x_start=(rng.randn(2, K) * 0.1).astype(np.float32),
+             app_img=(rng.rand(2, S // 4, S // 4, 30) * 2 - 1).astype(
+                 np.float32))
+    out = os.path.join(tmp, "org")
+    before = fused_rnb.fused_rnb_launches
+    man = cli.main(["--behavior_params", os.path.join(tmp, "behavior.npz"),
+                    "--synth_params", os.path.join(tmp, "synth_org.npz"),
+                    "--request", req_org, "--length", "8", "--out", out,
+                    "--rnb_impl", "fused", "--device", "cuda"])
+    # eu: 3 scales on the 16x16 part stack; du: 5 scales, one chunk
+    launches = fused_rnb.fused_rnb_launches - before
+    check((man["variant"], man["rnb_impl"]) == ("org", "fused")
+          and len(man["videos"]) == 2 and all(
+              os.path.getsize(p) > 0 for p in man["videos"].values()),
+          f"CLI org: manifest {man}")
+    check(launches == 2 * 3 + 2 * 5,
+          f"CLI org: {launches} fused RNB launches")
+    log(f"[5] CLI sample, org synthesis run, --rnb_impl fused: "
+        f"{len(man['videos'])} videos on {man['device']}, {launches} fused "
+        f"RNB launches")
 
 
 # -- 6. against the JAX package's golden ---------------------------------------
@@ -611,6 +815,41 @@ def phase_golden():
     RESULTS["golden_rollout"] = dict(flow_reverse=d_b, kernel_vs_scan=d_xs)
     check(d_b <= 1e-4 * (1 + float(np.abs(g["rollout"]["b"]).max()))
           and ok_xs, "golden flow/rollout out of tolerance")
+
+
+def phase_org_golden():
+    """The small org VUNet (tests/make_torch_port_org_golden.py) in f32:
+    posterior means, transfer_cached and test_forward against the JAX
+    package's, each within 1e-4 * (1 + max|ref|)."""
+    with np.load(ORG_GOLDEN) as data:
+        g = unflatten_tree({k: data[k] for k in data.files})
+    arch = json.loads(bytes(g["config"]).decode())
+    vunet = VUNet(**arch, device=DEV).eval()
+    vunet.load_state_dict(convert.vunet_org_from_flax(
+        unflatten_tree({k: v.astype(np.float32) for k, v in
+                        flatten_tree(g["params"]["vunet"]).items()})))
+
+    def dev(a):
+        return torch.from_numpy(a).to(DEV)
+    noise = g["noise"]
+    post = [dev(noise["posterior"][str(i)]) for i in range(2)]
+    prior = [[dev(noise["prior"][str(i)][str(l)]) for l in range(4)]
+             for i in range(2)]
+    c = dev(g["inputs"]["c"])
+    with torch.inference_mode():
+        means, _ = vunet.encode_means(dev(g["inputs"]["x"]), post)
+        got = {f"means/{i}": m for i, m in enumerate(means)}
+        got["transfer_cached"] = vunet.transfer_cached(means, c)
+        got["test_forward"] = vunet.test_forward(c, prior)
+    ref = flatten_tree(g["outputs"])
+    worst = 0.0
+    for k, v in got.items():
+        err = float(np.abs(v.cpu().numpy() - ref[k]).max())
+        worst = max(worst, err / (1e-4 * (1 + float(np.abs(ref[k]).max()))))
+    log(f"[6] golden org VUNet (f32, TF32 off): worst error / tolerance "
+        f"{worst:.3f} over {sorted(got)}")
+    RESULTS["golden_org"] = dict(err_over_tol=worst)
+    check(worst <= 1.0, "golden org VUNet out of tolerance")
 
 
 # -- 7. cvbae training at full width -----------------------------------------
@@ -881,6 +1120,79 @@ def phase_train_golden():
           and d_params <= 1e-4, "golden training step out of tolerance")
 
 
+# -- 9. org-VUNet serving at full width ---------------------------------------
+def phase_org():
+    pipe, g, counts = full_width_slice("org")
+    B, T, S = SLICE["B"], SLICE["T"], SLICE["S"]
+    app = (S // 4, S // 4, 30)
+    log(f"[9] org-VUNet serving (configs/vunet.yaml, appearance "
+        f"{app}): parameters {counts}")
+    x = request_inputs(B, g, app)
+    vunets = {"cudnn": pipe.vunet,
+              "fused": with_rnb_impl(pipe.vunet, "org", "fused")}
+    frames, launches, rows = {}, None, []
+    for impl, vunet in vunets.items():
+        pipe.vunet = vunet
+        if impl == "fused":
+            fused_rnb.fused_rnb_launches = 0   # counts start here: the
+        for note in ("warm-up", "timed", "timed"):   # org main path
+            before = fused_rnb.fused_rnb_launches
+            out, ms, peak = serve(pipe, x)
+            n = fused_rnb.fused_rnb_launches - before
+            check(out["frames"].shape == (B, T, S, S, 3)
+                  and bool(torch.isfinite(out["frames"].float()).all()),
+                  f"org {impl} request: frames")
+            check(n == (ORG_RNB_LAUNCHES if impl == "fused" else 0),
+                  f"the org {impl} request launched the fused RNB kernel "
+                  f"{n} times")
+            log(f"    generate B={B} T={T} rnb_impl={impl:5s}: {ms:9.2f} ms, "
+                f"{B * T * 1e3 / ms:8.1f} frames/s, peak "
+                f"{peak / 2**30:.2f} GiB, {n} fused RNB launches  {note}")
+            rows.append(dict(rnb_impl=impl, ms=ms, fps=B * T * 1e3 / ms,
+                             peak_gib=peak / 2**30, launches=n, note=note))
+        if impl == "fused":
+            launches = fused_rnb.fused_rnb_launches
+        frames[impl] = out["frames"]
+    # the same request with the fused blocks' plain version
+    launch = ops_nn.fused_rnb
+    ops_nn.fused_rnb = fused_rnb.fused_rnb_plain
+    try:
+        plain, _, _ = serve(pipe, x)
+    finally:
+        ops_nn.fused_rnb = launch
+    rel_plain = rel_l2(frames["fused"], plain["frames"])
+    rel_cudnn = rel_l2(frames["fused"], frames["cudnn"])
+    log(f"    fused route vs its plain version: rel-L2 {rel_plain:.3e} "
+        f"(<= 2e-2); vs the cudnn route {rel_cudnn:.3e} (reported)")
+    check(rel_plain <= 2e-2, "org fused route disagrees with the plain "
+          "version of its blocks")
+    RESULTS["org_requests"] = rows
+    RESULTS["org_rel_l2"] = dict(fused_vs_plain=rel_plain,
+                                 fused_vs_cudnn=rel_cudnn)
+    for impl, vunet in vunets.items():
+        pipe.vunet = vunet
+        stage_breakdown(pipe, x, g, f"org_stages_ms_{impl}")
+    # one test_forward chunk: the autoregressive prior runs for real
+    cs, _ = pipe._chunk_size(B * T)
+    stick = plain["stickman"].reshape((B * T, S, S, 3))[:cs]
+    with torch.inference_mode():
+        before = fused_rnb.fused_rnb_launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sample = vunets["fused"].test_forward(stick, generator=g)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n = fused_rnb.fused_rnb_launches - before
+    check(sample.shape == (cs, S, S, 3)
+          and bool(torch.isfinite(sample.float()).all())
+          and n == ORG_PRIOR_RNB_LAUNCHES,
+          f"org test_forward: shape {tuple(sample.shape)}, {n} launches")
+    log(f"    test_forward, {cs} frames, rnb_impl=fused: {ms:.2f} ms, {n} "
+        f"fused RNB launches")
+    RESULTS["org_test_forward"] = dict(frames=cs, ms=ms, launches=n)
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch "
                                  "port on one NVIDIA GPU")
@@ -897,11 +1209,14 @@ def main(argv=None):
     phase_build()
     max_err, ms, plain_ms = phase_kernel()
     elu = phase_elu_dropout()
+    rnb = phase_fused_rnb()
     launches = phase_slice()
     phase_cli()
     phase_golden()
+    phase_org_golden()
     elu_launches = phase_train()
     phase_train_golden()
+    rnb_launches = phase_org()
     bound, bound_by = rollout_bound_ms(*ROLLOUT_SHAPES[0])
     source = "behavior_driven_video_synthesis_tpu_torch/csrc/"
     pallas = "behavior_driven_video_synthesis_tpu/ops/pallas/"
@@ -916,7 +1231,11 @@ def main(argv=None):
             "replaces": pallas + f"elu_dropout.py:{line}",
             "launches": n, **elu[d]}
         for d, line, n in (("fwd", 83, elu_launches[0]),
-                           ("bwd", 95, elu_launches[1]))]}
+                           ("bwd", 95, elu_launches[1]))] + [{
+            "name": "fused_rnb", "route": "cuda",
+            "source": source + "fused_rnb.cu",
+            "replaces": "attic/pallas_rnb.py:86",
+            "launches": rnb_launches, **rnb}]}
     RESULTS.update(kernels)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

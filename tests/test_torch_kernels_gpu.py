@@ -11,7 +11,10 @@ summation order (atomics included) and in the rare bf16 rounding flip of h
 that this causes, so atol 1e-2, rtol 1e-2.  ELU+dropout: the plain version
 computes the kernel's Philox stream, so the keep decisions agree exactly;
 values within one bf16 ulp (bf16) or 1e-6 (f32), for expm1f/expf may
-differ from torch's in the last f32 bit.
+differ from torch's in the last f32 bit.  Fused RNB: the kernel and its
+plain version round elu(x) and W to bf16 and accumulate in f32; they
+differ in summation order and, rarely, in a bf16 rounding of elu(x) or of
+the output, so atol 1e-2, rtol 1e-2.
 """
 import numpy as np
 import pytest
@@ -26,6 +29,8 @@ from behavior_driven_video_synthesis_tpu_torch.models.vunet import VUNet
 from behavior_driven_video_synthesis_tpu_torch.ops import nn as pnn
 from behavior_driven_video_synthesis_tpu_torch.ops.cuda import (
     elu_dropout as E)
+from behavior_driven_video_synthesis_tpu_torch.ops.cuda import (
+    fused_rnb as FR)
 from behavior_driven_video_synthesis_tpu_torch.ops.cuda import rollout as R
 from behavior_driven_video_synthesis_tpu_torch.pipeline import (
     BehaviorTransferPipeline)
@@ -162,3 +167,89 @@ def test_rnb_trains_through_the_kernels(cuda):
     assert (E.elu_dropout_fwd_launches - before[0],
             E.elu_dropout_bwd_launches - before[1]) == (2, 2)
     assert bool(torch.isfinite(x.grad).all())
+
+
+def _rnb_block(C, device, **kw):
+    return init_random_(pnn.VunetRNB(C, dtype=torch.bfloat16, **kw),
+                        np.random.RandomState(C)).to(device).eval()
+
+
+@pytest.mark.parametrize("shape", [
+    (8, 256, 256, 32), (8, 128, 128, 64), (8, 64, 64, 128), (3, 37, 53, 64),
+    (5, 4, 4, 128), (2, 5, 7, 8), (1, 9, 17, 24), (2, 16, 16, 40),
+    (1, 1, 1, 16), (2, 8, 33, 120)])
+def test_fused_rnb_kernel_matches_plain(cuda, shape):
+    block = _rnb_block(shape[-1], cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = (torch.randn(shape, generator=g, device=cuda) * 0.5).bfloat16()
+    before = FR.fused_rnb_launches
+    with torch.no_grad():
+        out = FR.fused_rnb(x, block)
+        torch.cuda.synchronize()
+        ref = FR.fused_rnb_plain(x, block)
+    assert FR.fused_rnb_launches == before + 1
+    assert out.shape == x.shape and out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2,
+                               rtol=1e-2)
+
+
+def test_fused_rnb_kernel_refuses_what_it_does_not_take(cuda):
+    block = _rnb_block(16, cuda)
+    x = torch.zeros(2, 8, 8, 16, device=cuda, dtype=torch.bfloat16)
+    with torch.no_grad():
+        with pytest.raises(TypeError, match="bfloat16"):
+            FR.fused_rnb(x.float(), block)
+        with pytest.raises(ValueError, match="3x3"):
+            FR.fused_rnb(x[..., :8], block)
+        with pytest.raises(ValueError, match="C % 8"):
+            FR.fused_rnb(torch.zeros(1, 4, 4, 12, device=cuda,
+                                     dtype=torch.bfloat16), _rnb_block(12, cuda))
+        with pytest.raises(ValueError, match="C <= 128"):
+            FR.fused_rnb(torch.zeros(1, 4, 4, 136, device=cuda,
+                                     dtype=torch.bfloat16),
+                         _rnb_block(136, cuda))
+        with pytest.raises(ValueError, match="3x3"):
+            FR.fused_rnb(x, _rnb_block(16, cuda, residual=True))
+        with pytest.raises(ValueError, match="on cpu"):
+            FR.fused_rnb(x, _rnb_block(16, "cpu"))
+        # a strided view is copied, not refused
+        wide = torch.randn(2, 8, 8, 32, device=cuda).bfloat16()
+        torch.testing.assert_close(
+            FR.fused_rnb(wide[..., ::2], block).float(),
+            FR.fused_rnb_plain(wide[..., ::2].contiguous(), block).float(),
+            atol=1e-2, rtol=1e-2)
+    with pytest.raises(RuntimeError, match="no backward"):
+        FR.fused_rnb(x, block.requires_grad_(True))
+
+
+def test_org_vunet_fused_route_on_the_card(cuda):
+    """A bf16 org VUNet under rnb_impl "fused": one launch per RNB
+    without auxiliary input, frames close to the cuDNN route's."""
+    rng = np.random.RandomState(0)
+    arch = dict(spatial_size=32, n_channels_x=30, nf_start=8, nf_max=16,
+                box_factor=1, variant="org", dtype=torch.bfloat16)
+    ref = init_random_(VUNet(**arch), rng).to(cuda).eval()
+    fused = VUNet(**arch, rnb_impl="fused").to(cuda).eval()
+    fused.load_state_dict(ref.state_dict())
+    x = torch.from_numpy(rng.rand(3, 16, 16, 30)).float().to(cuda)
+    c = torch.from_numpy(rng.rand(3, 32, 32, 3)).float().to(cuda)
+    eps = [torch.from_numpy(rng.randn(3, s, s, 16)).float().to(cuda)
+           for s in (4, 8)]
+    prior = [[torch.from_numpy(rng.randn(3, s, s, 16)).float().to(cuda)
+              for _ in range(4)] for s in (2, 4)]
+    outs = {}
+    with torch.inference_mode():
+        for name, net in (("cudnn", ref), ("fused", fused)):
+            n0 = FR.fused_rnb_launches
+            means, _ = net.encode_means(x, eps)
+            n1 = FR.fused_rnb_launches
+            frames = net.transfer_cached(means, c)
+            n2 = FR.fused_rnb_launches
+            sample = net.test_forward(c, prior)
+            torch.cuda.synchronize()
+            counts = (n1 - n0, n2 - n1, FR.fused_rnb_launches - n2)
+            assert counts == ((6, 8, 10) if name == "fused" else (0, 0, 0))
+            outs[name] = (frames.float(), sample.float())
+    for a, b in zip(outs["fused"], outs["cudnn"]):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).norm() / b.norm()) < 2e-2

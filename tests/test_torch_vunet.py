@@ -104,7 +104,7 @@ def test_vunet_from_config_and_unported_options():
                              "training": {"bf16": False}}, "alter")
     assert net.dtype == torch.float32 and net.spatial_size == 64
     assert vunet_from_config(None, "alter").dtype == torch.bfloat16
-    for kw in ({"variant": "org"}, {"quant": "int8_static"},
+    for kw in ({"quant": "int8_static"},
                {"upsample_transpose": True}, {"remat": "subnet"},
                {"conv_layer_type": "l2"}):
         with pytest.raises(NotImplementedError):
