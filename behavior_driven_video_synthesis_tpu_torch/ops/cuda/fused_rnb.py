@@ -15,6 +15,10 @@ the 9*C products in f32 on the tensor cores, and adds the affine and the
 residual in f32 before one rounding to bf16.  It has no backward: like the
 TPU kernel, it serves the inference path only.
 
+The kernel's operands (W packed in its shared-memory layout, scale and
+shift) are built once per block by :func:`prepared_operands` and reused
+while the block's parameters are unchanged.
+
 CUDA tensors launch the kernel (bf16, C a multiple of 8 up to 128) or
 raise; CPU tensors take the plain version, in the tensor's dtype.
 """
@@ -22,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +35,10 @@ from .build import load_library
 
 # Launches of the kernel since import (or since a caller last reset it).
 fused_rnb_launches = 0
+# Builds of a block's kernel operands by prepared_operands since import.
+operand_builds = 0
+
+_operands: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def rnb_operands(rnb):
@@ -53,6 +62,86 @@ def fused_rnb_plain(x, rnb):
     return (x.float() + (scale * acc.permute(0, 2, 3, 1) + shift)).to(dt)
 
 
+def padded_channels(C):
+    """C rounded up to 16: the kernel's K and N."""
+    return -(-C // 16) * 16
+
+
+# C rounded up to 16 at which the kernel multiplies with wgmma, reading W
+# from shared memory in 8x8 core matrices (csrc/fused_rnb.cu Plan::kWgmma)
+WGMMA_CHANNELS = (64, 128)
+
+
+def packed_shape(C):
+    """The shape of :func:`pack_weights`'s output at C."""
+    CP = padded_channels(C)
+    if CP in WGMMA_CHANNELS:
+        return (9, CP // 8, CP // 8, 8, 8)
+    return (9, CP, CP + 8)
+
+
+def pack_weights(w):
+    """W (C, C, 3, 3) OIHW to the kernel's layout, bf16, zero past C: for
+    mma.sync (9, CP, CP + 8), [tap = 3*dh + dw][out][in] with each row's
+    last 8 elements the shared-memory row pad; for wgmma (9, CP/8, CP/8, 8,
+    8), [tap][out/8][in/8][out%8][in%8], the 8x8 core matrices its
+    descriptor reads.  A block copies either as it is."""
+    C = w.shape[0]
+    CP = padded_channels(C)
+    taps = torch.zeros(9, CP, CP, dtype=torch.bfloat16, device=w.device)
+    taps[:, :C, :C] = w.to(torch.bfloat16).permute(2, 3, 0, 1).reshape(
+        9, C, C)
+    if CP in WGMMA_CHANNELS:
+        return taps.reshape(9, CP // 8, 8, CP // 8, 8).permute(
+            0, 1, 3, 2, 4).contiguous()
+    return F.pad(taps, (0, 8))
+
+
+def unpack_weights(packed, C):
+    """The inverse of :func:`pack_weights`: (C, C, 3, 3) OIHW, bf16."""
+    CP = padded_channels(C)
+    if packed.dim() == 5:
+        taps = packed.permute(0, 1, 3, 2, 4).reshape(9, CP, CP)
+    else:
+        taps = packed[..., :CP]
+    return taps[:, :C, :C].reshape(3, 3, C, C).permute(2, 3, 0, 1)
+
+
+def pack_affine(scale, shift):
+    """(2, CP) f32: scale then shift, zero past C."""
+    C = scale.shape[0]
+    affine = torch.zeros(2, padded_channels(C), dtype=torch.float32,
+                         device=scale.device)
+    affine[0, :C] = scale
+    affine[1, :C] = shift
+    return affine
+
+
+def _params(rnb):
+    conv = rnb.conv
+    return (conv.conv.weight_v, conv.conv.weight_g, conv.conv.bias,
+            conv.gamma, conv.beta)
+
+
+def prepared_operands(rnb):
+    """(W packed, affine) of a block for the kernel, built once and reused
+    while every parameter of its conv keeps its version counter, storage,
+    device and dtype: ``load_state_dict``, an optimizer step or any other
+    in-place update, and ``.to()``, rebuild it."""
+    global operand_builds
+    key = tuple((p._version, p.data_ptr(), p.device, p.dtype)
+                for p in _params(rnb))
+    hit = _operands.get(rnb)
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    with torch.no_grad():
+        w, scale, shift = rnb_operands(rnb)
+        operands = (pack_weights(w), pack_affine(scale, shift))
+    _operands[rnb] = (key, operands)
+    operand_builds += 1
+    return operands
+
+
 def _check(x, rnb):
     conv = rnb.conv
     v = conv.conv.weight_v
@@ -65,17 +154,19 @@ def _check(x, rnb):
                          f"SAME conv from C={C} to C channels; got weight "
                          f"{tuple(v.shape)}, stride {conv.stride}, padding "
                          f"{conv.padding}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"the fused RNB kernel takes bfloat16, got {x.dtype}")
-    if C % 8 != 0 or C > 128:
-        raise ValueError(f"the fused RNB kernel needs C % 8 == 0 and "
-                         f"C <= 128, got C={C}")
-    if x.shape[0] > 65535:
-        raise ValueError(f"the fused RNB kernel takes B <= 65535, got "
-                         f"{x.shape[0]}")
+    _check_x(x)
     if v.device != x.device:
         raise ValueError(f"the RNB's parameters are on {v.device}, x on "
                          f"{x.device}")
+
+
+def _check_x(x):
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the fused RNB kernel takes bfloat16, got {x.dtype}")
+    C = x.shape[-1]
+    if C % 8 != 0 or C > 128:
+        raise ValueError(f"the fused RNB kernel needs C % 8 == 0 and "
+                         f"C <= 128, got C={C}")
 
 
 def _check_no_grad(x, rnb):
@@ -89,9 +180,27 @@ def _check_no_grad(x, rnb):
 def _lib():
     lib = load_library("fused_rnb")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bdvs_fused_rnb.argtypes = [p] * 5 + [i] * 4 + [p]
+    lib.bdvs_fused_rnb.argtypes = [p] * 4 + [i] * 4 + [p]
     lib.bdvs_fused_rnb.restype = i
+    lib.bdvs_fused_rnb_plan.argtypes = [i, p]
+    lib.bdvs_fused_rnb_plan.restype = i
     return lib
+
+
+def kernel_plan(C, device):
+    """The kernel's launch plan at C on a CUDA device: dynamic shared memory
+    a block, tap slots (9: the weights resident, 2: a ring), halo buffers,
+    m16 rows and output channels a warp, the grid's cap (blocks the device
+    holds at once), blocks an SM, threads a block, and whether the
+    products run on wgmma (the layout :func:`pack_weights` picks)."""
+    info = (ctypes.c_int * 9)()
+    with torch.cuda.device(device):
+        err = _lib().bdvs_fused_rnb_plan(C, ctypes.addressof(info))
+    if err:
+        raise RuntimeError(f"fused RNB kernel plan failed: cudaError {err}")
+    keys = ("smem_bytes", "tap_slots", "halo_buffers", "warp_rows",
+            "warp_channels", "grid_cap", "blocks_per_sm", "threads")
+    return dict(zip(keys, info), wgmma=bool(info[8]))
 
 
 def _aligned(t):
@@ -101,20 +210,24 @@ def _aligned(t):
     return t
 
 
-def _launch(x, rnb):
+def fused_rnb_prepared(x, operands):
+    """One launch of the kernel on a CUDA bf16 NHWC x and operands from
+    :func:`prepared_operands`, with nothing prepared on the way."""
     global fused_rnb_launches
-    _check(x, rnb)
+    _check_x(x)
+    w, affine = operands
     B, H, W, C = x.shape
-    w, scale, shift = rnb_operands(rnb)
-    # [tap = 3*dh + dw][out][in]: the kernel's B operand, k contiguous
-    w9 = _aligned(w.to(torch.bfloat16).permute(2, 3, 0, 1).reshape(9, C, C))
-    x, scale, shift = _aligned(x), scale.contiguous(), shift.contiguous()
+    CP = padded_channels(C)
+    if tuple(w.shape) != packed_shape(C) or tuple(affine.shape) != (2, CP):
+        raise ValueError(f"operands of shapes {tuple(w.shape)}, "
+                         f"{tuple(affine.shape)} do not fit C={C}")
+    x = _aligned(x)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _lib().bdvs_fused_rnb(
-            x.data_ptr(), w9.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-            out.data_ptr(), B, H, W, C, stream)
+            x.data_ptr(), w.data_ptr(), affine.data_ptr(), out.data_ptr(),
+            B, H, W, C, stream)
     if err:
         raise RuntimeError(f"fused RNB kernel launch failed: cudaError {err}")
     fused_rnb_launches += 1
@@ -130,4 +243,5 @@ def fused_rnb(x, rnb):
         return fused_rnb_plain(x, rnb)
     if x.device.type != "cuda":
         raise ValueError(f"no fused RNB for device {x.device}")
-    return _launch(x, rnb)
+    _check(x, rnb)
+    return fused_rnb_prepared(x, prepared_operands(rnb))

@@ -14,9 +14,14 @@ CUDA toolkit (nvcc) and PyTorch.  It imports no JAX.  Phases:
    the ELU+dropout forward and backward at the VUNet's largest dropout
    site (12, 256, 256, 32) bf16 and at a ragged f32 size, with
    ``F.dropout(F.elu(x))`` timed beside them as a yardstick; the fused RNB
-   at the VUNet's 125-frame chunk sites (256/128/64/32/4 px) and a ragged
-   shape, with the default ``VunetRNB`` eval forward (cuDNN conv and eager
-   elementwise ops) timed beside it;
+   checked at the VUNet's 125-frame chunk sites (256/128/64/32/4 px) and a
+   ragged shape, its nvcc report (registers, spills) and launch plan
+   (shared memory, blocks an SM) for each instantiation, and timed at
+   every site of an org request (7 chunk sites, 5 ``encode_means`` sites)
+   on prepared operands, beside the ``VunetRNB`` call under ``fused`` (the
+   route) and the default eval forward (cuDNN conv and eager elementwise
+   ops), with the request's sum of launches x time against launches x
+   bound;
 4. the full-width serving slice at ``bench.py``'s shapes (B=20, T=50,
    256 px, HID 1024, 48 of 51 keypoints, a 15-flow LatentFlow of mid width
    2048 in f32, VUNet-alter nf 32->128 in bf16) on seeded random weights
@@ -55,6 +60,7 @@ All measured values also go to a JSON file, ``build/chip_smoke.json`` unless
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -126,16 +132,21 @@ DEAD_BACKWARD_SITES = 2 * 2
 ELU_DROPOUT_SHAPES = [((12, 256, 256, 32), torch.bfloat16),
                       ((1000003,), torch.float32)]
 ELU_DROPOUT_RATES = (0.05, 0.5)
-# the fused RNB's sites in a 125-frame chunk (B=20, T=50 is 8 chunks of
-# 125): EncUp at 256, 128, 64, 32 and 4 px, and a ragged shape; the first
-# three are timed
+# the fused RNB kernel held against its plain version: sites of a
+# 125-frame chunk (B=20, T=50 is 8 chunks of 125) and a ragged shape
 FUSED_RNB_SHAPES = [(125, 256, 256, 32), (125, 128, 128, 64),
                     (125, 64, 64, 128), (125, 32, 32, 128),
                     (125, 4, 4, 128), (3, 37, 53, 64)]
-# fused RNB launches of one B=20, T=50 request: the two RNBs of each EncUp
-# scale, once a video in eu (org: 5 scales on the 64x64 part stack; alter:
-# 7) and once a 125-frame chunk in du (7 scales, 8 chunks)
-ORG_RNB_LAUNCHES = 2 * 5 + 2 * 7 * 8
+# the fused RNB's sites in one org B=20, T=50 request and its launches at
+# each: the two RNBs of each EncUp scale, once a 125-frame chunk in du (7
+# scales from 256 px at nf 32 to 4 px at 128, 8 chunks) and once a video in
+# eu (5 scales of the 64x64 part stack)
+CHUNK_RNB_SITES = [(125, s, s, min(32 * 256 // s, 128))
+                   for s in (256, 128, 64, 32, 16, 8, 4)]
+ORG_RNB_SITES = {**{site: 2 * 8 for site in CHUNK_RNB_SITES},
+                 **{(20, s, s, min(32 * 64 // s, 128)): 2
+                    for s in (64, 32, 16, 8, 4)}}
+ORG_RNB_LAUNCHES = sum(ORG_RNB_SITES.values())      # 2 * 5 + 2 * 7 * 8
 ALTER_RNB_LAUNCHES = 2 * 7 + 2 * 7 * 8
 # one org test_forward chunk: du's 14 and the prior's two pre blocks
 ORG_PRIOR_RNB_LAUNCHES = 2 * 7 + 2
@@ -406,20 +417,92 @@ def fused_rnb_bound_ms(B, H, W, C):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def ptxas_report(log_text, kernel):
+    """{template argument: (registers, spill store bytes, spill load
+    bytes)} of each instantiation of ``kernel`` in an nvcc -Xptxas -v
+    log."""
+    out, cur, spills = {}, None, (0, 0)
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            a = re.search(kernel + r"ILi(\d+)E", m.group(1))
+            cur = int(a.group(1)) if a else None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur] = (int(m.group(1)),) + spills
+            cur, spills = None, (0, 0)
+    return out
+
+
+def device_ms_per_launch(fn, n, name):
+    """Mean device time of the kernels whose name holds ``name`` over n
+    calls of fn, from torch.profiler; None where it saw none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and name in e.key and e.self_device_time_total > 0]
+    count = sum(e.count for e in events)
+    if count == 0:
+        return None
+    return sum(e.self_device_time_total for e in events) / count / 1e3
+
+
+def fused_twin(block, C):
+    """A VunetRNB under rnb_impl "fused" with block's weights."""
+    twin = ops_nn.VunetRNB(C, dtype=torch.bfloat16, rnb_impl="fused",
+                           device="meta").to_empty(device=DEV)
+    twin.load_state_dict(block.state_dict())
+    return twin.eval()
+
+
 def phase_fused_rnb():
     log("[3] fused RNB kernel vs plain PyTorch (bf16: atol 1e-2, rtol 1e-2)")
+    report = ptxas_report(build_log("fused_rnb"), "fused_rnb_kernel")
+    for CP in sorted(report):
+        plan = fused_rnb.kernel_plan(CP, DEV)
+        regs, st, ld = report[CP]
+        log(f"    instantiation CP={CP}: {regs} registers, spill stores "
+            f"{st} B, spill loads {ld} B; dynamic shared memory "
+            f"{plan['smem_bytes']:,} B, {plan['tap_slots']} tap slots, "
+            f"{plan['halo_buffers']} halo buffer(s), a warp {plan['warp_rows']}"
+            f" rows x {plan['warp_channels']} channels, "
+            f"{plan['blocks_per_sm']} block(s) an SM, grid cap "
+            f"{plan['grid_cap']}")
+        RESULTS.setdefault("fused_rnb_instantiations", {})[CP] = dict(
+            registers=regs, spill_stores=st, spill_loads=ld, **plan)
+    check(len(report) == 8, f"ptxas reported {sorted(report)}")
+    check(not any(st or ld for _, st, ld in report.values()),
+          "a fused RNB instantiation spills registers")
     g = torch.Generator(device=DEV).manual_seed(0)
     blocks, err = {}, 0.0
-    for shape in FUSED_RNB_SHAPES:
-        C = shape[-1]
+
+    def block_of(C):
         if C not in blocks:
             blocks[C] = on_device(ops_nn.VunetRNB(
                 C, dtype=torch.bfloat16, device="meta"), g)
+        return blocks[C]
+    for shape in FUSED_RNB_SHAPES:
+        block = block_of(shape[-1])
         x = (torch.randn(shape, generator=g, device=DEV) * 0.5).bfloat16()
         with torch.inference_mode():
-            out = fused_rnb.fused_rnb(x, blocks[C])
+            out = fused_rnb.fused_rnb(x, block)
             torch.cuda.synchronize()
-            ref = fused_rnb.fused_rnb_plain(x, blocks[C])
+            ref = fused_rnb.fused_rnb_plain(x, block)
         e = float((out.float() - ref.float()).abs().max())
         ok = (out.shape == x.shape and out.dtype == torch.bfloat16
               and torch.allclose(out.float(), ref.float(), atol=1e-2,
@@ -432,34 +515,74 @@ def phase_fused_rnb():
         check(ok, f"fused RNB kernel disagrees with its plain version at "
               f"{shape}")
         err = max(err, e)
-    timed = {}
-    for shape in FUSED_RNB_SHAPES[:3]:
-        block = blocks[shape[-1]]
+    log("    times at the org request's sites: the kernel on prepared "
+        "operands (CUDA events; device time per launch from "
+        "torch.profiler), the VunetRNB call under rnb_impl fused (route), "
+        "the default VunetRNB eval forward (library: cuDNN conv and eager "
+        "ELU, affine, residual)")
+    timed, rows = {}, []
+    for shape in ORG_RNB_SITES:
+        C = shape[-1]
+        block = block_of(C)
+        twin = fused_twin(block, C)
         x = (torch.randn(shape, generator=g, device=DEV) * 0.5).bfloat16()
+        n = 20 if shape[1] >= 64 else 100
         with torch.inference_mode():
-            order = [("plain", lambda: fused_rnb.fused_rnb_plain(x, block),
-                      3),
-                     ("kernel", lambda: fused_rnb.fused_rnb(x, block), 20),
-                     ("kernel", lambda: fused_rnb.fused_rnb(x, block), 20),
-                     ("plain", lambda: fused_rnb.fused_rnb_plain(x, block),
-                      3)]
-            times = [(n, cuda_ms(fn, it)) for n, fn, it in order]
-            lib_ms = cuda_ms(lambda: block(x), 20)
-        ms = float(np.mean([t for n, t in times if n == "kernel"]))
-        plain_ms = float(np.mean([t for n, t in times if n == "plain"]))
+            operands = fused_rnb.prepared_operands(block)
+
+            def kernel():
+                return fused_rnb.fused_rnb_prepared(x, operands)
+
+            def plain():
+                return fused_rnb.fused_rnb_plain(x, block)
+            out, ref = kernel().float(), plain().float()
+            e = float((out - ref).abs().max())
+            close = torch.allclose(out, ref, atol=1e-2, rtol=1e-2)
+            order = [("plain", plain, 3), ("kernel", kernel, n),
+                     ("kernel", kernel, n), ("plain", plain, 3)]
+            times = [(name, cuda_ms(fn, it)) for name, fn, it in order]
+            route_ms = cuda_ms(lambda: twin(x), n)
+            lib_ms = cuda_ms(lambda: block(x), n)
+            dev_ms = device_ms_per_launch(kernel, n, "fused_rnb_kernel")
+        ms = float(np.mean([t for name, t in times if name == "kernel"]))
+        plain_ms = float(np.mean([t for name, t in times
+                                  if name == "plain"]))
         bound, bound_by = fused_rnb_bound_ms(*shape)
-        log(f"    time at {shape} (plain, kernel, kernel, plain): "
-            + ", ".join(f"{n} {t:.4f} ms" for n, t in times)
-            + f"; library (VunetRNB cuDNN route) {lib_ms:.4f} ms; bound "
-            f"{bound:.4f} ms ({bound_by}); kernel at "
-            f"{bound / ms:.1%} of its bound")
-        RESULTS.setdefault("fused_rnb_times_ms", []).append(dict(
-            shape=list(shape), order=times, library=lib_ms, bound=bound,
-            bound_by=bound_by))
+        launches = ORG_RNB_SITES[shape]
+        kernel_ms = dev_ms if dev_ms is not None else ms
+        log(f"    {shape}: (plain, kernel, kernel, plain) "
+            + ", ".join(f"{name} {t:.4f}" for name, t in times)
+            + " ms; device "
+            + ("not measured" if dev_ms is None else f"{dev_ms:.4f} ms")
+            + f"; route {route_ms:.4f} ms; library {lib_ms:.4f} ms; bound "
+            f"{bound:.4f} ms ({bound_by}), kernel at {bound / kernel_ms:.1%}"
+            f" of it; {lib_ms / kernel_ms:.2f}x the library; "
+            f"{launches} launches an org request; max|kernel-plain| "
+            f"{e:.3e}")
+        check(close, f"fused RNB kernel disagrees with its plain version "
+              f"at {shape}")
+        rows.append(dict(shape=list(shape), order=times, ms=ms,
+                         device_ms=dev_ms, route_ms=route_ms, library=lib_ms,
+                         bound=bound, bound_by=bound_by, launches=launches,
+                         max_abs_err=e))
         timed[shape] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                             bound_ms=bound, bound_by=bound_by)
+    total = {k: sum(r["launches"] * v for r, v in zip(rows, vals))
+             for k, vals in (
+                 ("kernel", [r["device_ms"] if r["device_ms"] is not None
+                             else r["ms"] for r in rows]),
+                 ("route", [r["route_ms"] for r in rows]),
+                 ("library", [r["library"] for r in rows]),
+                 ("bound", [r["bound"] for r in rows]))}
+    log(f"    an org B=20, T=50 request ({ORG_RNB_LAUNCHES} launches): "
+        f"sum of launches x kernel {total['kernel']:.3f} ms, x route "
+        f"{total['route']:.3f} ms, x library {total['library']:.3f} ms, "
+        f"x bound {total['bound']:.3f} ms (kernel at "
+        f"{total['bound'] / total['kernel']:.1%} of its bound)")
+    RESULTS["fused_rnb_sites"] = rows
+    RESULTS["fused_rnb_org_request_ms"] = total
     # the kernels line carries the largest site, 256 px at C=32
-    return dict(max_abs_err=err, **timed[FUSED_RNB_SHAPES[0]])
+    return dict(max_abs_err=err, **timed[CHUNK_RNB_SITES[0]])
 
 
 # -- 4. the full-width slice --------------------------------------------------

@@ -146,3 +146,72 @@ def test_route_on_the_cpu_and_under_autograd():
             False))
     with torch.inference_mode():
         assert block(x).shape == x.shape
+
+
+@pytest.mark.parametrize("C", [8, 24, 32, 64, 120, 128])
+def test_packed_weights_round_trip_to_oihw(C):
+    """The kernel's layouts, (9, CP, CP + 8) [tap = 3*dh + dw][out][in]
+    for mma.sync and (9, CP/8, CP/8, 8, 8) core matrices for wgmma, unpack
+    to the bf16 OIHW kernel exactly, with zeros in every pad."""
+    w = torch.from_numpy(np.random.RandomState(C).randn(C, C, 3, 3).astype(
+        np.float32))
+    packed = R.pack_weights(w)
+    CP = R.padded_channels(C)
+    assert CP % 16 == 0 and C <= CP < C + 16
+    assert packed.shape == R.packed_shape(C)
+    assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
+    assert torch.equal(R.unpack_weights(packed, C), w.bfloat16())
+    if CP in R.WGMMA_CHANNELS:
+        assert packed.shape == (9, CP // 8, CP // 8, 8, 8)
+        # tap 5 = (dh 1, dw 2), out 10 = 8 + 2, in 23 = 16 + 7
+        assert torch.equal(packed[5, 1, 2, 2, 7], w[10, 23, 1, 2].bfloat16())
+        taps = packed.permute(0, 1, 3, 2, 4).reshape(9, CP, CP)
+    else:
+        assert packed.shape == (9, CP, CP + 8)
+        assert torch.equal(packed[5, 2, 7], w[2, 7, 1, 2].bfloat16())
+        taps = packed
+    pad = taps.float().clone()
+    pad[:, :C, :C] = 0
+    assert not pad.any()
+    affine = R.pack_affine(torch.arange(1.0, C + 1), -torch.arange(C) * 1.0)
+    assert affine.shape == (2, CP) and affine.dtype == torch.float32
+    assert torch.equal(affine[0, :C], torch.arange(1.0, C + 1))
+    assert torch.equal(affine[1, :C], -torch.arange(C) * 1.0)
+    assert not affine[:, C:].any()
+
+
+def _assert_operands_of(operands, block):
+    w, scale, shift = R.rnb_operands(block)
+    C = w.shape[0]
+    assert torch.equal(R.unpack_weights(operands[0], C), w.bfloat16())
+    assert torch.equal(operands[1][0, :C], scale)
+    assert torch.equal(operands[1][1, :C], shift)
+
+
+def test_prepared_operands_are_cached_until_a_parameter_changes():
+    block, _ = _block(16, 7)
+    first = R.prepared_operands(block)
+    builds = R.operand_builds
+    assert R.prepared_operands(block) is first
+    assert R.operand_builds == builds
+    _assert_operands_of(first, block)
+    rng = np.random.RandomState(8)
+    with torch.no_grad():                       # an in-place update of v
+        block.conv.conv.weight_v.add_(torch.from_numpy(
+            rng.randn(16, 16, 3, 3).astype(np.float32)))
+    second = R.prepared_operands(block)
+    assert second is not first and R.operand_builds == builds + 1
+    _assert_operands_of(second, block)
+    with torch.no_grad():                       # and of the affine
+        block.conv.gamma.mul_(3.0)
+    third = R.prepared_operands(block)
+    assert third is not second and torch.equal(third[0], second[0])
+    _assert_operands_of(third, block)
+    other, _ = _block(16, 9)
+    block.load_state_dict(other.state_dict())
+    fourth = R.prepared_operands(block)
+    assert fourth is not third and R.operand_builds == builds + 3
+    _assert_operands_of(fourth, other)
+    # each block keeps its own
+    assert R.prepared_operands(other) is not fourth
+    assert R.prepared_operands(block) is fourth

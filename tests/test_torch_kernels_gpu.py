@@ -174,23 +174,36 @@ def _rnb_block(C, device, **kw):
                         np.random.RandomState(C)).to(device).eval()
 
 
-@pytest.mark.parametrize("shape", [
-    (8, 256, 256, 32), (8, 128, 128, 64), (8, 64, 64, 128), (3, 37, 53, 64),
-    (5, 4, 4, 128), (2, 5, 7, 8), (1, 9, 17, 24), (2, 16, 16, 40),
-    (1, 1, 1, 16), (2, 8, 33, 120)])
-def test_fused_rnb_kernel_matches_plain(cuda, shape):
-    block = _rnb_block(shape[-1], cuda)
-    g = torch.Generator(device=cuda).manual_seed(0)
-    x = (torch.randn(shape, generator=g, device=cuda) * 0.5).bfloat16()
+def _fused_matches_plain(x, block):
     before = FR.fused_rnb_launches
     with torch.no_grad():
         out = FR.fused_rnb(x, block)
         torch.cuda.synchronize()
-        ref = FR.fused_rnb_plain(x, block)
+        ref = FR.fused_rnb_plain(x.contiguous(), block)
     assert FR.fused_rnb_launches == before + 1
     assert out.shape == x.shape and out.dtype == torch.bfloat16
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-2,
                                rtol=1e-2)
+
+
+def _bf16_input(shape, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=device) * 0.5).bfloat16()
+
+
+@pytest.mark.parametrize("shape", [
+    (8, 256, 256, 32), (8, 128, 128, 64), (8, 64, 64, 128), (3, 37, 53, 64),
+    (5, 4, 4, 128), (2, 5, 7, 8), (1, 9, 17, 24), (2, 16, 16, 40),
+    (1, 1, 1, 16), (2, 8, 33, 120),
+    # H and W off the 16x16 tile, a 1x1 image, W below the tile's width
+    (2, 1, 1, 32), (3, 17, 5, 64), (1, 33, 15, 128), (2, 20, 3, 16),
+    (1, 15, 47, 96), (4, 2, 40, 80), (1, 31, 16, 112), (2, 16, 17, 48)]
+    # every instantiation of the dispatch (C rounded up to 16), with the
+    # weights resident (C <= 64) and streamed through the ring
+    + [(2, 19, 23, C) for C in range(8, 129, 8)])
+def test_fused_rnb_kernel_matches_plain(cuda, shape):
+    _fused_matches_plain(_bf16_input(shape, cuda), _rnb_block(shape[-1],
+                                                              cuda))
 
 
 def test_fused_rnb_kernel_refuses_what_it_does_not_take(cuda):
@@ -253,3 +266,44 @@ def test_org_vunet_fused_route_on_the_card(cuda):
     for a, b in zip(outs["fused"], outs["cudnn"]):
         assert bool(torch.isfinite(a).all())
         assert float((a - b).norm() / b.norm()) < 2e-2
+
+
+@pytest.mark.parametrize("C", [32, 128])
+def test_fused_rnb_kernel_over_partial_waves(cuda, C):
+    """B=1, and B whose tiles leave the persistent grid's last pass with
+    one tile (B = the grid's cap + 1, one tile an image)."""
+    plan = FR.kernel_plan(C, cuda)
+    assert plan["grid_cap"] >= plan["blocks_per_sm"] >= 1
+    block = _rnb_block(C, cuda)
+    for shape in ((1, 16, 16, C), (1, 80, 48, C),
+                  (plan["grid_cap"] + 1, 16, 16, C),
+                  (plan["grid_cap"] // 3 + 1, 16, 48, C)):
+        _fused_matches_plain(_bf16_input(shape, cuda), block)
+
+
+def test_fused_rnb_kernel_on_strided_inputs(cuda):
+    """Views that are not contiguous (a channel slice, a spatial stride,
+    a permuted NCHW tensor) are copied, not refused."""
+    block = _rnb_block(32, cuda)
+    wide = _bf16_input((2, 24, 30, 64), cuda)
+    nchw = _bf16_input((2, 32, 20, 21), cuda, 1)
+    for x in (wide[..., 16:48], wide[:, ::2, 1::3, :32],
+              nchw.permute(0, 2, 3, 1)):
+        assert not x.is_contiguous()
+        _fused_matches_plain(x, block)
+
+
+def test_fused_rnb_kernel_plan_fits_the_card(cuda):
+    """Resident weights up to C=64, a ring of two taps above; every plan's
+    shared memory fits a block, and the C=32 plan keeps two blocks an SM."""
+    for C in range(16, 129, 16):
+        plan = FR.kernel_plan(C, cuda)
+        assert plan["smem_bytes"] <= 232448
+        assert plan["tap_slots"] == (9 if C <= 64 else 2)
+        assert plan["halo_buffers"] == (2 if C <= 64 else 1)
+        # the warps split the tile's 16 rows and its C output channels
+        assert plan["threads"] in (256, 512)
+        assert plan["wgmma"] == (C in FR.WGMMA_CHANNELS)
+        assert (plan["warp_rows"] * plan["warp_channels"]
+                * plan["threads"] // 32) == 16 * C
+    assert FR.kernel_plan(32, cuda)["blocks_per_sm"] >= 2
