@@ -35,7 +35,8 @@ extrinsics (B, 3, 4), intrinsics (B, 4) as (fx, x0, fy, y0), image_size
 (B, 2), norm_mean / norm_std (K_full,) and dim_to_use (K,).
 
 Videos are mp4 where OpenCV is installed and uint8 .npy otherwise; the
-manifest says which.
+manifest says which.  float32 products and convolutions run without TF32
+(``core/precision.py``); the manifest records ``"tf32": false``.
 """
 from __future__ import annotations
 
@@ -47,6 +48,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .core.precision import disable_tf32, tf32_enabled
 from .data.human36m import detailed_joint_model
 from .geometry.stickman import JointModel
 from .main import resolve_device
@@ -150,6 +152,7 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
+    disable_tf32()
     device = resolve_device(args.device)
 
     btree, bcfg = _load_params(args.behavior_params)
@@ -286,6 +289,7 @@ def main(argv=None):
                 "spatial": spatial, "quant": args.quant,
                 "upsample": args.upsample, "flow": use_flow,
                 "variant": variant, "rnb_impl": args.rnb_impl,
+                "tf32": tf32_enabled(),
                 "device": (torch.cuda.get_device_name(device)
                            if device.type == "cuda" else str(device)),
                 "video_format": VIDEO_FORMAT, "videos": paths}

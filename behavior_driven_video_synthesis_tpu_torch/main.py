@@ -7,12 +7,13 @@ Counterpart of ``behavior_driven_video_synthesis_tpu/main.py``:
 
 Run directories are ``{ckpt,config,generated,log}/<project_name>`` under
 ``base_dir/experiment``; the config is dumped to
-``config/<project>/config.yaml``.  ``--debug`` trains the
-"debug" project for at most 8 steps.  The ``cvbae`` experiment is ported;
-the other experiments, ``-m infer``, and the ``-r``, ``-f``, ``-v``,
-``-s`` and ``-p`` options exit with status 2.  ``training.dropout_rng``
-is accepted and has no effect (the TPU's rng-bit generator has no
-counterpart here).
+``config/<project>/config.yaml``, with ``general.tf32: false``: float32
+products and convolutions run without TF32 (``core/precision.py``).
+``--debug`` trains the "debug" project for at most 8 steps.  The
+``cvbae`` experiment is ported; the other experiments, ``-m infer``, and
+the ``-r``, ``-f``, ``-v``, ``-s`` and ``-p`` options exit with status 2.
+``training.dropout_rng`` is accepted and has no effect (the TPU's rng-bit
+generator has no counterpart here).
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from os import path
 import torch
 
 from .core.config import load_config, save_config
+from .core.precision import disable_tf32, tf32_enabled
 
 PORTED_EXPERIMENTS = ("cvbae",)
 
@@ -88,6 +90,7 @@ def resolve_device(name: str) -> torch.device:
 
 def main(argv=None):
     args = parse_args(argv)
+    disable_tf32()
     device = resolve_device(args.device)
     config = load_config(args.config)
     experiment = config.get("general", {}).get("experiment")
@@ -95,6 +98,8 @@ def main(argv=None):
         sys.stderr.write(f"experiment {experiment!r}: not ported yet "
                          f"(ported: {', '.join(PORTED_EXPERIMENTS)})\n")
         raise SystemExit(2)
+    # the run's record of its float32 precision, dumped with the config
+    config.setdefault("general", {})["tf32"] = tf32_enabled()
     config, dirs = load_parameters(config, args.debug)
     from .experiments.shape_and_pose_net import ShapePoseExperiment
 

@@ -13,7 +13,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.cuda.rollout import residual_lstm_rollout
+from ..ops.cuda import rollout
 from ..ops.nn import NormDense
 from ..ops.recurrent import LSTM
 
@@ -106,15 +106,22 @@ class ResidualDecoder(nn.Module):
 def decoder_rollout_kernel(decoder: ResidualDecoder, b, x_start,
                            length: int):
     """A trained LSTM decoder's rollout through the rollout kernel
-    (``ops/cuda/rollout.py``): all steps in one launch on CUDA, the plain f32
-    loop on the CPU.  Returns xs (B, length, K) in f32."""
+    (``ops/cuda/rollout.py``): all steps in one launch on CUDA, on operands
+    prepared once per decoder and reused while its parameters are
+    unchanged; the plain f32 loop on the CPU.  Returns xs (B, length, K) in
+    f32."""
     if decoder.rnn_type != "lstm" or decoder.use_nin:
         raise ValueError("the rollout kernel covers LSTM decoders without "
                          "nin only")
     r = decoder.rnn
-    return residual_lstm_rollout(
-        b.float(), x_start.float(), r.weight_ih, r.weight_hh, r.bias_ih,
-        r.bias_hh, decoder.n_out.weight, decoder.n_out.bias, length)
+    if b.device.type != "cuda":
+        return rollout.residual_lstm_rollout(
+            b.float(), x_start.float(), r.weight_ih, r.weight_hh, r.bias_ih,
+            r.bias_hh, decoder.n_out.weight, decoder.n_out.bias, length)
+    rollout.check_no_grad(decoder.parameters())
+    return rollout.residual_lstm_rollout_prepared(
+        b.float(), x_start.float(), rollout.prepared_operands(decoder),
+        length)
 
 
 class ResidualBehaviorNet(nn.Module):

@@ -1,15 +1,23 @@
-"""The residual-LSTM decoder rollout: CUDA kernel wrapper and plain version.
+"""The residual-LSTM decoder rollout: CUDA kernel wrapper, its operand
+preparation and its plain version.
 
 Counterpart of ``behavior_driven_video_synthesis_tpu/ops/pallas/rollout.py``.
 The kernel (``csrc/rollout.cu``) runs all T steps in one launch with bf16
 weights and f32 state; :func:`residual_lstm_rollout_plain` is the same
 function as a loop of torch ops.  Weights come in torch layouts:
 ``weight_ih`` (4H, K), ``weight_hh`` (4H, H), ``weight_out`` (K, H).
+
+The kernel takes its weights prepared (:func:`pack_operands`): bf16, padded
+and interleaved as its blocks copy them.  :func:`prepared_operands` builds
+them once per decoder and reuses them while its parameters are unchanged;
+:func:`residual_lstm_rollout_prepared` launches on them with nothing cast
+on the way.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 
 import torch
 
@@ -17,6 +25,10 @@ from .build import load_library
 
 # Launches of the kernel since import (or since a caller last reset it).
 rollout_launches = 0
+# Builds of a decoder's kernel operands by prepared_operands since import.
+operand_builds = 0
+
+_operands: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def residual_lstm_rollout_plain(b, x0, weight_ih, weight_hh, bias_ih,
@@ -49,6 +61,88 @@ def residual_lstm_rollout_plain(b, x0, weight_ih, weight_hh, bias_ih,
     return torch.stack(xs, dim=1)
 
 
+def padded(n: int) -> int:
+    """n rounded up to 16: the depth of one mma.sync k-step."""
+    return -(-n // 16) * 16
+
+
+def _check_hidden(H):
+    if H % 8 != 0:
+        raise ValueError(f"the rollout kernel needs H % 8 == 0, got H={H}")
+
+
+def pack_operands(weight_ih, weight_hh, bias_ih, bias_hh, weight_out,
+                  bias_out):
+    """The kernel's operands (w, bias, w_out, b_out) from torch-layout
+    weights, on their device:
+
+    - w (4H, Hp + Kp) bf16: [W_hh | W_ih], H and K each zero-padded to a
+      multiple of 16, rows interleaved so that row 4u + g is gate g (i, f,
+      g, o) of unit u: a block's units are one contiguous run of rows;
+    - bias (4H,) f32: b_ih + b_hh in the same row order;
+    - w_out (H, K) bf16: W_out transposed;
+    - b_out (K,) f32.
+    """
+    H, K = weight_hh.shape[1], weight_ih.shape[1]
+    _check_hidden(H)
+    Hp = padded(H)
+    with torch.no_grad():
+        w = torch.zeros(H, 4, Hp + padded(K), dtype=torch.bfloat16,
+                        device=weight_hh.device)
+        w[:, :, :H] = weight_hh.reshape(4, H, H).transpose(0, 1)
+        w[:, :, Hp:Hp + K] = weight_ih.reshape(4, H, K).transpose(0, 1)
+        bias = (bias_ih + bias_hh).float().reshape(4, H).t()
+        return (w.reshape(4 * H, -1), bias.reshape(-1).contiguous(),
+                weight_out.t().to(torch.bfloat16).contiguous(),
+                bias_out.float().contiguous())
+
+
+def unpack_operands(operands):
+    """The inverse of :func:`pack_operands`: (weight_ih (4H, K), weight_hh
+    (4H, H), bias (4H,) = b_ih + b_hh, weight_out (K, H), bias_out (K,)) in
+    torch layouts, the weights in bf16."""
+    w, bias, w_out, b_out = operands
+    H, K = w_out.shape
+    Hp = padded(H)
+    w = w.reshape(H, 4, -1).transpose(0, 1)
+    return (w[:, :, Hp:Hp + K].reshape(4 * H, K),
+            w[:, :, :H].reshape(4 * H, H), bias.reshape(H, 4).t().reshape(-1),
+            w_out.t(), b_out)
+
+
+def residual_lstm_rollout_prepared_plain(b, x0, operands, length: int):
+    """The kernel's function on prepared operands, as a loop of torch ops:
+    bf16 operands, f32 accumulation and state."""
+    w_ih, w_hh, bias, w_out, b_out = unpack_operands(operands)
+    return residual_lstm_rollout_plain(
+        b, x0, w_ih, w_hh, bias, torch.zeros_like(bias), w_out, b_out,
+        length, operand_dtype=torch.bfloat16)
+
+
+def _decoder_params(decoder):
+    r = decoder.rnn
+    return (r.weight_ih, r.weight_hh, r.bias_ih, r.bias_hh,
+            decoder.n_out.weight, decoder.n_out.bias)
+
+
+def prepared_operands(decoder):
+    """The kernel's operands of a ``ResidualDecoder``, built once and reused
+    while every parameter of its cell and output layer keeps its version
+    counter, storage, device and dtype: ``load_state_dict``, an optimizer
+    step or any other in-place update, and ``.to()``, rebuild them."""
+    global operand_builds
+    params = _decoder_params(decoder)
+    key = tuple((p._version, p.data_ptr(), p.device, p.dtype)
+                for p in params)
+    hit = _operands.get(decoder)
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    operands = pack_operands(*params)
+    _operands[decoder] = (key, operands)
+    operand_builds += 1
+    return operands
+
+
 def _check(b, x0, weight_ih, weight_hh, bias_ih, bias_hh, weight_out,
            bias_out, length):
     tensors = dict(b=b, x0=x0, weight_ih=weight_ih, weight_hh=weight_hh,
@@ -59,9 +153,7 @@ def _check(b, x0, weight_ih, weight_hh, bias_ih, bias_hh, weight_out,
             raise ValueError(f"{name} is on {v.device}, b on {b.device}")
         if not v.is_floating_point():
             raise TypeError(f"{name} must be floating point, got {v.dtype}")
-        if v.requires_grad and torch.is_grad_enabled():
-            raise RuntimeError("the rollout kernel has no backward; call it "
-                               "under torch.no_grad() or inference_mode()")
+    check_no_grad(tensors.values())
     if b.dim() != 2 or x0.dim() != 2 or x0.shape[0] != b.shape[0]:
         raise ValueError(f"b must be (B, H) and x0 (B, K); got "
                          f"{tuple(b.shape)} and {tuple(x0.shape)}")
@@ -73,20 +165,27 @@ def _check(b, x0, weight_ih, weight_hh, bias_ih, bias_hh, weight_out,
         if tuple(tensors[name].shape) != shape:
             raise ValueError(f"{name} must be {shape}, got "
                              f"{tuple(tensors[name].shape)}")
-    if H % 8 != 0:
-        raise ValueError(f"the rollout kernel needs H % 8 == 0, got H={H}")
+    _check_hidden(H)
     if length < 1:
         raise ValueError(f"length must be >= 1, got {length}")
+
+
+def check_no_grad(tensors):
+    if torch.is_grad_enabled() and any(v.requires_grad for v in tensors):
+        raise RuntimeError("the rollout kernel has no backward; call it "
+                           "under torch.no_grad() or inference_mode()")
 
 
 @functools.cache
 def _lib():
     lib = load_library("rollout")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bdvs_residual_lstm_rollout.argtypes = [p] * 10 + [i] * 4 + [p]
+    lib.bdvs_residual_lstm_rollout.argtypes = [p] * 9 + [i] * 4 + [p]
     lib.bdvs_residual_lstm_rollout.restype = i
     lib.bdvs_rollout_config.argtypes = [i, i, i, ctypes.POINTER(i)]
     lib.bdvs_rollout_config.restype = i
+    lib.bdvs_rollout_barrier_floor.argtypes = [i] * 4 + [p]
+    lib.bdvs_rollout_barrier_floor.restype = i
     return lib
 
 
@@ -97,17 +196,75 @@ def rollout_config(B: int, K: int, H: int) -> dict:
     if err:
         raise RuntimeError(f"rollout config failed: cudaError {err}")
     return dict(blocks=out[0], units_per_block=out[1], smem_bytes=out[2],
-                w_hh_in_smem=bool(out[3]))
+                weights_in_smem=bool(out[3]))
+
+
+def barrier_floor(B: int, K: int, H: int, length: int, device) -> None:
+    """Launch ``length`` grid barriers and nothing else on the grid the
+    kernel takes at (B, K, H): timed, the least time a rollout of that many
+    serial steps can take.  Not a rollout; counts no launch."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _lib().bdvs_rollout_barrier_floor(B, K, H, length, stream)
+    if err:
+        raise RuntimeError(f"barrier kernel launch failed: cudaError {err}")
+
+
+def _launch(x0, c, operands, h, delta, out, length):
+    w, bias, w_out, b_out = operands
+    (B, K), H = x0.shape, w_out.shape[0]
+    with torch.cuda.device(x0.device):
+        stream = torch.cuda.current_stream(x0.device).cuda_stream
+        return _lib().bdvs_residual_lstm_rollout(
+            x0.data_ptr(), c.data_ptr(), w.data_ptr(), bias.data_ptr(),
+            w_out.data_ptr(), b_out.data_ptr(), h.data_ptr(),
+            delta.data_ptr(), out.data_ptr(), B, K, H, length, stream)
+
+
+def residual_lstm_rollout_prepared(b, x0, operands, length: int):
+    """One launch of the kernel from h = c = b and pose x0 on CUDA tensors
+    and operands from :func:`pack_operands`: (B, length, K) f32."""
+    global rollout_launches
+    w, bias, w_out, b_out = operands
+    H, K = w_out.shape
+    if b.device.type != "cuda":
+        raise ValueError(f"no rollout for device {b.device}")
+    for name, v in dict(x0=x0, w=w, bias=bias, w_out=w_out,
+                        b_out=b_out).items():
+        if v.device != b.device:
+            raise ValueError(f"{name} is on {v.device}, b on {b.device}")
+    check_no_grad((b, x0))
+    B = b.shape[0]
+    if tuple(b.shape) != (B, H) or tuple(x0.shape) != (B, K):
+        raise ValueError(f"b must be (B, {H}) and x0 (B, {K}); got "
+                         f"{tuple(b.shape)} and {tuple(x0.shape)}")
+    if tuple(w.shape) != (4 * H, padded(H) + padded(K)) \
+            or w.dtype != torch.bfloat16 or not w.is_contiguous():
+        raise ValueError(f"w of shape {tuple(w.shape)} ({w.dtype}) is not "
+                         f"the packed weight of H={H}, K={K}")
+    if length < 1:
+        raise ValueError(f"length must be >= 1, got {length}")
+    x0 = x0.detach().float().contiguous()
+    c = b.detach().float().clone(memory_format=torch.contiguous_format)
+    h = torch.empty(2, B, H, dtype=torch.bfloat16, device=b.device)
+    h[0] = b.detach()
+    delta = torch.zeros(length, B, K, dtype=torch.float32, device=b.device)
+    out = torch.empty(B, length, K, dtype=torch.float32, device=b.device)
+    err = _launch(x0, c, operands, h, delta, out, length)
+    if err:
+        raise RuntimeError(f"rollout kernel launch failed: cudaError {err}")
+    rollout_launches += 1
+    return out
 
 
 def residual_lstm_rollout(b, x0, weight_ih, weight_hh, bias_ih, bias_hh,
                           weight_out, bias_out, length: int):
     """Roll out ``length`` steps from h = c = b and pose x0: (B, length, K).
 
-    CUDA tensors launch the kernel (or raise); CPU tensors run the plain
-    version in f32, as the JAX package runs its scan off the TPU.
+    CUDA tensors pack the operands and launch the kernel (or raise); CPU
+    tensors run the plain version in f32, as the JAX package runs its scan
+    off the TPU.
     """
-    global rollout_launches
     args = (b, x0, weight_ih, weight_hh, bias_ih, bias_hh, weight_out,
             bias_out)
     if b.device.type == "cpu":
@@ -115,28 +272,5 @@ def residual_lstm_rollout(b, x0, weight_ih, weight_hh, bias_ih, bias_hh,
     if b.device.type != "cuda":
         raise ValueError(f"no rollout for device {b.device}")
     _check(*args, length)
-    (B, H), K = b.shape, x0.shape[1]
-    dev = b.device
-    bf16 = torch.bfloat16
-    w_ih = weight_ih.detach().to(bf16).contiguous()
-    w_hh = weight_hh.detach().to(bf16).contiguous()
-    w_out = weight_out.detach().t().to(bf16).contiguous()      # (H, K)
-    bias = (bias_ih + bias_hh).detach().float().contiguous()
-    b_out = bias_out.detach().float().contiguous()
-    x0_f = x0.detach().float().contiguous()
-    c = b.detach().float().clone(memory_format=torch.contiguous_format)
-    h = torch.empty(2, B, H, dtype=bf16, device=dev)
-    h[0] = b.detach()
-    delta = torch.zeros(length, B, K, dtype=torch.float32, device=dev)
-    out = torch.empty(B, length, K, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().bdvs_residual_lstm_rollout(
-            x0_f.data_ptr(), c.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(),
-            bias.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
-            h.data_ptr(), delta.data_ptr(), out.data_ptr(),
-            B, K, H, length, stream)
-    if err:
-        raise RuntimeError(f"rollout kernel launch failed: cudaError {err}")
-    rollout_launches += 1
-    return out
+    return residual_lstm_rollout_prepared(
+        b, x0, pack_operands(*args[2:]), length)

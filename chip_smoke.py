@@ -10,7 +10,11 @@ CUDA toolkit (nvcc) and PyTorch.  It imports no JAX.  Phases:
 2. the build of every CUDA kernel from ``csrc/`` (one nvcc per source, all
    started together), with nvcc's register, shared-memory and spill report;
 3. each kernel against its plain PyTorch version at its main path's
-   shapes, both timed with CUDA events: the rollout at the serving path's,
+   shapes, both timed with CUDA events: the rollout at the serving path's
+   and at B=256 (bulk sampling), on prepared operands, beside the
+   ``decoder_rollout_kernel`` call with cached operands (the route), T grid
+   barriers alone on the kernel's grid (the floor of any serial rollout),
+   its bound, launch configuration and nvcc's registers and spills;
    the ELU+dropout forward and backward at the VUNet's largest dropout
    site (12, 256, 256, 32) bf16 and at a ragged f32 size, with
    ``F.dropout(F.elu(x))`` timed beside them as a yardstick; the fused RNB
@@ -77,6 +81,8 @@ from behavior_driven_video_synthesis_tpu_torch import generate as cli
 from behavior_driven_video_synthesis_tpu_torch import main as train_cli
 from behavior_driven_video_synthesis_tpu_torch.core.config import (
     deep_merge, load_config)
+from behavior_driven_video_synthesis_tpu_torch.core.precision import (
+    disable_tf32)
 from behavior_driven_video_synthesis_tpu_torch.experiments import (
     shape_and_pose_net)
 from behavior_driven_video_synthesis_tpu_torch.flax_npz import (
@@ -87,7 +93,7 @@ from behavior_driven_video_synthesis_tpu_torch.geometry.stickman import (
     render_stickman)
 from behavior_driven_video_synthesis_tpu_torch.models import convert
 from behavior_driven_video_synthesis_tpu_torch.models.behavior import (
-    ResidualBehaviorNet, decoder_rollout_kernel)
+    ResidualBehaviorNet, ResidualDecoder, decoder_rollout_kernel)
 from behavior_driven_video_synthesis_tpu_torch.models.flows import LatentFlow
 from behavior_driven_video_synthesis_tpu_torch.models.init import init_random_
 from behavior_driven_video_synthesis_tpu_torch.models.perceptual import (
@@ -112,7 +118,10 @@ DEV = torch.device("cuda")
 # the serving slice of bench.py:202-236
 SLICE = dict(B=20, T=50, S=256, HID=1024, K_FULL=51, K_USE=48, NF_START=32,
              NF_MAX=128, N_FLOWS=15)
-ROLLOUT_SHAPES = [(20, 48, 1024, 50), (1, 48, 1024, 50), (3, 51, 1024, 7)]
+ROLLOUT_SHAPES = [(20, 48, 1024, 50), (1, 48, 1024, 50), (3, 51, 1024, 7),
+                  (256, 48, 1024, 50)]
+# the rollout timed: the serving request's shape and bulk sampling's batch
+ROLLOUT_TIMED = [(20, 48, 1024, 50), (256, 48, 1024, 50)]
 GOLDEN = os.path.join(ROOT, "tests", "golden", "torch_port_slice_small.npz")
 TRAIN_GOLDEN = os.path.join(ROOT, "tests", "golden",
                             "torch_port_train_small.npz")
@@ -233,6 +242,16 @@ def rollout_args(B, K, H, seed=0):
             u(4 * H, scale=bound), u(K, H, scale=bound), u(K, scale=bound))
 
 
+def rollout_decoder(args):
+    """A ResidualDecoder on the card holding rollout_args' weights."""
+    (_, H), K = args[0].shape, args[1].shape[1]
+    decoder = ResidualDecoder(K, H, device="meta").to_empty(device=DEV)
+    names = ("rnn.weight_ih", "rnn.weight_hh", "rnn.bias_ih", "rnn.bias_hh",
+             "n_out.weight", "n_out.bias")
+    decoder.load_state_dict(dict(zip(names, args[2:])))
+    return decoder.eval()
+
+
 def phase_kernel():
     log("[3] rollout kernel vs plain PyTorch (bf16 operands: atol 1e-2, "
         "rtol 1e-2; f32 operands: reported, the JAX kernel test allows "
@@ -262,28 +281,71 @@ def phase_kernel():
         check(ok16, f"kernel disagrees with its plain version at "
               f"{(B, K, H, T)}")
         errs.append(e16)
-    args = rollout_args(*ROLLOUT_SHAPES[0][:3])
-    T = ROLLOUT_SHAPES[0][3]
+    for name, (regs, st, ld) in sorted(
+            ptxas_report(build_log("rollout"), "rollout_kernel").items()):
+        log(f"    rollout_kernel<weights in smem={bool(name)}>: {regs} "
+            f"registers, spill stores {st} B, spill loads {ld} B")
+        RESULTS.setdefault("rollout_registers", {})[name] = dict(
+            registers=regs, spill_stores=st, spill_loads=ld)
+    log("    times: the kernel on prepared operands (CUDA events), the "
+        "decoder_rollout_kernel call with its operands cached (route), T "
+        "grid barriers alone on the same grid (floor)")
+    timed = {}
+    for B, K, H, T in ROLLOUT_TIMED:
+        args = rollout_args(B, K, H)
+        decoder = rollout_decoder(args)
+        b, x0 = args[:2]
+        cfg = rollout.rollout_config(B, K, H)
+        with torch.no_grad():
+            operands = rollout.prepared_operands(decoder)
 
-    def kernel():
-        rollout.residual_lstm_rollout(*args, T)
+            def kernel():
+                return rollout.residual_lstm_rollout_prepared(b, x0,
+                                                              operands, T)
 
-    def plain():
-        rollout.residual_lstm_rollout_plain(*args, T,
-                                            operand_dtype=torch.bfloat16)
-    with torch.no_grad():
-        order = [("plain", plain, 5), ("kernel", kernel, 50),
-                 ("kernel", kernel, 50), ("plain", plain, 5)]
-        times = [(name, cuda_ms(fn, n)) for name, fn, n in order]
-        plain32 = cuda_ms(lambda: rollout.residual_lstm_rollout_plain(
-            *args, T), 5)
-    ms = float(np.mean([t for n, t in times if n == "kernel"]))
-    plain_ms = float(np.mean([t for n, t in times if n == "plain"]))
-    log(f"    time at {ROLLOUT_SHAPES[0]} (plain, kernel, kernel, plain): "
-        + ", ".join(f"{n} {t:.4f} ms" for n, t in times)
-        + f"; plain f32 {plain32:.4f} ms")
-    RESULTS["rollout_times_ms"] = dict(order=times, plain_f32=plain32)
-    return max(errs), ms, plain_ms
+            def plain():
+                return rollout.residual_lstm_rollout_plain(
+                    *args, T, operand_dtype=torch.bfloat16)
+
+            def route():
+                return decoder_rollout_kernel(decoder, b, x0, T)
+            out = kernel()
+            ref = rollout.residual_lstm_rollout_prepared_plain(
+                b, x0, operands, T)
+            e = float((out - ref).abs().max())
+            check(torch.allclose(out, ref, atol=1e-2, rtol=1e-2),
+                  f"kernel on prepared operands disagrees with its plain "
+                  f"version at {(B, K, H, T)}: {e:.3e}")
+            if B <= 32:
+                order = [("plain", plain, 5), ("kernel", kernel, 50),
+                         ("kernel", kernel, 50), ("plain", plain, 5)]
+            else:
+                order = [("kernel", kernel, 20), ("kernel", kernel, 20),
+                         ("plain", plain, 1)]
+            times = [(name, cuda_ms(fn, n)) for name, fn, n in order]
+            builds = rollout.operand_builds
+            route_ms = cuda_ms(route, 20)
+            check(rollout.operand_builds == builds,
+                  "decoder_rollout_kernel rebuilt cached operands")
+            floor_ms = cuda_ms(
+                lambda: rollout.barrier_floor(B, K, H, T, DEV), 20)
+        ms = float(np.mean([t for n, t in times if n == "kernel"]))
+        plain_ms = float(np.mean([t for n, t in times if n == "plain"]))
+        bound, bound_by = rollout_bound_ms(B, K, H, T)
+        log(f"    {(B, K, H, T)}: launch {cfg}; "
+            + ", ".join(f"{n} {t:.4f} ms" for n, t in times)
+            + f"; route {route_ms:.4f} ms; floor of {T} barriers "
+            f"{floor_ms:.4f} ms; bound {bound:.5f} ms ({bound_by}); "
+            f"{ms / T * 1e3:.2f} us a step, {floor_ms / T * 1e3:.2f} of "
+            f"them the barrier; max|kernel-plain| {e:.3e}")
+        timed[(B, K, H, T)] = dict(
+            config=cfg, order=times, ms=ms, plain_ms=plain_ms,
+            route_ms=route_ms, floor_ms=floor_ms, bound_ms=bound,
+            bound_by=bound_by, max_abs_err=e)
+    RESULTS["rollout_times_ms"] = [dict(shape=list(k), **v)
+                                   for k, v in timed.items()]
+    serving = timed[ROLLOUT_TIMED[0]]
+    return max(errs), serving["ms"], serving["plain_ms"]
 
 
 def rollout_bound_ms(B, K, H, T):
@@ -425,7 +487,7 @@ def ptxas_report(log_text, kernel):
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            a = re.search(kernel + r"ILi(\d+)E", m.group(1))
+            a = re.search(kernel + r"IL[a-z](\d+)E", m.group(1))
             cur = int(a.group(1)) if a else None
             continue
         if cur is None:
@@ -1326,8 +1388,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    disable_tf32()
     name = phase_card()
     phase_build()
     max_err, ms, plain_ms = phase_kernel()

@@ -23,7 +23,7 @@ import torch
 from behavior_driven_video_synthesis_tpu_torch.data.human36m import (
     detailed_joint_model)
 from behavior_driven_video_synthesis_tpu_torch.models import (
-    ResidualBehaviorNet)
+    ResidualBehaviorNet, decoder_rollout_kernel)
 from behavior_driven_video_synthesis_tpu_torch.models.init import init_random_
 from behavior_driven_video_synthesis_tpu_torch.models.vunet import VUNet
 from behavior_driven_video_synthesis_tpu_torch.ops import nn as pnn
@@ -59,7 +59,8 @@ def _args(B, K, H, device, seed=0):
 
 @pytest.mark.parametrize("B,K,H,T", [
     (20, 48, 1024, 50), (1, 48, 1024, 50), (3, 51, 1024, 7), (1, 5, 32, 1),
-    (37, 48, 256, 9), (64, 17, 64, 3), (33, 1, 8, 2), (5, 48, 2048, 4)])
+    (37, 48, 256, 9), (64, 17, 64, 3), (33, 1, 8, 2), (5, 48, 2048, 4),
+    (256, 48, 1024, 50)])
 def test_rollout_kernel_matches_plain(cuda, B, K, H, T):
     args = _args(B, K, H, cuda)
     before = R.rollout_launches
@@ -83,6 +84,45 @@ def test_rollout_kernel_refuses_grad_and_bad_shapes(cuda):
             R.residual_lstm_rollout(*_args(2, 6, 12, cuda), 3)
         with pytest.raises(ValueError, match="on cpu"):
             R.residual_lstm_rollout(*args[:7], args[7].cpu(), 3)
+
+
+def test_rollout_kernel_config(cuda):
+    """U a multiple of 4 (whole m16 tiles of gate rows): 128 blocks of 8
+    units at H=1024 with the weights resident; at H=2048 the weight rows
+    do not fit and the products read them from global memory."""
+    cfg = R.rollout_config(20, 48, 1024)
+    assert cfg["units_per_block"] % 4 == 0 and cfg["weights_in_smem"]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert cfg["blocks"] * cfg["units_per_block"] >= 1024
+    assert cfg["blocks"] <= sms and cfg["smem_bytes"] <= 232448
+    assert not R.rollout_config(5, 48, 2048)["weights_in_smem"]
+
+
+def test_decoder_rollout_reuses_its_operands(cuda):
+    """A second call with unchanged parameters casts no weight; an
+    in-place update rebuilds the operands, and the kernel follows it."""
+    net = init_random_(ResidualBehaviorNet(48, 64),
+                       np.random.RandomState(0)).to(cuda)
+    d = net.decoder
+    g = torch.Generator(device=cuda).manual_seed(0)
+    b = torch.randn(5, 64, generator=g, device=cuda)
+    x0 = torch.randn(5, 48, generator=g, device=cuda) * 0.5
+    builds, launches = R.operand_builds, R.rollout_launches
+    with torch.no_grad():
+        first = decoder_rollout_kernel(d, b, x0, 6)
+        again = decoder_rollout_kernel(d, b, x0, 6)
+        assert R.operand_builds == builds + 1
+        d.rnn.weight_hh.mul_(0.5)
+        moved = decoder_rollout_kernel(d, b, x0, 6)
+        assert R.operand_builds == builds + 2
+        ref = R.residual_lstm_rollout_prepared_plain(
+            b, x0, R.prepared_operands(d), 6)
+    torch.cuda.synchronize()
+    assert R.rollout_launches == launches + 3
+    torch.testing.assert_close(again, first, atol=1e-2, rtol=1e-2)
+    torch.testing.assert_close(moved, ref, atol=1e-2, rtol=1e-2)
+    with pytest.raises(RuntimeError, match="no backward"):
+        decoder_rollout_kernel(d, b, x0, 6)
 
 
 def test_pipeline_on_cuda_launches_the_kernel_once(cuda):

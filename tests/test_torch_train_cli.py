@@ -63,8 +63,9 @@ def test_train_cli_then_serve(tmp_path):
     assert out["state"].step == 3
     ckpt = tmp_path / "runs" / "cvbae" / "ckpt" / "tiny"
     assert out["synth_params"] == str(ckpt / "synth.npz")
-    assert (tmp_path / "runs" / "cvbae" / "config" / "tiny"
-            / "config.yaml").exists()
+    dumped = load_config(tmp_path / "runs" / "cvbae" / "config" / "tiny"
+                         / "config.yaml")
+    assert dumped["general"]["tf32"] is False
     with open(tmp_path / "runs" / "cvbae" / "log" / "tiny"
               / "metrics.jsonl") as f:
         last = json.loads(f.readlines()[-1])
@@ -87,6 +88,7 @@ def test_train_cli_then_serve(tmp_path):
                          "--length", "3", "--batch", "2", "--device", "cpu",
                          "--out", str(tmp_path / "served")])
     assert man["spatial"] == 32 and len(man["videos"]) == 2
+    assert man["tf32"] is False
     assert all(os.path.getsize(p) > 0 for p in man["videos"].values())
 
 
@@ -96,6 +98,21 @@ def test_train_cli_needs_a_card_or_cpu(tmp_path, monkeypatch):
         main.main(["-c", _config(tmp_path)])
     assert "no CUDA device" in str(e.value.code)
     assert not (tmp_path / "runs").exists()
+
+
+@pytest.mark.parametrize("cli", ["train", "generate"])
+def test_both_clis_pin_tf32_off(tmp_path, monkeypatch, cli):
+    """Right after parsing its arguments each CLI turns TF32 off for
+    float32 matrix products and cuDNN convolutions, whatever they were."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = (["-c", _config(tmp_path)] if cli == "train" else
+            ["--behavior_params", "b.npz", "--synth_params", "s.npz"])
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        (main if cli == "train" else generate).main(argv)
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
 
 
 @pytest.mark.parametrize("flags", [["-m", "infer"], ["-r"], ["-f"], ["-v"],
