@@ -1,11 +1,14 @@
 """Schedule controllers of the training steps.
 
 Counterpart of ``behavior_driven_video_synthesis_tpu/core/schedules.py:
-27-62``: the clipped linear ramp ``linear_var``, the information-bottleneck
-controller ``update_gamma`` and the ``imax_scaling`` target schedule.
-Each works on Python numbers and on tensors.
+27-68``: the clipped linear ramp ``linear_var``, the information-bottleneck
+controller ``update_gamma``, the ``imax_scaling`` target schedule and the
+behavior net's ``multistep_lr``.  Each works on Python numbers; all but
+``multistep_lr`` also on tensors.
 """
 from __future__ import annotations
+
+from typing import Callable, Sequence
 
 import torch
 
@@ -45,3 +48,21 @@ def imax_schedule(step, total_steps, information_max, mode: str = "none"):
         return linear_var(step, 0, total_steps, information_max, 0.0, 0.0,
                           information_max)
     raise ValueError(f"unknown imax_scaling mode: {mode}")
+
+
+def multistep_lr(lr_init: float, n_steps: int, tau: Sequence[float],
+                 gamma: float) -> Callable[[int], float]:
+    """MultiStepLR as ``optax.piecewise_constant_schedule``: the rate after
+    ``count`` updates is lr_init times ``gamma`` for each boundary
+    int(t * n_steps), t in ``tau``, with count >= boundary.  Equal
+    boundaries collapse into one (the JAX package keys them in a dict):
+    at n_steps=2 and tau (0.2, 0.45, 0.7) that is two decays, not three."""
+    boundaries = sorted({int(t * n_steps): gamma for t in tau}.items())
+
+    def schedule(count: int) -> float:
+        v = lr_init
+        for boundary, scale in boundaries:
+            if count >= boundary:
+                v = v * scale
+        return v
+    return schedule

@@ -35,16 +35,19 @@ class BehaviorEncoder(nn.Module):
 
     def forward(self, x, lengths: Optional[torch.Tensor] = None,
                 sample: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                eps: Optional[torch.Tensor] = None):
         """x: (B, T, K).  Returns (b, mu, logstd, pre) with ib, else pre;
-        b is a prior draw when ``sample`` else mu + exp(logstd) * eps."""
+        b is a prior draw when ``sample`` else mu + exp(logstd) * eps, eps
+        as given or drawn from ``generator``."""
         _, (pre, _) = self.rnn(x, lengths, return_sequences=False)
         if not self.ib:
             return pre
         mu = self.mu_fn(pre)
         logstd = self.std_fn(pre)
-        eps = torch.randn(mu.shape, generator=generator, dtype=mu.dtype,
-                          device=mu.device)
+        if eps is None:
+            eps = torch.randn(mu.shape, generator=generator, dtype=mu.dtype,
+                              device=mu.device)
         b = eps if sample else mu + torch.exp(logstd) * eps
         return b, mu, logstd, pre
 
@@ -146,9 +149,11 @@ class ResidualBehaviorNet(nn.Module):
     def forward(self, x1, x2, length: int, start_frame: int = 0,
                 sample: bool = False,
                 lengths: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                eps: Optional[torch.Tensor] = None):
         """Returns (xs, cs, b, mu, logstd, pre) with ib, else (xs, cs, b)."""
-        out = self.b_enc(x1, lengths, sample=sample, generator=generator)
+        out = self.b_enc(x1, lengths, sample=sample, generator=generator,
+                         eps=eps)
         b = out[0] if self.information_bottleneck else out
         xs, cs = self.decoder(b, x2[:, start_frame], length)
         if self.information_bottleneck:
@@ -157,8 +162,10 @@ class ResidualBehaviorNet(nn.Module):
 
     def infer_b(self, s, sample: bool = False,
                 lengths: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None):
-        return self.b_enc(s, lengths, sample=sample, generator=generator)
+                generator: Optional[torch.Generator] = None,
+                eps: Optional[torch.Tensor] = None):
+        return self.b_enc(s, lengths, sample=sample, generator=generator,
+                          eps=eps)
 
     def generate_seq(self, b, x_pose, length: int, start_frame: int = 0):
         return self.decoder(b, x_pose[:, start_frame], length)

@@ -33,6 +33,10 @@ _TO_TORCH = {
     "g": lambda a: a.reshape(-1, 1, 1, 1),
     "c4": lambda a: a.reshape(1, -1, 1, 1),
     "perm": lambda a: a.astype(np.int64),
+    "conv1d": lambda a: a.transpose(2, 1, 0),         # (K, I, O) -> (O, I, K)
+    # flax flattens a (T, 32) map T-major, the reference (32, T) C-major
+    "fc_cmajor": lambda a: a.reshape(-1, 32, a.shape[1]).transpose(
+        2, 1, 0).reshape(a.shape[1], -1),
 }
 _TO_FLAX = {
     "id": lambda a: a,
@@ -42,6 +46,9 @@ _TO_FLAX = {
     "g": lambda a: a.reshape(-1),
     "c4": lambda a: a.reshape(-1),
     "perm": lambda a: a.astype(np.int32),
+    "conv1d": lambda a: a.transpose(2, 1, 0),
+    "fc_cmajor": lambda a: a.reshape(a.shape[0], 32, -1).transpose(
+        2, 1, 0).reshape(-1, a.shape[0]),
 }
 
 
@@ -308,3 +315,103 @@ def vunet_regressor_to_flax(state_dict: Mapping) -> Dict[str, Any]:
                    if k.startswith(prefix) and k.endswith(".weight"))
     return to_flax(state_dict, vunet_regressor_plan(n("embedders."),
                                                     n("linears.")))
+
+
+# -- probes of the behavior experiment ----------------------------------------
+
+def _dense(key: str, path: Tuple[str, ...]) -> Plan:
+    return [(f"{key}.weight", path + ("kernel",), "T"),
+            (f"{key}.bias", path + ("bias",), "id")]
+
+
+def regressor_fly_plan() -> Plan:
+    """``RegressorFly``: ``fc{i+1}`` <-> ``Dense_{i}`` (the mapping of the
+    JAX package's ``convert_regressor_fly``)."""
+    return [e for i in range(5) for e in _dense(f"fc{i + 1}", (f"Dense_{i}",))]
+
+
+def classifier_action_plan() -> Plan:
+    """``ClassifierAction``: ``RNN`` <-> ``LSTM_0``, ``fc1`` <-> ``Dense_0``,
+    ``fc3`` <-> ``Dense_1`` (``convert_classifier_action``)."""
+    return ([(f"RNN.{w}_l0", ("LSTM_0", f), kind)
+             for w, f, kind in (("weight_ih", "w_ih", "T"),
+                                ("weight_hh", "w_hh", "T"),
+                                ("bias_ih", "b_ih", "id"),
+                                ("bias_hh", "b_hh", "id"))]
+            + _dense("fc1", ("Dense_0",)) + _dense("fc3", ("Dense_1",)))
+
+
+def classifier_action_beta_plan() -> Plan:
+    """``ClassifierActionBeta``: ``fc1`` <-> ``Dense_0``."""
+    return _dense("fc1", ("Dense_0",))
+
+
+def sequence_disc_michael_plan(layers: Tuple[int, int] = (2, 1)) -> Plan:
+    """``SequenceDiscMichael`` with ``layers[i]`` blocks in ``layer{i+1}``
+    (the mapping of ``convert_sequence_disc_michael``): Conv1d weights
+    (O, I, K) <-> (K, I, O), GroupNorm weight <-> scale, and ``fc`` (C-major
+    over (32, T')) <-> ``Dense_0`` (T-major)."""
+    def norm(key, path):
+        return [(f"{key}.weight", path + ("scale",), "id"),
+                (f"{key}.bias", path + ("bias",), "id")]
+    plan: Plan = ([("conv1.weight", ("Conv_0", "kernel"), "conv1d")]
+                  + norm("bn1", ("GroupNorm_0",)))
+    block = 0
+    for li, n_blocks in enumerate(layers):
+        for bi in range(n_blocks):
+            key, path = f"layer{li + 1}.{bi}", (f"_BasicBlock1D_{block}",)
+            for j in (1, 2):
+                plan.append((f"{key}.conv{j}.weight",
+                             path + (f"Conv_{j - 1}", "kernel"), "conv1d"))
+                plan += norm(f"{key}.bn{j}", path + (f"GroupNorm_{j - 1}",))
+            if bi == 0:       # the first block of a layer strides by 2
+                plan.append((f"{key}.downsample.0.weight",
+                             path + ("Conv_2", "kernel"), "conv1d"))
+                plan += norm(f"{key}.downsample.1", path + ("GroupNorm_2",))
+            block += 1
+    plan.append(("fc.weight", ("Dense_0", "kernel"), "fc_cmajor"))
+    return plan
+
+
+def regressor_fly_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    return from_flax(_params(tree), regressor_fly_plan())
+
+
+def regressor_fly_to_flax(state_dict: Mapping) -> Dict[str, Any]:
+    return to_flax(state_dict, regressor_fly_plan())
+
+
+def classifier_action_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    return from_flax(_params(tree), classifier_action_plan())
+
+
+def classifier_action_to_flax(state_dict: Mapping) -> Dict[str, Any]:
+    return to_flax(state_dict, classifier_action_plan())
+
+
+def classifier_action_beta_from_flax(tree: Mapping
+                                     ) -> Dict[str, torch.Tensor]:
+    return from_flax(_params(tree), classifier_action_beta_plan())
+
+
+def classifier_action_beta_to_flax(state_dict: Mapping) -> Dict[str, Any]:
+    return to_flax(state_dict, classifier_action_beta_plan())
+
+
+def sequence_disc_michael_from_flax(tree: Mapping
+                                    ) -> Dict[str, torch.Tensor]:
+    """The layer split is read off the tree: a block with a shortcut
+    (``Conv_2``) starts a layer."""
+    p = _params(tree)
+    firsts = ["Conv_2" in p[f"_BasicBlock1D_{i}"]
+              for i in range(_count(p, "_BasicBlock1D_"))]
+    starts = [i for i, first in enumerate(firsts) if first] + [len(firsts)]
+    layers = tuple(b - a for a, b in zip(starts, starts[1:]))
+    return from_flax(p, sequence_disc_michael_plan(layers))
+
+
+def sequence_disc_michael_to_flax(state_dict: Mapping) -> Dict[str, Any]:
+    layers = tuple(sum(1 for k in state_dict
+                       if k.startswith(f"layer{li}.")
+                       and k.endswith(".conv1.weight")) for li in (1, 2))
+    return to_flax(state_dict, sequence_disc_michael_plan(layers))

@@ -16,7 +16,8 @@ from ...ops.nn import FullyConnectedNet
 
 class ActNorm(nn.Module):
     """y = scale * (x + loc); logdet = sum(log|scale|) per sample.  loc and
-    scale keep the reference's (1, C, 1, 1) shape."""
+    scale keep the reference's (1, C, 1, 1) shape.  A new flow sets them
+    from a batch with :meth:`initialize_` (the data-dependent init)."""
 
     def __init__(self, channels: int, device=None):
         super().__init__()
@@ -30,6 +31,14 @@ class ActNorm(nn.Module):
             return x / scale - loc
         logdet = torch.sum(torch.log(torch.abs(scale))).expand(x.shape[0])
         return scale * (x + loc), logdet
+
+    @torch.no_grad()
+    def initialize_(self, x):
+        """loc = -mean(x), scale = 1 / (std(x, ddof=1) + 1e-6) over the
+        batch (B, C): the output on x is then about N(0, 1) per feature."""
+        self.loc.copy_(-x.mean(dim=0).reshape(self.loc.shape))
+        self.scale.copy_((1.0 / (x.std(dim=0, unbiased=True) + 1e-6)
+                          ).reshape(self.scale.shape))
 
 
 class DoubleCoupling(nn.Module):
@@ -154,3 +163,11 @@ class UnconditionalFlow(nn.Module):
 
     def reverse(self, z):
         return self(z, reverse=True)
+
+    @torch.no_grad()
+    def initialize_(self, x):
+        """Set every ActNorm from the activations that reach it on x, each
+        block after the ones before it are set."""
+        for layer in self.sub_layers:
+            layer.norm_layer.initialize_(x)
+            x, _ = layer(x)

@@ -17,6 +17,9 @@ import torch
 from torch import nn
 
 from ..ops.nn import NormConv2d, NormDense
+from ..ops.recurrent import LSTM
+from .behavior import ResidualDecoder
+from .flows.blocks import Shuffle
 
 # flax's variance_scaling(..., "truncated_normal") divides the standard
 # deviation by this, the std of a unit normal truncated to [-2, 2]
@@ -60,14 +63,27 @@ def _truncated_normal_(t: torch.Tensor, scale: float, fan_in: int,
                           generator=generator)
 
 
+def _uniform_(t: torch.Tensor, fan: int, generator) -> None:
+    bound = fan ** -0.5
+    t.uniform_(-bound, bound, generator=generator)
+
+
 @torch.no_grad()
 def init_like_jax_(module: nn.Module, generator=None) -> nn.Module:
     """The JAX package's initializers, in place: a NormConv2d or NormDense
     draws v from he_normal over its fan-in (kh, kw, cin) and sets g = |v|
     per output channel, bias and beta 0, gamma 1 (``ops/nn.py:225-241``);
-    an ``nn.Conv2d`` or ``nn.Linear`` (the regressor's flax Conv and
-    Dense) draws lecun_normal weights and a zero bias."""
+    an LSTM, and a ResidualDecoder's cell and output layer, draw every
+    weight and bias from U(-1/sqrt(H), 1/sqrt(H)), its optional input layer
+    from U(-1/sqrt(K), 1/sqrt(K)) (``ops/recurrent.py:_uniform_init``); an
+    ``nn.Conv1d``, ``nn.Conv2d`` or ``nn.Linear`` (a flax Conv or Dense)
+    draws lecun_normal weights and a zero bias; a Shuffle draws a random
+    permutation.  GroupNorm keeps scale 1 and bias 0, and ActNorm is set
+    from data (``LatentFlow.initialize_``)."""
+    done = set()
     for m in module.modules():
+        if m in done:
+            continue
         if isinstance(m, (NormConv2d, NormDense)):
             v = m.conv.weight_v
             _truncated_normal_(v, 2.0, v[0].numel(), generator)
@@ -76,8 +92,24 @@ def init_like_jax_(module: nn.Module, generator=None) -> nn.Module:
             m.conv.bias.zero_()
             m.gamma.fill_(1.0)
             m.beta.zero_()
-        elif isinstance(m, (nn.Conv2d, nn.Linear)):
+        elif isinstance(m, LSTM):
+            for p in m.parameters():
+                _uniform_(p, m.hidden, generator)
+        elif isinstance(m, ResidualDecoder):
+            hidden = m.rnn.hidden_size
+            for p in list(m.rnn.parameters()) + list(m.n_out.parameters()):
+                _uniform_(p, hidden, generator)
+            if m.use_nin:
+                for p in m.n_in.parameters():
+                    _uniform_(p, m.n_in.in_features, generator)
+            done.update(m.modules())
+        elif isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
             _truncated_normal_(m.weight, 1.0, m.weight[0].numel(),
                                generator)
-            m.bias.zero_()
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, Shuffle):
+            idx = m.forward_shuffle_idx
+            idx.copy_(torch.randperm(idx.numel(), generator=generator,
+                                     device=idx.device))
     return module

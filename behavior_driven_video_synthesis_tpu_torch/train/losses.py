@@ -1,10 +1,11 @@
-"""Loss functions of the VUNet experiments.
+"""Loss functions of the VUNet and behavior experiments.
 
-Counterpart of ``behavior_driven_video_synthesis_tpu/train/losses.py:22-69``:
+Counterpart of ``behavior_driven_video_synthesis_tpu/train/losses.py:22-100``:
 ``kl_loss`` (diagonal Gaussian to N(0, 1)), ``latent_kl`` and
 ``compute_kl_loss`` (the original VUNet's KL between per-scale means),
-``compute_kl_with_prior`` (cvbae) and ``vgg_loss`` (weighted L1 over a
-feature pyramid).
+``compute_kl_with_prior`` (cvbae), ``vgg_loss`` (weighted L1 over a
+feature pyramid), and the behavior step's ``mse_loss``,
+``recon_loss_per_seq``, ``cross_entropy`` and ``accuracy``.
 """
 from __future__ import annotations
 
@@ -52,3 +53,22 @@ def vgg_loss(feats_target: Dict[str, torch.Tensor],
     return {name: w * torch.mean(torch.abs(feats_target[name]
                                            - feats_pred[name]))
             for w, name in zip(loss_weights, feats_target)}
+
+
+def mse_loss(pred, target):
+    return torch.mean((pred - target) ** 2)
+
+
+def recon_loss_per_seq(pred, target):
+    """Per-sequence MSE (B,)."""
+    return torch.mean((pred - target) ** 2, dim=tuple(range(1, pred.dim())))
+
+
+def cross_entropy(logits, labels):
+    """Mean negative log-likelihood of int labels (B,) under softmax."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.mean(torch.gather(logp, -1, labels[:, None]))
+
+
+def accuracy(logits, labels):
+    return torch.mean((torch.argmax(logits, dim=-1) == labels).float())

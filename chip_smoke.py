@@ -54,7 +54,20 @@ CUDA toolkit (nvcc) and PyTorch.  It imports no JAX.  Phases:
    two timed requests under each ``rnb_impl``; the fused route must launch
    the fused RNB kernel 122 times a request and stay within a relative L2
    of 2e-2 of the same request through the kernel's plain version; one
-   org ``test_forward`` chunk (the autoregressive prior).
+   org ``test_forward`` chunk (the autoregressive prior);
+10. behavior_net training at full width through ``bdvs-train-torch``'s
+    ``main`` in-process with ``--debug``: ``configs/behavior_net.yaml``
+    otherwise unchanged (B=64, T=50, 51 keypoints, ``dim_hidden_b`` 1024,
+    LSTM decoder, 15 flows of mid width 2048, f32), 16 cVAE steps over 2
+    epochs and 8 flow steps, each between two synchronizations; every
+    metric finite, ``metrics.jsonl`` with train/, eval/ and flow/ lines;
+    one profiled step of each stage; a second ``main`` with ``-r`` runs no
+    step; then the written ``behavior.npz`` behind phase 4's alter VUNet
+    serves one B=20, T=50 sample request, which must launch the rollout
+    kernel once and match the decoder's plain loop;
+11. the port's behavior cVAE and flow steps at small width against
+    ``tests/golden/torch_port_behavior_small.npz`` (two JAX steps of
+    each, with their draws), in f32 with TF32 off.
 
 The last two lines are a JSON object of kernel results and
 ``{"ok": true, "device": {...}}``; any failure exits non-zero before them.
@@ -62,9 +75,11 @@ All measured values also go to a JSON file, ``build/chip_smoke.json`` unless
 ``--out PATH`` names another.
 """
 import argparse
+import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -84,7 +99,9 @@ from behavior_driven_video_synthesis_tpu_torch.core.config import (
 from behavior_driven_video_synthesis_tpu_torch.core.precision import (
     disable_tf32)
 from behavior_driven_video_synthesis_tpu_torch.experiments import (
-    shape_and_pose_net)
+    behavior_net, shape_and_pose_net)
+from behavior_driven_video_synthesis_tpu_torch.experiments.data_factory import (
+    build_sequence_data)
 from behavior_driven_video_synthesis_tpu_torch.flax_npz import (
     flatten_tree, unflatten_tree)
 from behavior_driven_video_synthesis_tpu_torch.data.human36m import (
@@ -96,8 +113,12 @@ from behavior_driven_video_synthesis_tpu_torch.models.behavior import (
     ResidualBehaviorNet, ResidualDecoder, decoder_rollout_kernel)
 from behavior_driven_video_synthesis_tpu_torch.models.flows import LatentFlow
 from behavior_driven_video_synthesis_tpu_torch.models.init import init_random_
+from behavior_driven_video_synthesis_tpu_torch.models.discriminators import (
+    SequenceDiscMichael)
 from behavior_driven_video_synthesis_tpu_torch.models.perceptual import (
     LaplacianPyramidFeatures)
+from behavior_driven_video_synthesis_tpu_torch.models.probes import (
+    ClassifierAction, ClassifierActionBeta, RegressorFly)
 from behavior_driven_video_synthesis_tpu_torch.models.vunet import (
     VUNet, VunetRegressor, latent_widths, vunet_from_config)
 from behavior_driven_video_synthesis_tpu_torch.ops import nn as ops_nn
@@ -108,8 +129,12 @@ from behavior_driven_video_synthesis_tpu_torch.ops.cuda.build import (
     build_log, load_library)
 from behavior_driven_video_synthesis_tpu_torch.pipeline import (
     BehaviorTransferPipeline)
+from behavior_driven_video_synthesis_tpu_torch.train.behavior import (
+    BehaviorTrainState, StepDraws, make_behavior_train_step)
+from behavior_driven_video_synthesis_tpu_torch.train.flow import (
+    FlowTrainState, make_flow_train_step)
 from behavior_driven_video_synthesis_tpu_torch.train.state import (
-    make_vunet_optimizers)
+    make_behavior_optimizers, make_flow_optimizer, make_vunet_optimizers)
 from behavior_driven_video_synthesis_tpu_torch.train.vunet_exp import (
     VunetTrainState, make_cvbae_train_step)
 
@@ -128,6 +153,11 @@ TRAIN_GOLDEN = os.path.join(ROOT, "tests", "golden",
 ORG_GOLDEN = os.path.join(ROOT, "tests", "golden", "torch_port_org_small.npz")
 TRAIN_CONFIG = os.path.join(ROOT, "configs", "shape_and_pose_net.yaml")
 ORG_CONFIG = os.path.join(ROOT, "configs", "vunet.yaml")
+BEHAVIOR_CONFIG = os.path.join(ROOT, "configs", "behavior_net.yaml")
+BEHAVIOR_GOLDEN = os.path.join(ROOT, "tests", "golden",
+                               "torch_port_behavior_small.npz")
+# --debug: 2 epochs and 1 flow epoch of 8 batches of 64 sequences
+BEHAVIOR_STEPS, BEHAVIOR_FLOW_STEPS = 16, 8
 TRAIN_STEPS = 6
 # the VUNet's dropout sites at 256 px, 7 scales, 2 latent scales: 14 RNBs
 # in each EncUp (one site each), 5 residual RNBs in EncDown and 16 in
@@ -1378,6 +1408,318 @@ def phase_org():
     return launches
 
 
+# -- 10. behavior_net training at full width ----------------------------------
+class BehaviorRecorder:
+    """Wraps the cVAE and flow steps that ``experiments/behavior_net.py``
+    makes: each step runs between two ``torch.cuda.synchronize()`` calls
+    and is recorded with its metrics; the last call of each stage is kept
+    for the profiler."""
+
+    def __init__(self):
+        self.steps = {"cvae": [], "flow": []}
+        self.last = {}
+        self._made = {}
+
+    def install(self):
+        for name, stage in (("make_behavior_train_step", "cvae"),
+                            ("make_flow_train_step", "flow")):
+            self._made[name] = make = getattr(behavior_net, name)
+            setattr(behavior_net, name, self._wrap(make, stage))
+
+    def uninstall(self):
+        for name, make in self._made.items():
+            setattr(behavior_net, name, make)
+
+    def _wrap(self, make, stage):
+        def recorded_make(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def recorded(state, *a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                metrics = step(state, *a, **kw)
+                torch.cuda.synchronize()
+                self.steps[stage].append(dict(
+                    step=state.step, ms=(time.perf_counter() - t0) * 1e3,
+                    **{k: float(v.float().mean())
+                       for k, v in metrics.items()}))
+                self.last[stage] = (step, state, a, kw)
+                return metrics
+            return recorded
+        return recorded_make
+
+
+def profile_call(fn, wall_ms_of=None, top_n=5):
+    """Device busy time, idle share and the top kernels of one call of fn
+    under torch.profiler (None where it saw no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if busy_ms == 0:
+        return None
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:top_n]
+    out = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+               busy_share=min(1.0, busy_ms / wall_ms),
+               top=[(e.key[:90], e.self_device_time_total / 1e3, e.count)
+                    for e in top])
+    if wall_ms_of:
+        out["busy_share_unprofiled"] = min(1.0, busy_ms / wall_ms_of)
+    return out
+
+
+def profile_stages(recorder, median_ms):
+    """One more step of each stage, profiled, after the run; the
+    recorder's references to the run's state go with it."""
+    profiles = {}
+    for stage, ms in median_ms.items():
+        step, state, a, kw = recorder.last.pop(stage)
+        prof = profile_call(lambda: step(state, *a, **kw), ms)
+        profiles[stage] = prof
+        if prof is None:
+            log(f"    profiled {stage} step: no device time seen; busy "
+                f"share not measured")
+            continue
+        log(f"    profiled {stage} step: wall {prof['wall_ms']:.2f} ms, "
+            f"device busy {prof['device_busy_ms']:.2f} ms, busy share "
+            f"{prof['busy_share']:.3f} ({prof['busy_share_unprofiled']:.3f} "
+            f"of the unprofiled median step); top kernels (ms, calls):")
+        for name, kms, count in prof["top"]:
+            log(f"      {kms:9.3f} {count:5d}  {name}")
+    return profiles
+
+
+def behavior_config(base_dir):
+    cfg = load_config(BEHAVIOR_CONFIG)
+    return deep_merge(cfg, {"general": {"base_dir": base_dir}})
+
+
+def metric_lines(run_dir):
+    with open(os.path.join(run_dir, "log", "debug", "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_behavior():
+    base = tempfile.mkdtemp(prefix="chip_smoke_behavior_")
+    path = os.path.join(base, "config.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(behavior_config(base), f)
+    recorder = BehaviorRecorder()
+    recorder.install()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        out = train_cli.main(["-c", path, "--device", "cuda", "--debug"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        steps = recorder.steps
+        batch = int(behavior_config(base)["training"]["batch_size"])
+        n_params = out["n_params"]
+        log(f"[10] behavior_net training at full width (configs/"
+            f"behavior_net.yaml, --debug) through bdvs-train-torch's main: "
+            f"{len(steps['cvae'])} cVAE and {len(steps['flow'])} flow steps "
+            f"in {wall:.1f} s; parameters {n_params}")
+        check(len(steps["cvae"]) == BEHAVIOR_STEPS
+              and len(steps["flow"]) == BEHAVIOR_FLOW_STEPS,
+              f"steps {[len(v) for v in steps.values()]}")
+        check(all(np.isfinite(v) for r in steps["cvae"] + steps["flow"]
+                  for v in r.values()), "a behavior step metric is not "
+              "finite")
+        for stage in ("cvae", "flow"):
+            for r in steps[stage][:2] + steps[stage][-1:]:
+                log(f"    {stage} step {r['step']}: {r['ms']:.2f} ms; "
+                    + ", ".join(f"{k} {v:.5g}" for k, v in r.items()
+                                if k not in ("step", "ms")))
+        cvae_ms = float(np.median([r["ms"] for r in steps["cvae"][1:]]))
+        flow_ms = float(np.median([r["ms"] for r in steps["flow"][1:]]))
+        log(f"    median cVAE step after the first {cvae_ms:.2f} ms, "
+            f"{batch * 1e3 / cvae_ms:.1f} sequences/s; median flow step "
+            f"after the first {flow_ms:.2f} ms; peak memory "
+            f"{peak / 2**30:.2f} GiB")
+        run_dir = os.path.join(base, "behavior_net")
+        lines = metric_lines(run_dir)
+        prefixes = {p: sum(any(k.startswith(p) for k in r) for r in lines)
+                    for p in ("train/", "eval/", "flow/")}
+        check(all(prefixes.values()) and all(
+            np.isfinite(v) for r in lines for v in r.values()),
+            f"metrics.jsonl lines {prefixes}")
+        log(f"    metrics.jsonl: {prefixes}; last flow line "
+            + json.dumps({k: round(v, 5) for k, v in lines[-1].items()}))
+        profiles = profile_stages(recorder, {"cvae": cvae_ms,
+                                             "flow": flow_ms})
+        behavior_params = out["behavior_params"]
+        n_lines = len(metric_lines(run_dir))
+    finally:
+        recorder.uninstall()
+    del out
+    # a second main with -r: the run is finished, so no step runs
+    recorder = BehaviorRecorder()
+    recorder.install()
+    try:
+        again = train_cli.main(["-c", path, "--device", "cuda", "--debug",
+                                "-r"])
+    finally:
+        recorder.uninstall()
+    reruns = {k: len(v) for k, v in recorder.steps.items()}
+    check(reruns == {"cvae": 0, "flow": 0}
+          and again["state"].step == BEHAVIOR_STEPS
+          and again["flow_state"].step == BEHAVIOR_FLOW_STEPS
+          and len(metric_lines(run_dir)) == n_lines,
+          f"-r after the run re-ran steps {reruns}")
+    log(f"    -r after the run: restored cVAE step {again['state'].step} and "
+        f"flow step {again['flow_state'].step}; steps run {reruns}")
+    del again
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches, served = serve_behavior(behavior_params)
+    RESULTS["behavior_train"] = dict(
+        cvae_steps=steps["cvae"], flow_steps=steps["flow"],
+        cvae_step_ms_median=cvae_ms, sequences_per_s=batch * 1e3 / cvae_ms,
+        flow_step_ms_median=flow_ms, peak_gib=peak / 2**30, wall_s=wall,
+        n_params=n_params, profile=profiles, metric_lines=prefixes,
+        restart_steps=reruns, served=served)
+    shutil.rmtree(base, ignore_errors=True)
+    return launches
+
+
+def serve_behavior(behavior_params):
+    """The trained behavior.npz behind phase 4's alter VUNet: one B=20,
+    T=50 sample request, which must launch the rollout kernel once and
+    whose rollout must match the decoder's plain f32 loop on the kernel's
+    bf16 operands, at phase 3's tolerance."""
+    tree, bcfg = cli._load_params(behavior_params)
+    arch, data = bcfg["architecture"], bcfg["data"]
+    K, HID = int(data["n_kps"]), int(arch["dim_hidden_b"])
+    net = ResidualBehaviorNet(K, HID, device=DEV).eval()
+    net.load_state_dict(convert.behavior_net_from_flax(tree["net"]))
+    flow = LatentFlow(HID, HID * int(arch.get("flow_mid_channels_factor", 2)),
+                      int(arch.get("flow_hidden_depth", 2)),
+                      int(arch.get("n_flows", 15)), device=DEV).eval()
+    flow.load_state_dict(convert.latent_flow_from_flax(tree["flow"]))
+    del tree
+    g = torch.Generator(device=DEV).manual_seed(5)
+    vunet = on_device(serving_vunet("alter"), g)
+    pipe = BehaviorTransferPipeline(
+        net, vunet, detailed_joint_model(world_coords=True),
+        np.zeros(K, np.float32), np.ones(K, np.float32), np.arange(K),
+        spatial_size=SLICE["S"], flow_model=flow)
+    B, T, S = SLICE["B"], SLICE["T"], SLICE["S"]
+    x = request_inputs(B, g)
+    loader, _ = build_sequence_data(load_config(BEHAVIOR_CONFIG), "test")
+    x["x_start"] = torch.from_numpy(
+        next(iter(loader))["keypoints"][:B, 0]).to(DEV)
+    rollout.rollout_launches = 0          # counts start here: the trained
+    out, ms, peak = serve(pipe, x)        # model's request
+    launches = rollout.rollout_launches
+    check(out["frames"].shape == (B, T, S, S, 3)
+          and bool(torch.isfinite(out["frames"].float()).all()),
+          "the trained behavior.npz request: frames")
+    check(launches == 1, f"the trained behavior.npz request launched the "
+          f"rollout kernel {launches} times")
+    xs = out["poses_3d"].reshape(B, T, K)    # mean 0, std 1: xs itself
+    d = net.decoder
+    with torch.inference_mode():
+        b = flow.reverse(x["z"])
+        ref, _ = d(b, x["x_start"], T)
+        r = d.rnn
+        ref_bf16 = rollout.residual_lstm_rollout_plain(
+            b, x["x_start"], r.weight_ih, r.weight_hh, r.bias_ih, r.bias_hh,
+            d.n_out.weight, d.n_out.bias, T, operand_dtype=torch.bfloat16)
+    err = float((xs - ref).abs().max())
+    err_bf16 = float((xs - ref_bf16).abs().max())
+    log(f"    served the trained behavior.npz (K={K}, flow on): B={B} T={T} "
+        f"{ms:.2f} ms, {B * T * 1e3 / ms:.1f} frames/s, peak "
+        f"{peak / 2**30:.2f} GiB, {launches} rollout launch; rollout vs the "
+        f"decoder's plain f32 loop on its bf16 operands {err_bf16:.2e} "
+        f"(atol 1e-2, rtol 1e-2, as in [3]); on its f32 weights {err:.2e} "
+        f"(reported)")
+    check(torch.allclose(xs, ref_bf16, atol=1e-2, rtol=1e-2),
+          "the trained decoder's kernel rollout disagrees with its plain "
+          "loop")
+    return launches, dict(ms=ms, fps=B * T * 1e3 / ms, peak_gib=peak / 2**30,
+                          launches=launches, err_plain_bf16=err_bf16,
+                          err_plain_f32=err)
+
+
+# -- 11. the behavior steps against the JAX package's golden ------------------
+def phase_behavior_golden():
+    with np.load(BEHAVIOR_GOLDEN) as data:
+        g = unflatten_tree({k: data[k] for k in data.files})
+    cfg = json.loads(bytes(g["config"]).decode())
+    d, arch, tr = cfg["data"], cfg["architecture"], cfg["training"]
+    K, A, T = int(d["n_kps"]), int(d["n_actions"]), int(d["seq_length"][0])
+    H, p = int(arch["dim_hidden_b"]), g["params"]
+    modules = {
+        "net": ResidualBehaviorNet(K, H, device=DEV),
+        "regressor": RegressorFly(H, K, T, device=DEV),
+        "cls_action": ClassifierAction(
+            K, A, dim=p["cls_action"]["LSTM_0"]["w_hh"].shape[0],
+            device=DEV),
+        "cls_action2": SequenceDiscMichael(K, T - 1, out_dim=A, device=DEV),
+        "cls_beta": ClassifierActionBeta(H, A, device=DEV)}
+    flow = LatentFlow(H, 2 * H, 2, int(arch["n_flows"]), device=DEV)
+    names = {"net": "behavior_net", "regressor": "regressor_fly",
+             "cls_action": "classifier_action",
+             "cls_action2": "sequence_disc_michael",
+             "cls_beta": "classifier_action_beta", "flow": "latent_flow"}
+    for name, m in dict(modules, flow=flow).items():
+        m.load_state_dict(getattr(convert, f"{names[name]}_from_flax")(
+            p[name]))
+    n_steps = len(g["metrics"]["cvae"])
+    state = BehaviorTrainState(
+        modules, make_behavior_optimizers(modules, tr, n_steps),
+        gamma=torch.zeros((), device=DEV))
+    fstate = FlowTrainState(flow, make_flow_optimizer(flow, tr))
+
+    def dev(a):
+        return torch.as_tensor(a, device=DEV)
+    batch = {k: dev(v) for k, v in g["batch"].items()}
+    step = make_behavior_train_step(cfg, T, total_steps=n_steps)
+    fstep = make_flow_train_step(modules["net"])
+    worst = {}
+    for stage in ("cvae", "flow"):
+        for i in range(n_steps):
+            dr = g["draws"][stage][str(i)]
+            if stage == "cvae":
+                m = step(state, batch, True, draws=StepDraws(
+                    dev(dr["t_adv"]), [dev(t) for t in dr["t_reg"]],
+                    dev(dr["eps"])))
+            else:
+                m = fstep(fstate, batch, eps=dev(dr["eps"]))
+            for k, ref in g["metrics"][stage][str(i)].items():
+                err = float((m[k].cpu() - torch.from_numpy(ref)).abs().max())
+                tol = float(1e-4 * np.abs(ref).max()) + (
+                    1e-5 if k in ("loss", "flow_loss") else 0.0)
+                key = f"{stage}/{k}"
+                worst[key] = max(worst.get(key, 0.0),
+                                 err / tol if tol else err)
+    after = {n: getattr(convert, f"{names[n]}_to_flax")(
+        m.state_dict()) for n, m in dict(modules, flow=flow).items()}
+    ref_after = flatten_tree(g["after"])
+    d_params = max(float(np.abs(v - ref_after[k]).max())
+                   for k, v in flatten_tree(after).items())
+    bad = {k: v for k, v in worst.items() if v > 1.0}
+    log(f"[11] golden behavior_net steps, {n_steps} cVAE + {n_steps} flow "
+        f"(f32, TF32 off): worst metric error / tolerance "
+        f"{max(worst.values()):.3f} over {len(worst)} metrics"
+        f"{' ' + str(bad) if bad else ''}; max |param - JAX| of all six "
+        f"modules {d_params:.2e} (<= 1e-4)")
+    RESULTS["golden_behavior"] = dict(err_over_tol=worst, params=d_params)
+    check(not bad and d_params <= 1e-4,
+          "golden behavior_net steps out of tolerance")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch "
                                  "port on one NVIDIA GPU")
@@ -1401,6 +1743,8 @@ def main(argv=None):
     elu_launches = phase_train()
     phase_train_golden()
     rnb_launches = phase_org()
+    launches += phase_behavior()
+    phase_behavior_golden()
     bound, bound_by = rollout_bound_ms(*ROLLOUT_SHAPES[0])
     source = "behavior_driven_video_synthesis_tpu_torch/csrc/"
     pallas = "behavior_driven_video_synthesis_tpu/ops/pallas/"

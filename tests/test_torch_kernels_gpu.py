@@ -125,6 +125,65 @@ def test_decoder_rollout_reuses_its_operands(cuda):
         decoder_rollout_kernel(d, b, x0, 6)
 
 
+def test_served_decoder_follows_training_steps(cuda):
+    """A decoder served through the kernel, then trained by two cVAE steps
+    on the card, then served again: the second request runs on operands
+    rebuilt from the updated weights, not on the first request's."""
+    from behavior_driven_video_synthesis_tpu_torch.models.discriminators \
+        import SequenceDiscMichael
+    from behavior_driven_video_synthesis_tpu_torch.models.probes import (
+        ClassifierAction, ClassifierActionBeta, RegressorFly)
+    from behavior_driven_video_synthesis_tpu_torch.train.behavior import (
+        BehaviorTrainState, make_behavior_train_step)
+    from behavior_driven_video_synthesis_tpu_torch.train.state import (
+        make_behavior_optimizers)
+
+    K, H, T, B, n_actions = 48, 64, 8, 4, 3
+    rng = np.random.RandomState(0)
+    modules = {
+        "net": ResidualBehaviorNet(K, H), "regressor": RegressorFly(H, K, T),
+        "cls_action": ClassifierAction(K, n_actions, dim=32),
+        "cls_action2": SequenceDiscMichael(K, T - 1, out_dim=n_actions),
+        "cls_beta": ClassifierActionBeta(H, n_actions)}
+    for m in modules.values():
+        init_random_(m, rng).to(cuda)
+    training = {"lr_init": 1e-2, "information_max": 1.0, "gamma_step": 0.01}
+    state = BehaviorTrainState(
+        modules, make_behavior_optimizers(modules, training, 2),
+        gamma=torch.zeros((), device=cuda))
+    step = make_behavior_train_step({"training": training}, T)
+    batch = {"keypoints": torch.from_numpy(
+        rng.randn(B, T + 1, K).astype(np.float32)).to(cuda),
+        "action": torch.arange(B, device=cuda) % n_actions}
+    d = modules["net"].decoder
+    g = torch.Generator(device=cuda).manual_seed(0)
+    b = torch.randn(5, H, generator=g, device=cuda)
+    x0 = torch.randn(5, K, generator=g, device=cuda) * 0.5
+
+    def serve():
+        builds, launches = R.operand_builds, R.rollout_launches
+        with torch.inference_mode():
+            xs = decoder_rollout_kernel(d, b, x0, T)
+            r = d.rnn
+            ref = R.residual_lstm_rollout_plain(
+                b, x0, r.weight_ih, r.weight_hh, r.bias_ih, r.bias_hh,
+                d.n_out.weight, d.n_out.bias, T,
+                operand_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        assert R.rollout_launches == launches + 1
+        assert R.operand_builds == builds + 1
+        torch.testing.assert_close(xs, ref, atol=1e-2, rtol=1e-2)
+        return xs
+
+    first = serve()
+    for _ in range(2):
+        m = step(state, batch, generator=g)
+        assert bool(torch.isfinite(m["loss"]))
+    assert state.step == 2
+    second = serve()
+    assert float((second - first).abs().max()) > 5e-2
+
+
 def test_pipeline_on_cuda_launches_the_kernel_once(cuda):
     rng = np.random.RandomState(0)
     net = init_random_(ResidualBehaviorNet(48, 32), rng).to(cuda)

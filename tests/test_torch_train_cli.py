@@ -127,7 +127,7 @@ def test_train_cli_unported_options_exit(tmp_path, flags, capsys):
 def test_train_cli_unported_experiment_exits(tmp_path, capsys):
     path = _config(tmp_path)
     cfg = load_config(path)
-    cfg["general"]["experiment"] = "behavior_net"
+    cfg["general"]["experiment"] = "mt_vae"
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
     with pytest.raises(SystemExit) as e:
