@@ -7,6 +7,10 @@ Counterpart of ``behavior_driven_video_synthesis_tpu/core/checkpoint.py``
 written to a temporary file and committed with ``os.replace``, so a crash
 mid-write leaves the previous save as the newest.  Saves hold tensors,
 numbers, strings and containers only, and load with ``weights_only``.
+
+:func:`sibling_roles` lists a role's directories in the other runs of the
+same experiment, where flow-only training looks for a cVAE (the JAX
+package's ``_fallback_ckpt``).
 """
 from __future__ import annotations
 
@@ -60,3 +64,13 @@ class CheckpointManager:
         state = torch.load(self._path(step), map_location=map_location,
                            weights_only=True)
         return state, step
+
+
+def sibling_roles(ckpt_dir: str, role: str) -> List[str]:
+    """The ``<project>/<role>`` directories beside ``ckpt_dir`` (a run's
+    ``ckpt/<project>``), this run's own included, in name order."""
+    root = os.path.dirname(os.path.abspath(ckpt_dir))
+    if not os.path.isdir(root):
+        return []
+    return [os.path.join(root, p, role) for p in sorted(os.listdir(root))
+            if os.path.isdir(os.path.join(root, p, role))]

@@ -1,18 +1,34 @@
-"""Batches prepared one step ahead on a background thread.
+"""Host-side batch loading: ``collate``, ``Loader`` and ``prefetch_iter``.
 
-Counterpart of ``prefetch_iter`` in
-``behavior_driven_video_synthesis_tpu/data/loader.py`` (the Human3.6M
-``Loader`` is not ported yet, ROADMAP A6b).  ``prepare`` usually copies a
-batch to the device (from pinned memory, without blocking), so the copy of
-the next batch overlaps the device's work on the current one.
+Counterpart of ``behavior_driven_video_synthesis_tpu/data/loader.py``
+(``collate`` :27-35, ``prefetch_iter``, ``Loader`` :91-118).  ``Loader``
+maps ``dataset[idx]`` over each batch of a batch sampler on a thread pool
+and collates the items into stacked numpy arrays, keeping ``prefetch``
+batches in flight.  ``prefetch_iter``'s ``prepare`` usually copies a batch
+to the device (from pinned memory, without blocking), so the copy of the
+next batch overlaps the device's work on the current one.
 """
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Callable, Iterable, Iterator, Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, Iterable, Iterator, Optional
+
+import numpy as np
 
 _SENTINEL = object()
+
+
+def collate(items) -> Dict[str, np.ndarray]:
+    """A list of item dicts -> one dict of stacked arrays."""
+    out = {}
+    for key in items[0]:
+        vals = [it[key] for it in items]
+        first = np.asarray(vals[0])
+        out[key] = np.stack([np.asarray(v) for v in vals]) \
+            if first.ndim > 0 else np.asarray(vals)
+    return out
 
 
 def _put_until_stopped(q: "queue.Queue", item, stop: threading.Event
@@ -61,3 +77,34 @@ def prefetch_iter(iterator: Iterable, prepare: Optional[Callable] = None,
         t.join()
     finally:
         stop.set()
+
+
+class Loader:
+    """Batches of ``dataset`` in the order of ``batch_sampler`` (lists of
+    indices, or of [idx, seq_len] pairs), fetched by ``num_workers``
+    threads."""
+
+    def __init__(self, dataset, batch_sampler: Iterable,
+                 num_workers: int = 8, prefetch: int = 2):
+        self.dataset = dataset
+        self.batch_sampler = batch_sampler
+        self.num_workers = max(1, num_workers)
+        self.prefetch = max(1, prefetch)
+
+    def __len__(self):
+        return len(self.batch_sampler)
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        if self.num_workers == 1:
+            for batch_ids in self.batch_sampler:
+                yield collate([self.dataset[i] for i in batch_ids])
+            return
+
+        def batches():
+            with ThreadPoolExecutor(self.num_workers) as pool:
+                for batch_ids in self.batch_sampler:
+                    yield collate(list(pool.map(self.dataset.__getitem__,
+                                                batch_ids)))
+
+        # prefetch_iter's stop flag makes abandoning an epoch safe
+        yield from prefetch_iter(batches(), n=self.prefetch)

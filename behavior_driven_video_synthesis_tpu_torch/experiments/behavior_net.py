@@ -1,8 +1,11 @@
-"""The behavior_net experiment: the behavior cVAE, then its flow prior.
+"""The behavior_net experiment: the behavior cVAE, its flow prior, and the
+inference protocol.
 
-Counterpart of ``BehaviorNetExperiment.run_training``
-(``behavior_driven_video_synthesis_tpu/experiments/behavior_net.py:
-116-273``) on one device:
+Counterpart of ``BehaviorNetExperiment`` in
+``behavior_driven_video_synthesis_tpu/experiments/behavior_net.py``
+(``run_training`` :116-273, ``_fallback_ckpt`` :393-417,
+``_sample_rollouts`` :457-472, ``run_inference`` :475-557,
+``_run_posthoc_protocol`` :560-713) on one device:
 
   stage 1: the cVAE with the adversarial regressor, the three probe
            classifiers and the gamma controller (``train/behavior.py``),
@@ -10,12 +13,25 @@ Counterpart of ``BehaviorNetExperiment.run_training``
            epochs of a run longer than 10 while the probes go on;
            eval on (at most) two test batches after every
            ``logging.n_epoch_eval`` epochs; a checkpoint per epoch;
-  stage 2: the latent flow over the frozen net's posteriors, 5 epochs,
-           with ActNorm set from a batch first and the KS p-value of the
-           flow's codes logged after each epoch (``train/flow.py``).
+  stage 2: the latent flow over the frozen net's posteriors, 5 epochs
+           (``n_epochs`` with ``training.only_flow``, ``-f``), with ActNorm
+           set from a batch first and the KS p-value of the flow's codes
+           logged after each epoch (``train/flow.py``);
+  inference (``-m infer``): both stages restored; ADE/FDE/ASD/FSD/APD over
+           ``n_samples`` prior and flow rollouts of each test sequence (one
+           batched f32 rollout of B * n_samples sequences through
+           ``generate_seq``, the decoder's plain loop, not the bf16
+           rollout kernel), then the protocol of ``eval_protocol.py`` over
+           cached rollouts; the summary is logged under ``infer/``.
 
-``--debug`` runs at most 2 epochs and 1 flow epoch on at most 8 batches
-of data.  Checkpoints (``core/checkpoint.py``) are ``<ckpt
+``training.bf16`` runs all five modules' products in bf16 with float32
+parameters and Adam state; losses are reduced in float32.
+``training.only_flow`` skips stage 1 and trains the flow over this run's
+cVAE checkpoint or, without one, the first sibling run's (``ckpt/<other
+project>/reg_ckpt``) that loads; with none it raises.  ``--debug`` runs at
+most 2 epochs and 1 flow epoch on at most 8 batches of data; inference
+then samples two batches, caches one and trains the post-hoc probes 50
+iterations.  Checkpoints (``core/checkpoint.py``) are ``<ckpt
 dir>/reg_ckpt`` and ``<ckpt dir>/flow_ckpt``; a run restores both when
 they exist and goes on from their steps, so a finished run runs no step.
 After each stage the model is written as ``<ckpt dir>/behavior.npz`` (flax
@@ -24,19 +40,25 @@ trees ``net/...`` and, after the flow stage, ``flow/params/...`` and
 ``architecture``, ``data`` and ``general`` config): the files
 ``bdvs-generate-torch --behavior_params`` reads.
 
-Not ported yet: ``general.visualization``, ``training.bf16`` and
-``training.only_flow`` (ROADMAP A6b), ``training.fsdp`` (A14), and the
-inference protocol (``-m infer``, A6b), for which ``main.py`` exits 2.
+Every draw of inference (the posterior noise, the prior and flow codes,
+the post-hoc probes' initial weights and batches) comes from
+:class:`InferenceDraws`, seeded from ``general.seed`` on the run's device.
+Not ported: ``general.visualization`` (ROADMAP A12) and ``training.fsdp``
+(A14); ``mse_euler_per_action`` waits for the rotation geometry (A3).
 """
 from __future__ import annotations
 
 import json
 import os
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from ..core.checkpoint import CheckpointManager, sibling_roles
 from ..data.loader import prefetch_iter
+from ..geometry.normalization import unnormalize
+from ..metrics.sequence import sequence_sample_metrics
 from ..models import convert
 from ..models.behavior import ResidualBehaviorNet
 from ..models.discriminators import SequenceDiscMichael
@@ -50,12 +72,33 @@ from ..train.flow import FlowTrainState, make_flow_train_step
 from ..train.state import make_behavior_optimizers, make_flow_optimizer
 from .base import Experiment
 from .data_factory import build_sequence_data, normalize_action_labels
-from .eval_protocol import ks_test_flow_gaussianity
+from .eval_protocol import (PosthocDraws, action_transfer_scores,
+                            cross_transfer_metrics, ks_test_flow_gaussianity,
+                            mu_consistency_metrics, train_posthoc_classifiers)
 
 N_FLOW_EPOCHS = 5
 N_EVAL_BATCHES = 2
-_UNPORTED = (("general", "visualization", "A6b"), ("training", "bf16", "A6b"),
-             ("training", "only_flow", "A6b"), ("training", "fsdp", "A14"))
+DEBUG_POSTHOC_ITERS = 50
+_UNPORTED = (("general", "visualization", "A12"), ("training", "fsdp", "A14"))
+
+
+class InferenceDraws:
+    """The draws of inference from one generator on the device.
+    ``normal(site, shape, device)`` draws the noise of one site:
+    "eval_eps" (the eval step's posterior noise), "prior_z" and "flow_z"
+    (the codes of the sampled rollouts), "cross_eps" (the posterior noise
+    of the cross transfer, whose b also gives the flow's codes),
+    "prior_b" (the prior rollout's b) and "flow_codes" (the flow
+    rollout's codes); ``posthoc`` draws the post-hoc probes'.  A test
+    hands in another run's values by overriding ``normal`` and
+    ``posthoc``."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+        self.posthoc = PosthocDraws(generator)
+
+    def normal(self, site: str, shape, device) -> torch.Tensor:
+        return torch.randn(shape, generator=self.generator, device=device)
 
 
 class BehaviorNetExperiment(Experiment):
@@ -67,30 +110,38 @@ class BehaviorNetExperiment(Experiment):
         if unported:
             raise NotImplementedError(f"{', '.join(unported)}: not ported "
                                       "yet")
-        seed = int(config.get("general", {}).get("seed", 42))
+        tr = config.get("training", {})
+        self.only_flow = bool(tr.get("only_flow", False))
+        self.dtype = (torch.bfloat16 if bool(tr.get("bf16", False))
+                      else torch.float32)
+        self.seed = int(config.get("general", {}).get("seed", 42))
         # weights, and the steps' draws (checkpointed with the state)
-        self.init_generator = torch.Generator(self.device).manual_seed(seed)
-        self.generator = torch.Generator(self.device).manual_seed(seed + 1)
+        self.init_generator = torch.Generator(self.device).manual_seed(
+            self.seed)
+        self.generator = torch.Generator(self.device).manual_seed(
+            self.seed + 1)
 
     # -- construction -------------------------------------------------------
     def _build_models(self, n_kps: int, n_actions: int, seq_len: int):
         arch = self.config.get("architecture", {})
         hid = int(arch.get("dim_hidden_b", 1024))
-        dev = self.device
+        dev, dt = self.device, self.dtype
         modules = {
             "net": ResidualBehaviorNet(
                 n_kps, hid, decoder_arch=str(arch.get("decoder_arch",
                                                       "lstm")),
                 use_nin_dec=bool(arch.get("linear_in_decoder", False)),
-                information_bottleneck=True, device=dev),
-            "regressor": RegressorFly(hid, n_kps, seq_len, device=dev),
+                information_bottleneck=True, dtype=dt, device=dev),
+            "regressor": RegressorFly(hid, n_kps, seq_len, dtype=dt,
+                                      device=dev),
             "cls_action": ClassifierAction(n_kps, n_actions, dim=512,
-                                           device=dev),
+                                           dtype=dt, device=dev),
             "cls_action2": SequenceDiscMichael(n_kps, seq_len - 1,
                                                layers=(2, 1, 1, 1),
-                                               out_dim=n_actions,
+                                               out_dim=n_actions, dtype=dt,
                                                device=dev),
-            "cls_beta": ClassifierActionBeta(hid, n_actions, device=dev),
+            "cls_beta": ClassifierActionBeta(hid, n_actions, dtype=dt,
+                                             device=dev),
         }
         for m in modules.values():
             init_like_jax_(m, self.init_generator)
@@ -107,16 +158,18 @@ class BehaviorNetExperiment(Experiment):
 
     # -- training -----------------------------------------------------------
     def run_training(self):
-        """Both stages; returns the modules, the train states and the path
-        of the written behavior.npz."""
+        """Both stages (the flow alone with ``only_flow``); returns the
+        modules, the train states and the path of the written
+        behavior.npz."""
         cfg = self.config
         tr = cfg["training"]
         train_loader, meta = build_sequence_data(cfg, "train")
         test_loader, _ = build_sequence_data(cfg, "test")
         seq_len = meta["seq_len"]
         n_epochs = int(tr["n_epochs"])
+        n_flow_epochs = n_epochs if self.only_flow else N_FLOW_EPOCHS
         if self.debug:
-            n_epochs = min(n_epochs, 2)
+            n_epochs, n_flow_epochs = min(n_epochs, 2), 1
         steps_per_epoch = max(1, len(train_loader))
 
         modules = self._build_models(meta["n_kps"], meta["n_actions"],
@@ -131,23 +184,13 @@ class BehaviorNetExperiment(Experiment):
         sample_batch = self._prep_batch(next(iter(train_loader)), meta)
         mgr, start_step = self.restore(
             "reg_ckpt", lambda p: self._load(state, p))
-        step_fn = make_behavior_train_step(
-            cfg, seq_len, total_steps=max(1, (n_epochs - 10)
-                                          * steps_per_epoch))
-        eval_fn = make_behavior_eval_step(net, seq_len)
-        n_epoch_eval = int(cfg.get("logging", {}).get("n_epoch_eval", 1))
-        for epoch in range(start_step // steps_per_epoch, n_epochs):
-            enable = epoch < n_epochs - 10 or n_epochs <= 10
-            for batch in prefetch_iter(iter(train_loader),
-                                       lambda b: self._prep_batch(b, meta)):
-                self.collect(step_fn(state, batch, enable,
-                                     generator=self.generator))
-            self.log(state.step, prefix="train/")
-            if (epoch + 1) % n_epoch_eval == 0:
-                self._run_eval(eval_fn, test_loader, meta, state.step)
-            mgr.save(state.step, self._payload(state))
-        mgr.save(state.step, self._payload(state))   # no-op if saved
-        self.export_behavior(net)
+        if self.only_flow:
+            if start_step == 0:
+                self._fallback_ckpt(state)
+        else:
+            self._train_cvae(state, train_loader, test_loader, meta, mgr,
+                             start_step, n_epochs, steps_per_epoch)
+            self.export_behavior(net)
 
         flow = self._build_flow()
         flow.initialize_(self._infer_b(net, sample_batch))
@@ -155,7 +198,6 @@ class BehaviorNetExperiment(Experiment):
         fmgr, fstart = self.restore(
             "flow_ckpt", lambda p: self._load(fstate, p))
         flow_step = make_flow_train_step(net)
-        n_flow_epochs = 1 if self.debug else N_FLOW_EPOCHS
         for epoch in range(fstart // steps_per_epoch, n_flow_epochs):
             for batch in prefetch_iter(iter(train_loader),
                                        lambda b: self._prep_batch(b, meta)):
@@ -172,6 +214,231 @@ class BehaviorNetExperiment(Experiment):
                 "n_params": {k: sum(p.numel() for p in m.parameters())
                              for k, m in dict(modules, flow=flow).items()}}
 
+    def _train_cvae(self, state, train_loader, test_loader, meta, mgr,
+                    start_step, n_epochs, steps_per_epoch):
+        seq_len = meta["seq_len"]
+        step_fn = make_behavior_train_step(
+            self.config, seq_len, total_steps=max(1, (n_epochs - 10)
+                                                  * steps_per_epoch))
+        eval_fn = make_behavior_eval_step(state.modules["net"], seq_len)
+        n_epoch_eval = int(self.config.get("logging", {}).get(
+            "n_epoch_eval", 1))
+        for epoch in range(start_step // steps_per_epoch, n_epochs):
+            enable = epoch < n_epochs - 10 or n_epochs <= 10
+            for batch in prefetch_iter(iter(train_loader),
+                                       lambda b: self._prep_batch(b, meta)):
+                self.collect(step_fn(state, batch, enable,
+                                     generator=self.generator))
+            self.log(state.step, prefix="train/")
+            if (epoch + 1) % n_epoch_eval == 0:
+                self._run_eval(eval_fn, test_loader, meta, state.step)
+            mgr.save(state.step, self._payload(state))
+        mgr.save(state.step, self._payload(state))   # no-op if saved
+
+    def _fallback_ckpt(self, state) -> str:
+        """Flow-only training without a cVAE save of its own: the newest
+        save of the first sibling run whose modules load into ``state``
+        (the JAX package tries every sibling ``reg_ckpt`` the same way).
+        Returns its directory; raises when none loads."""
+        for cand in sibling_roles(self.dirs["ckpt"], "reg_ckpt"):
+            out = CheckpointManager(cand).restore_latest(map_location="cpu")
+            if out is None:
+                continue
+            try:
+                self._load_modules(state.modules, out[0])
+            except (KeyError, RuntimeError):
+                continue
+            print(f"flow-only: using the cVAE checkpoint {cand} (step "
+                  f"{out[1]})")
+            return cand
+        raise FileNotFoundError(
+            f"flow-only training: no cVAE checkpoint (reg_ckpt) of this "
+            f"run or of a sibling run under "
+            f"{os.path.dirname(self.dirs['ckpt'])} loads into this model")
+
+    # -- inference ----------------------------------------------------------
+    def run_inference(self, n_samples: int = 50, max_batches: int = 50,
+                      draws: Optional[InferenceDraws] = None
+                      ) -> Dict[str, float]:
+        """The inference protocol over the test split; returns the summary
+        it logs under ``infer/``."""
+        cfg = self.config
+        test_loader, meta = build_sequence_data(cfg, "test")
+        seq_len = meta["seq_len"]
+        modules = self._build_models(meta["n_kps"], meta["n_actions"],
+                                     seq_len)
+        net = modules["net"]
+        if draws is None:
+            draws = InferenceDraws(torch.Generator(self.device).manual_seed(
+                self.seed))
+        # a new epoch of the loader where the JAX run takes its template
+        # batch, so that both sample the same test batches
+        next(iter(test_loader))
+        out = CheckpointManager(os.path.join(
+            self.dirs["ckpt"], "reg_ckpt")).restore_latest(
+                map_location="cpu")
+        if out is None:
+            raise FileNotFoundError("no behavior checkpoint to evaluate")
+        self._load_modules(modules, out[0])
+        print(f"Restored reg_ckpt checkpoint at step {out[1]}")
+        flow = None
+        fout = CheckpointManager(os.path.join(
+            self.dirs["ckpt"], "flow_ckpt")).restore_latest(
+                map_location="cpu")
+        if fout is not None:
+            flow = self._build_flow()
+            flow.load_state_dict(fout[0]["state"]["flow"])
+            print(f"Restored flow_ckpt checkpoint at step {fout[1]}")
+        for m in list(modules.values()) + ([flow] if flow else []):
+            m.eval().requires_grad_(False)
+
+        stats = meta["norm_stats"]
+        hid = net.dim_hidden_b
+
+        def to_3d(flat):
+            if stats is not None:
+                flat = unnormalize(flat, stats)
+            return flat.reshape(flat.shape[:-1] + (-1, 3))
+
+        results = {"prior": [], "flow": []}
+        recon_mse = []
+        eval_fn = make_behavior_eval_step(net, seq_len)
+        with torch.no_grad():
+            for i, batch in enumerate(test_loader):
+                batch = self._prep_batch(batch, meta)
+                kps = batch["keypoints"]
+                B = kps.shape[0]
+                m, _ = eval_fn(batch, eps=draws.normal(
+                    "eval_eps", (B, hid), self.device))
+                recon_mse.append(m["recon_mse"])
+                seq_start, gt = kps[:, 0], to_3d(kps[:, 1:])
+                for src, f in (("prior", None), ("flow", flow)):
+                    if src == "flow" and flow is None:
+                        continue
+                    z = draws.normal(f"{src}_z", (B * n_samples, hid),
+                                     self.device)
+                    samples = self._sample_rollouts(net, seq_start, z,
+                                                    n_samples, seq_len, f)
+                    results[src].append({
+                        k: float(v) for k, v in sequence_sample_metrics(
+                            to_3d(samples), gt).items()})
+                if i + 1 >= max_batches or (self.debug and i >= 1):
+                    print(f"inference: sample-metric loop capped at {i + 1} "
+                          f"batches (max_batches={max_batches}, "
+                          f"debug={self.debug})")
+                    break
+
+        summary = {"recon_mse": float(np.mean(
+            [float(v) for v in recon_mse]))}
+        for src, rows in results.items():
+            if rows:
+                for k in rows[0]:
+                    summary[f"{k}_{src}"] = float(
+                        np.mean([r[k] for r in rows]))
+        summary.update(self._run_posthoc_protocol(
+            modules, flow, test_loader, meta, draws))
+        self.log(0, prefix="infer/", extra=summary)
+        return summary
+
+    @staticmethod
+    def _sample_rollouts(net, seq_start, z, n_samples: int, seq_len: int,
+                         flow=None):
+        """seq_start (B, K), codes z (B * n_samples, H) -> (B, n_samples,
+        seq_len, K) rollouts, one batched rollout of the decoder's loop;
+        through the flow's reverse first when ``flow`` is given."""
+        B, K = seq_start.shape
+        b = z if flow is None else flow.reverse(z)
+        starts = seq_start.repeat_interleave(n_samples, dim=0)
+        xs, _ = net.generate_seq(b, starts[:, None], seq_len)
+        return xs.float().reshape(B, n_samples, seq_len, K)
+
+    def _run_posthoc_protocol(self, modules, flow, test_loader, meta,
+                              draws: InferenceDraws):
+        """Caches rollouts per source and runs the protocol: ADE_c/FDE_c,
+        mu consistency, the KS p-value of the flow's codes, the per-start
+        post-hoc classifiers and regressor, and the CF scores.  The cache
+        stops at ``metrics.max_cache`` sequences (25,000, the reference's
+        cap), the probes train ``metrics.posthoc_iters`` iterations (2000);
+        both caps are logged when they apply."""
+        mcfg = self.config.get("metrics", {})
+        max_cache = int(mcfg.get("max_cache", 25_000))
+        seq_len = meta["seq_len"]
+        net = modules["net"]
+        hid = net.dim_hidden_b
+        caches = {k: [] for k in ("orig", "prior", "cross", "self", "flow",
+                                  "mu", "mu_re", "mu_rel", "z", "labels")}
+        n_cached = 0
+        with torch.no_grad():
+            for batch in test_loader:
+                batch = self._prep_batch(batch, meta)
+                kps = batch["keypoints"]
+                seq_s = kps[:, :-1]
+                seq_t = batch["paired_keypoints"][:, :-1]
+                B = kps.shape[0]
+                # cross transfer: the source's behavior from the target's
+                # start pose
+                xc, _, b, mu, _, _ = net(seq_s, seq_t, seq_len,
+                                         eps=draws.normal(
+                                             "cross_eps", (B, hid),
+                                             self.device))
+                x_self, _ = net.generate_seq(mu, seq_s, seq_len)
+                xp, _ = net.generate_seq(draws.normal(
+                    "prior_b", (B, hid), self.device), seq_s, seq_len)
+                caches["orig"].append(kps[:, 1:])
+                caches["cross"].append(xc.float())
+                caches["self"].append(x_self.float())
+                caches["prior"].append(xp.float())
+                caches["mu"].append(mu.float())
+                caches["mu_re"].append(self._mu(net, xc))
+                caches["mu_rel"].append(self._mu(net, seq_t))
+                caches["labels"].append(batch["action"])
+                if flow is not None:
+                    caches["z"].append(flow(b.float())[0])
+                    bflow = flow.reverse(draws.normal(
+                        "flow_codes", (B, hid), self.device))
+                    xf, _ = net.generate_seq(bflow, seq_s, seq_len)
+                    caches["flow"].append(xf.float())
+                n_cached += B
+                if n_cached >= max_cache or self.debug:
+                    print(f"inference: rollout cache capped at {n_cached} "
+                          f"samples (max_cache={max_cache}, "
+                          f"debug={self.debug})")
+                    break
+
+        cat = {k: torch.cat(v) for k, v in caches.items() if v}
+        out = {}
+        out.update(cross_transfer_metrics(cat["cross"], cat["orig"]))
+        out.update(mu_consistency_metrics(
+            *(cat[k].cpu().numpy() for k in ("mu", "mu_re", "mu_rel"))))
+        if "z" in cat:
+            out["flow_ks_p"] = ks_test_flow_gaussianity(
+                cat["z"].cpu().numpy())
+        fake_sets = {k: cat[k] for k in ("prior", "cross", "self", "flow")
+                     if k in cat}
+        n_iters = int(mcfg.get("posthoc_iters", 2000))
+        if self.debug:
+            n_iters = DEBUG_POSTHOC_ITERS
+            print(f"inference: post-hoc probes capped at {n_iters} "
+                  f"iterations (debug)")
+        out.update(train_posthoc_classifiers(
+            cat["orig"], fake_sets, mu=cat["mu"], n_iters=n_iters,
+            draws=draws.posthoc, device=self.device))
+
+        cls_action, cls_beta = modules["cls_action"], modules["cls_beta"]
+        out.update(action_transfer_scores(cls_action, cat["cross"],
+                                          cat["orig"], cat["labels"]))
+        # CF_action: the action classifier on prior-sample rollouts;
+        # CF_action_beta: the beta classifier on the inferred mu
+        labels = cat["labels"].reshape(len(cat["mu"]), -1)[:, 0]
+        with torch.no_grad():
+            logits_p = cls_action(cat["prior"])[0].float()
+            beta_logits = cls_beta(cat["mu"]).float()
+        out["CF_action"] = float(torch.mean(
+            (torch.argmax(logits_p, -1) == labels).float()))
+        out["CF_action_beta"] = float(torch.mean(
+            (torch.argmax(beta_logits, -1) == labels).float()))
+        return out
+
     # -- helpers ------------------------------------------------------------
     def _payload(self, state) -> dict:
         return {"state": state.state_dict(),
@@ -181,10 +448,21 @@ class BehaviorNetExperiment(Experiment):
         state.load_state_dict(payload["state"])
         self.generator.set_state(payload["generator"])
 
+    @staticmethod
+    def _load_modules(modules, payload) -> None:
+        """The cVAE stage's modules of a ``reg_ckpt`` save, without its
+        optimizers."""
+        saved = payload["state"]["modules"]
+        for k, m in modules.items():
+            m.load_state_dict(saved[k])
+
     def _prep_batch(self, batch, meta):
         """The step's arrays as tensors on the device (copied from pinned
         memory without blocking)."""
         out = {"keypoints": np.asarray(batch["keypoints"], np.float32),
+               "paired_keypoints": np.asarray(
+                   batch.get("paired_keypoints", batch["keypoints"]),
+                   np.float32),
                "action": normalize_action_labels(np.asarray(batch["action"]),
                                                  meta["action_offset"])}
         if self.device.type != "cuda":
@@ -197,7 +475,14 @@ class BehaviorNetExperiment(Experiment):
         with torch.no_grad():
             b, _, _, _ = net.infer_b(batch["keypoints"].float()[:, :-1],
                                      generator=self.generator)
-        return b
+        return b.float()
+
+    @staticmethod
+    def _mu(net, seq):
+        """The posterior mean of seq (the noise is not used)."""
+        zeros = torch.zeros(seq.shape[0], net.dim_hidden_b,
+                            device=seq.device)
+        return net.infer_b(seq, eps=zeros)[1].float()
 
     def _run_eval(self, eval_fn, test_loader, meta, step: int) -> None:
         for i, batch in enumerate(test_loader):

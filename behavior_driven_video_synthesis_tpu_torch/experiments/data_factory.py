@@ -1,10 +1,14 @@
 """The keypoint-sequence data of the behavior experiment.
 
-Counterpart of the synthetic branch of
-``behavior_driven_video_synthesis_tpu/experiments/data_factory.py``
-(``SyntheticLoaderAdapter``, ``normalize_action_labels`` and
-``build_sequence_data`` for ``dataset: synthetic``).  The Human3.6M
-datasets are not ported yet (ROADMAP A6b).
+Counterpart of ``behavior_driven_video_synthesis_tpu/experiments/
+data_factory.py`` (``SyntheticLoaderAdapter``, ``normalize_action_labels``
+and ``build_sequence_data``, :17-110): ``dataset: synthetic``, and the
+Human3.6M sequence path (``human3.6m``, ``human36m``, ``h36m``, and
+``h36m_synthetic``, which fills the dataset from
+``data/synthetic.py:synthetic_h36m_columns``) through a
+``SequenceSampler`` over an unseeded ``RandomSampler`` and a ``Loader``,
+as the JAX factory builds it.  One difference: for Human3.6M ``n_actions``
+is the span of the action ids, not their count (ROADMAP C5).
 """
 from __future__ import annotations
 
@@ -12,7 +16,13 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from ..data.synthetic import SyntheticSequenceDataset
+from ..data.human36m import Human36mDataset
+from ..data.loader import Loader
+from ..data.samplers import RandomSampler, SequenceSampler
+from ..data.synthetic import (SyntheticSequenceDataset,
+                              synthetic_h36m_columns)
+
+H36M_NAMES = ("human3.6m", "human36m", "h36m", "h36m_synthetic")
 
 
 class SyntheticLoaderAdapter:
@@ -50,18 +60,19 @@ def normalize_action_labels(action: np.ndarray,
     return (action - offset).astype(np.int64)
 
 
-def build_sequence_data(config: dict, mode: str = "train"
-                        ) -> Tuple[SyntheticLoaderAdapter, Dict]:
+def build_sequence_data(config: dict,
+                        mode: str = "train") -> Tuple[object, Dict]:
     """(loader, meta) of a run config's keypoint-sequence data; ``mode``
-    "train" or "test" (another seed, 512 sequences by default)."""
+    "train" or "test" (for synthetic data another seed and 512 sequences
+    by default; for Human3.6M the test split)."""
     dcfg = config.get("data", {})
     batch_size = int(config["training"]["batch_size"])
     name = str(dcfg.get("dataset", "synthetic")).lower()
-    if name != "synthetic":
-        raise ValueError(f"dataset {name!r} is not ported yet (the Human3.6M "
-                         "sequence path is ROADMAP A6b); use dataset: "
-                         "synthetic")
     seq_length = tuple(dcfg.get("seq_length", (50, 51)))
+    if name in H36M_NAMES:
+        return _human36m_data(config, mode, name, seq_length, batch_size)
+    if name != "synthetic":
+        raise ValueError(f"unsupported sequence dataset: {name}")
     n_kps = int(dcfg.get("n_kps", 51))
     n_actions = int(dcfg.get("n_actions", 10))
     n_samples = int(dcfg.get("n_samples", 2048 if mode == "train" else 512))
@@ -74,3 +85,42 @@ def build_sequence_data(config: dict, mode: str = "train"
             "norm_stats": None, "seq_len": seq_length[0],
             "action_offset": 0}
     return SyntheticLoaderAdapter(ds, batch_size), meta
+
+
+def _human36m_data(config: dict, mode: str, name: str, seq_length,
+                   batch_size: int) -> Tuple[Loader, Dict]:
+    dcfg = config.get("data", {})
+    kwargs = {k: v for k, v in dcfg.items()
+              if k not in ("dataset", "seq_length")}
+    kwargs.setdefault("label_transfer", True)
+    kwargs.setdefault("keypoint_type", "keypoints_3d_world")
+    ds = Human36mDataset(
+        transforms=None, data_keys=["keypoints", "paired_keypoints",
+                                    "action", "sample_ids",
+                                    "paired_sample_ids"],
+        seq_length=seq_length,
+        mode=mode, debug=config.get("general", {}).get("debug", False),
+        **kwargs)
+    if name == "h36m_synthetic":
+        ds.populate_from_arrays(synthetic_h36m_columns(
+            n_frames_per_video=int(dcfg.get("n_frames_per_video", 120)),
+            seed=0 if mode == "train" else 1))
+    if len(ds) == 0:
+        raise FileNotFoundError(
+            f"Human3.6M annot_export.h5 not found under "
+            f"{dcfg.get('datapath')}: use dataset: synthetic or "
+            f"h36m_synthetic, or provide the processed dataset")
+    sampler = SequenceSampler(ds, RandomSampler(ds), batch_size,
+                              drop_last=True)
+    loader = Loader(ds, sampler,
+                    num_workers=int(dcfg.get("n_data_workers", 8)))
+    # the heads span the label range: the JAX factory counts the distinct
+    # actions, which is fewer when the ids have gaps (h36m_synthetic's 2,
+    # 4, 5), and its probes' losses are then NaN (ROADMAP C5)
+    action = ds.datadict["action"]
+    meta = {"n_kps": len(ds.dim_to_use),
+            "n_actions": int(action.max() - action.min()) + 1,
+            "dataset": ds, "norm_stats": ds.norm_stats,
+            "seq_len": ds.seq_length[0],
+            "action_offset": int(action.min())}
+    return loader, meta

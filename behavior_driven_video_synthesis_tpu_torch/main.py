@@ -1,11 +1,12 @@
 """Training CLI (``bdvs-train-torch``), on one GPU unless told otherwise.
 
-Counterpart of ``behavior_driven_video_synthesis_tpu/main.py``:
+Counterpart of ``behavior_driven_video_synthesis_tpu/main.py`` (``main``,
+:148-186):
 
     bdvs-train-torch -c configs/shape_and_pose_net.yaml [-m train] [-d] \\
                      [--device cuda|cpu]
-    bdvs-train-torch -c configs/behavior_net.yaml [-d] [-r] \\
-                     [--device cuda|cpu]
+    bdvs-train-torch -c configs/behavior_net.yaml [-m train|infer] [-d] \\
+                     [-r] [-f] [--device cuda|cpu]
 
 Run directories are ``{ckpt,config,generated,log}/<project_name>`` under
 ``base_dir/experiment``; the config is dumped to
@@ -13,13 +14,17 @@ Run directories are ``{ckpt,config,generated,log}/<project_name>`` under
 products and convolutions run without TF32 (``core/precision.py``).
 ``--debug`` trains the "debug" project (cvbae: at most 8 steps;
 behavior_net: at most 2 epochs and 1 flow epoch on 8 batches).  The
-``cvbae`` and ``behavior_net`` experiments are ported.  ``-r`` resumes a
-behavior_net run: it reloads the config dumped in the run directory (so
-the run's hyperparameters stay as they were) and restores the run's
-checkpoints; a finished run runs no step.  The other experiments,
-``-m infer``, ``-r`` for cvbae, and the ``-f``, ``-v``, ``-s`` and ``-p``
-options exit with status 2.  ``training.dropout_rng`` is accepted and has
-no effect (the TPU's rng-bit generator has no counterpart here).
+``cvbae`` and ``behavior_net`` experiments are ported.  For behavior_net,
+``-m infer`` runs the inference protocol on the run's checkpoints and logs
+its summary under ``infer/`` in the run's ``metrics.jsonl``; ``-f`` sets
+``training.only_flow`` (train the flow alone, over this run's or a sibling
+run's cVAE); ``-r`` resumes a run: it reloads the config dumped in the run
+directory (so the run's hyperparameters stay as they were) and restores
+the run's checkpoints; a finished run runs no step.  The other
+experiments, ``-m infer`` and ``-f`` for cvbae, ``-r`` for cvbae, and the
+``-v``, ``-s`` and ``-p`` options exit with status 2.
+``training.dropout_rng`` is accepted and has no effect (the TPU's rng-bit
+generator has no counterpart here).
 """
 from __future__ import annotations
 
@@ -33,7 +38,8 @@ from .core.config import load_config, save_config
 from .core.precision import disable_tf32, tf32_enabled
 
 PORTED_EXPERIMENTS = ("cvbae", "behavior_net")
-# experiments whose runs resume (-r)
+# experiments whose runs resume (-r), infer (-m infer) and train their flow
+# alone (-f)
 RESUMABLE_EXPERIMENTS = ("behavior_net",)
 
 
@@ -75,15 +81,14 @@ def parse_args(argv=None):
                          "on the CPU)")
     ap.add_argument("-r", "--restart", action="store_true",
                     help="resume a behavior_net run from its checkpoints")
+    ap.add_argument("-f", "--flow", action="store_true",
+                    help="train only the flow stage of behavior_net")
     # options of the JAX CLI that this port does not have yet
-    ap.add_argument("-f", "--flow", action="store_true")
     ap.add_argument("-v", "--visualization", action="store_true")
     ap.add_argument("-s", "--synth_model", default=None)
     ap.add_argument("-p", "--pretrained_model", default=None)
     args = ap.parse_args(argv)
     unported = [flag for flag, on in (
-        ("-m infer", args.mode != "train"),
-        ("-f (flow-only training, ROADMAP A6b)", args.flow),
         ("-v", args.visualization),
         ("-s", args.synth_model is not None),
         ("-p", args.pretrained_model is not None)) if on]
@@ -112,16 +117,24 @@ def main(argv=None):
         sys.stderr.write(f"experiment {experiment!r}: not ported yet "
                          f"(ported: {', '.join(PORTED_EXPERIMENTS)})\n")
         raise SystemExit(2)
-    if args.restart and experiment not in RESUMABLE_EXPERIMENTS:
-        sys.stderr.write(f"-r (resume) of {experiment!r}: not ported yet "
-                         f"(ROADMAP A7)\n")
+    flags = [flag for flag, on in (("-r (resume)", args.restart),
+                                   ("-m infer", args.mode == "infer"),
+                                   ("-f (flow-only training)", args.flow))
+             if on]
+    if flags and experiment not in RESUMABLE_EXPERIMENTS:
+        sys.stderr.write(f"{', '.join(flags)} of {experiment!r}: not ported "
+                         f"yet (ROADMAP A7)\n")
         raise SystemExit(2)
     # the run's record of its float32 precision, dumped with the config
     config.setdefault("general", {})["tf32"] = tf32_enabled()
+    if args.flow:
+        config.setdefault("training", {})["only_flow"] = True
     config, dirs = load_parameters(config, args.debug, args.restart)
     if experiment == "behavior_net":
         from .experiments.behavior_net import BehaviorNetExperiment
-        return BehaviorNetExperiment(config, dirs, device).run_training()
+        exp = BehaviorNetExperiment(config, dirs, device)
+        return (exp.run_inference() if args.mode == "infer"
+                else exp.run_training())
     from .experiments.shape_and_pose_net import ShapePoseExperiment
     return ShapePoseExperiment(config, dirs, device).run_training()
 

@@ -39,7 +39,8 @@ class BehaviorEncoder(nn.Module):
                 eps: Optional[torch.Tensor] = None):
         """x: (B, T, K).  Returns (b, mu, logstd, pre) with ib, else pre;
         b is a prior draw when ``sample`` else mu + exp(logstd) * eps, eps
-        as given or drawn from ``generator``."""
+        as given (cast to the encoder's dtype) or drawn from
+        ``generator``."""
         _, (pre, _) = self.rnn(x, lengths, return_sequences=False)
         if not self.ib:
             return pre
@@ -48,6 +49,7 @@ class BehaviorEncoder(nn.Module):
         if eps is None:
             eps = torch.randn(mu.shape, generator=generator, dtype=mu.dtype,
                               device=mu.device)
+        eps = eps.to(mu.dtype)
         b = eps if sample else mu + torch.exp(logstd) * eps
         return b, mu, logstd, pre
 

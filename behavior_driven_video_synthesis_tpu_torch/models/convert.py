@@ -341,6 +341,23 @@ def classifier_action_plan() -> Plan:
             + _dense("fc1", ("Dense_0",)) + _dense("fc3", ("Dense_1",)))
 
 
+def classifier_plan() -> Plan:
+    """The post-hoc real/fake ``Classifier``: ``RNN`` (a GRU, torch gate
+    order) <-> ``GRUCell_0``, ``fc`` <-> ``Dense_0``."""
+    return ([(f"RNN.{w}_l0", ("GRUCell_0", f), kind)
+             for w, f, kind in (("weight_ih", "w_ih", "T"),
+                                ("weight_hh", "w_hh", "T"),
+                                ("bias_ih", "b_ih", "id"),
+                                ("bias_hh", "b_hh", "id"))]
+            + _dense("fc", ("Dense_0",)))
+
+
+def regressor_plan() -> Plan:
+    """The post-hoc start-pose ``Regressor``: ``fc{i+1}`` <->
+    ``Dense_{i}``."""
+    return [e for i in range(3) for e in _dense(f"fc{i + 1}", (f"Dense_{i}",))]
+
+
 def classifier_action_beta_plan() -> Plan:
     """``ClassifierActionBeta``: ``fc1`` <-> ``Dense_0``."""
     return _dense("fc1", ("Dense_0",))
@@ -387,6 +404,22 @@ def classifier_action_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
 
 def classifier_action_to_flax(state_dict: Mapping) -> Dict[str, Any]:
     return to_flax(state_dict, classifier_action_plan())
+
+
+def classifier_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    return from_flax(_params(tree), classifier_plan())
+
+
+def classifier_to_flax(state_dict: Mapping) -> Dict[str, Any]:
+    return to_flax(state_dict, classifier_plan())
+
+
+def regressor_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    return from_flax(_params(tree), regressor_plan())
+
+
+def regressor_to_flax(state_dict: Mapping) -> Dict[str, Any]:
+    return to_flax(state_dict, regressor_plan())
 
 
 def classifier_action_beta_from_flax(tree: Mapping

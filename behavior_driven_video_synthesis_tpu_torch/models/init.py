@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from ..ops.nn import NormConv2d, NormDense
-from ..ops.recurrent import LSTM
+from ..ops.recurrent import GRU, LSTM
 from .behavior import ResidualDecoder
 from .flows.blocks import Shuffle
 
@@ -73,10 +73,10 @@ def init_like_jax_(module: nn.Module, generator=None) -> nn.Module:
     """The JAX package's initializers, in place: a NormConv2d or NormDense
     draws v from he_normal over its fan-in (kh, kw, cin) and sets g = |v|
     per output channel, bias and beta 0, gamma 1 (``ops/nn.py:225-241``);
-    an LSTM, and a ResidualDecoder's cell and output layer, draw every
-    weight and bias from U(-1/sqrt(H), 1/sqrt(H)), its optional input layer
-    from U(-1/sqrt(K), 1/sqrt(K)) (``ops/recurrent.py:_uniform_init``); an
-    ``nn.Conv1d``, ``nn.Conv2d`` or ``nn.Linear`` (a flax Conv or Dense)
+    an LSTM or a GRU, and a ResidualDecoder's cell and output layer, draw
+    every weight and bias from U(-1/sqrt(H), 1/sqrt(H)), its optional input
+    layer from U(-1/sqrt(K), 1/sqrt(K)) (``ops/recurrent.py:_uniform_init``);
+    an ``nn.Conv1d``, ``nn.Conv2d`` or ``nn.Linear`` (a flax Conv or Dense)
     draws lecun_normal weights and a zero bias; a Shuffle draws a random
     permutation.  GroupNorm keeps scale 1 and bias 0, and ActNorm is set
     from data (``LatentFlow.initialize_``)."""
@@ -92,7 +92,7 @@ def init_like_jax_(module: nn.Module, generator=None) -> nn.Module:
             m.conv.bias.zero_()
             m.gamma.fill_(1.0)
             m.beta.zero_()
-        elif isinstance(m, LSTM):
+        elif isinstance(m, (LSTM, GRU)):
             for p in m.parameters():
                 _uniform_(p, m.hidden, generator)
         elif isinstance(m, ResidualDecoder):

@@ -1,11 +1,14 @@
-"""Full-sequence LSTM forward.
+"""Full-sequence LSTM and GRU forwards.
 
 Counterpart of ``behavior_driven_video_synthesis_tpu/ops/recurrent.py``
-``LSTM`` (inference: ``lengths`` and ``return_sequences``).  Gate order is
-torch's (i, f, g, o) and the parameters keep ``nn.LSTM``'s layer-0 names,
-so the reference's encoder state dicts load as they are.  The input
-projection for all T steps runs as one matmul before the loop; the loop
-body does only the recurrent (B, H) x (H, 4H) product.
+``LSTM`` (``lengths`` and ``return_sequences``) and ``GRUCell`` (scanned
+over a sequence, as the JAX package's ``Classifier`` does).  Gate orders
+are torch's ((i, f, g, o); the GRU's (r, z, n) with
+``n = tanh(W_in x + b_in + r * (W_hn h + b_hn))``) and the parameters keep
+``nn.LSTM``'s and ``nn.GRU``'s layer-0 names, so the reference's state
+dicts load as they are.  The input projection for all T steps runs as one
+matmul before the loop; the loop body does only the recurrent product.
+Products run in ``dtype``; the parameters stay float32.
 """
 from __future__ import annotations
 
@@ -61,3 +64,35 @@ class LSTM(nn.Module):
         if not return_sequences:
             return None, (h, c)
         return torch.stack(hs, dim=1), (h, c)
+
+
+class GRU(nn.Module):
+    """GRU over (B, T, D) from a zero state; returns the final hidden
+    state (B, H)."""
+
+    def __init__(self, input_size: int, hidden: int, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.hidden, self.dtype = hidden, dtype
+        self.weight_ih_l0 = nn.Parameter(
+            torch.empty(3 * hidden, input_size, device=device))
+        self.weight_hh_l0 = nn.Parameter(
+            torch.empty(3 * hidden, hidden, device=device))
+        self.bias_ih_l0 = nn.Parameter(torch.zeros(3 * hidden, device=device))
+        self.bias_hh_l0 = nn.Parameter(torch.zeros(3 * hidden, device=device))
+
+    def forward(self, xs: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        gi = (xs.to(dt) @ self.weight_ih_l0.to(dt).t()
+              + self.bias_ih_l0.to(dt))                      # (B, T, 3H)
+        w_hh = self.weight_hh_l0.to(dt).t()
+        b_hh = self.bias_hh_l0.to(dt)
+        h = torch.zeros(xs.shape[0], self.hidden, dtype=dt, device=xs.device)
+        for t in range(xs.shape[1]):
+            i_r, i_z, i_n = torch.chunk(gi[:, t], 3, dim=-1)
+            h_r, h_z, h_n = torch.chunk(h @ w_hh + b_hh, 3, dim=-1)
+            r = torch.sigmoid(i_r + h_r)
+            z = torch.sigmoid(i_z + h_z)
+            n = torch.tanh(i_n + r * h_n)
+            h = (1.0 - z) * n + z * h
+        return h

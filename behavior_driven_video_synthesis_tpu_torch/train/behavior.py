@@ -19,7 +19,12 @@ the JAX step's order:
 
 Parameters and optimizer states change in place.  The step's random draws
 (the adversarial frame t, the regressor's 5 frames and the posterior
-noise) come from :func:`draw_step`, or are handed in as ``draws``.
+noise) come from :func:`draw_step`, or are handed in as ``draws``.  With
+modules built in bf16 (``training.bf16``, the JAX ``_build_models``:58-82)
+the products run in bf16 while the parameters, their gradients and the
+Adam states stay float32; every loss is reduced in float32 (a bf16 output
+against a float32 target promotes to float32; the KL and the
+cross-entropies cast first).
 """
 from __future__ import annotations
 
@@ -132,7 +137,7 @@ def make_behavior_train_step(config: dict, seq_len: int,
         # the net, against the regressor as it stands
         xs, _, _, mu, logstd, _ = net(seq_b, seq_b, seq_len, eps=draws.eps)
         recon = mse_loss(xs, target)
-        kl = kl_loss(mu, logstd)
+        kl = kl_loss(mu.float(), logstd.float())
         loss = recon_w * recon + (1.0 if is_cvae else state.gamma) * kl
         if use_reg:
             onehot, target_adv = _frame(seq_b, draws.t_adv, seq_len)
@@ -166,7 +171,7 @@ def make_behavior_train_step(config: dict, seq_len: int,
 
         def probe(name, x):
             out = m[name](x)
-            logits[name] = out[0] if isinstance(out, tuple) else out
+            logits[name] = (out[0] if isinstance(out, tuple) else out).float()
             ce = cross_entropy(logits[name], labels)
             _update(opt[name], list(m[name].parameters()), ce)
             return ce.detach()
@@ -207,6 +212,6 @@ def make_behavior_eval_step(net: nn.Module, seq_len: int) -> Callable:
         xs, _, _, mu, logstd, _ = net(seq_b, seq_b, seq_len,
                                       generator=generator, eps=eps)
         return {"recon_mse": mse_loss(xs, target),
-                "kl": kl_loss(mu, logstd)}, xs
+                "kl": kl_loss(mu.float(), logstd.float())}, xs
 
     return eval_step

@@ -2,8 +2,8 @@
 
 Counterpart of ``behavior_driven_video_synthesis_tpu/train/flow.py``
 (``make_flow_train_step``).  One step infers b = mu + exp(logstd) * eps
-with the frozen net (no gradient), takes the flow's NLL and one Adam
-update of the flow.
+with the frozen net (no gradient; a bf16 net's b is cast to float32, the
+flow's dtype), takes the flow's NLL and one Adam update of the flow.
 """
 from __future__ import annotations
 
@@ -48,7 +48,7 @@ def make_flow_train_step(net: nn.Module) -> Callable:
         seq_b = batch["keypoints"].float()[:, :-1]
         with torch.no_grad():
             b, _, _, _ = net.infer_b(seq_b, generator=generator, eps=eps)
-        z, logdet = state.flow(b)
+        z, logdet = state.flow(b.float())
         loss = flow_loss(z, logdet)
         params = list(state.flow.parameters())
         grads = torch.autograd.grad(loss, params)

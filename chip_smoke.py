@@ -67,7 +67,24 @@ CUDA toolkit (nvcc) and PyTorch.  It imports no JAX.  Phases:
     kernel once and match the decoder's plain loop;
 11. the port's behavior cVAE and flow steps at small width against
     ``tests/golden/torch_port_behavior_small.npz`` (two JAX steps of
-    each, with their draws), in f32 with TF32 off.
+    each, with their draws), in f32 with TF32 off;
+12. the rest of the behavior experiment at full width through ``main``,
+    ``configs/behavior_net.yaml`` with ``--debug``: (a) ``-m infer`` on
+    phase [10]'s run (both stages restored; 2 batches of 64 x 50 prior
+    and 64 x 50 flow rollouts through the decoder's f32 loop, which must
+    launch no rollout kernel; the post-hoc protocol on 64 cached
+    sequences, 50 iterations, 4 sources x 6 start frames), every summary
+    key present and finite, with the run's and each stage's wall time and
+    peak memory; (b) ``-f`` in a sibling project, which must train the
+    flow alone (8 steps) over phase [10]'s cVAE; (c) the cVAE with
+    ``training.bf16``, its median step and sequences/s beside phase
+    [10]'s f32 step; (d) ``dataset: h36m_synthetic`` trained and
+    inferred;
+13. the port's ``-m infer`` at small width against
+    ``tests/golden/torch_port_infer_small.npz`` (the JAX run's summary
+    and draws; weights rebuilt from its numpy seed), in f32 with TF32
+    off: every value except the post-hoc classifiers' scores, whose
+    initial weights the golden does not hold.
 
 The last two lines are a JSON object of kernel results and
 ``{"ok": true, "device": {...}}``; any failure exits non-zero before them.
@@ -156,6 +173,8 @@ ORG_CONFIG = os.path.join(ROOT, "configs", "vunet.yaml")
 BEHAVIOR_CONFIG = os.path.join(ROOT, "configs", "behavior_net.yaml")
 BEHAVIOR_GOLDEN = os.path.join(ROOT, "tests", "golden",
                                "torch_port_behavior_small.npz")
+INFER_GOLDEN = os.path.join(ROOT, "tests", "golden",
+                            "torch_port_infer_small.npz")
 # --debug: 2 epochs and 1 flow epoch of 8 batches of 64 sequences
 BEHAVIOR_STEPS, BEHAVIOR_FLOW_STEPS = 16, 8
 TRAIN_STEPS = 6
@@ -1471,6 +1490,7 @@ def profile_call(fn, wall_ms_of=None, top_n=5):
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:top_n]
     out = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                busy_share=min(1.0, busy_ms / wall_ms),
+               launches=sum(e.count for e in events),
                top=[(e.key[:90], e.self_device_time_total / 1e3, e.count)
                     for e in top])
     if wall_ms_of:
@@ -1491,6 +1511,7 @@ def profile_stages(recorder, median_ms):
                 f"share not measured")
             continue
         log(f"    profiled {stage} step: wall {prof['wall_ms']:.2f} ms, "
+            f"{prof['launches']} kernel launches, "
             f"device busy {prof['device_busy_ms']:.2f} ms, busy share "
             f"{prof['busy_share']:.3f} ({prof['busy_share_unprofiled']:.3f} "
             f"of the unprofiled median step); top kernels (ms, calls):")
@@ -1509,7 +1530,16 @@ def metric_lines(run_dir):
         return [json.loads(line) for line in f]
 
 
+def module_digest(module):
+    """Sum of |parameter| in float64: a check that two runs hold the same
+    weights."""
+    return float(sum(p.detach().double().abs().sum()
+                     for p in module.parameters()))
+
+
 def phase_behavior():
+    """Returns the rollout kernel's launches in the served request and the
+    run's base directory, which phase [12] evaluates and deletes."""
     base = tempfile.mkdtemp(prefix="chip_smoke_behavior_")
     path = os.path.join(base, "config.yaml")
     with open(path, "w") as f:
@@ -1556,6 +1586,9 @@ def phase_behavior():
             f"metrics.jsonl lines {prefixes}")
         log(f"    metrics.jsonl: {prefixes}; last flow line "
             + json.dumps({k: round(v, 5) for k, v in lines[-1].items()}))
+        # the net as saved at the last step, before the profiled step
+        # below updates it once more
+        net_digest = module_digest(out["modules"]["net"])
         profiles = profile_stages(recorder, {"cvae": cvae_ms,
                                              "flow": flow_ms})
         behavior_params = out["behavior_params"]
@@ -1588,9 +1621,8 @@ def phase_behavior():
         cvae_step_ms_median=cvae_ms, sequences_per_s=batch * 1e3 / cvae_ms,
         flow_step_ms_median=flow_ms, peak_gib=peak / 2**30, wall_s=wall,
         n_params=n_params, profile=profiles, metric_lines=prefixes,
-        restart_steps=reruns, served=served)
-    shutil.rmtree(base, ignore_errors=True)
-    return launches
+        restart_steps=reruns, served=served, net_digest=net_digest)
+    return launches, base
 
 
 def serve_behavior(behavior_params):
@@ -1720,6 +1752,267 @@ def phase_behavior_golden():
           "golden behavior_net steps out of tolerance")
 
 
+# -- 12. the rest of the behavior experiment at full width ---------------------
+class StageTimer:
+    """Wraps callables of ``experiments/behavior_net.py`` so that each call
+    runs between two ``torch.cuda.synchronize()`` calls; sums their wall
+    times by stage."""
+
+    def __init__(self):
+        self.ms = {}
+        self._orig = []
+
+    def wrap(self, owner, name, stage, static=False):
+        fn = getattr(owner, name)
+        self._orig.append((owner, name, owner.__dict__[name]))
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.ms[stage] = self.ms.get(stage, 0.0) + (
+                time.perf_counter() - t0) * 1e3
+            return out
+        setattr(owner, name, staticmethod(timed) if static else timed)
+
+    def uninstall(self):
+        for owner, name, orig in reversed(self._orig):
+            setattr(owner, name, orig)
+
+
+def summary_keys(seq_len):
+    """The inference summary's keys at sequence length seq_len."""
+    starts = list(dict.fromkeys(min(t, seq_len - 1)
+                                for t in (0, 10, 20, 30, 40, 49)))
+    per_start = [f"_t{t}" for t in starts] + [""]
+    return ({"recon_mse", "ADE_c", "FDE_c", "recon_mu", "recon_mu_std",
+             "distance_mu", "distance_mu_std", "flow_ks_p",
+             "loss_regressor_posthoc", "CF_cross", "CF_logits_l2",
+             "CF_logits_cos", "CF_action", "CF_action_beta"}
+            | {f"{m}_{s}" for m in ("APD", "ASD", "FSD", "ADE", "FDE")
+               for s in ("prior", "flow")}
+            | {f"DE{t}" for t in per_start}
+            | {f"loss_regressor{t}" for t in per_start[:-1]}
+            | {f"{p}_{s}{t}" for p in ("score", "acc")
+               for s in ("prior", "cross", "self", "flow")
+               for t in per_start})
+
+
+def timed_inference(path, extra_argv=()):
+    """``main -m infer`` with its stages timed; returns (summary, wall s,
+    stage ms, peak bytes, rollout kernel launches)."""
+    timer = StageTimer()
+    exp = behavior_net.BehaviorNetExperiment
+    timer.wrap(behavior_net.CheckpointManager, "restore_latest",
+               "checkpoint reads")
+    timer.wrap(exp, "_sample_rollouts", "sampled rollouts", static=True)
+    timer.wrap(behavior_net, "sequence_sample_metrics", "sample metrics")
+    timer.wrap(exp, "_run_posthoc_protocol", "post-hoc protocol")
+    timer.wrap(behavior_net, "train_posthoc_classifiers",
+               "post-hoc probe training")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rollout.rollout_launches = 0          # counts start here: -m infer
+    t0 = time.perf_counter()
+    try:
+        summary = train_cli.main(["-c", path, "--device", "cuda", "-m",
+                                  "infer", *extra_argv])
+        torch.cuda.synchronize()
+    finally:
+        timer.uninstall()
+    launches = rollout.rollout_launches
+    return (summary, time.perf_counter() - t0, timer.ms,
+            torch.cuda.max_memory_allocated(), launches)
+
+
+def check_summary(summary, seq_len, what):
+    want = summary_keys(seq_len)
+    check(set(summary) == want, f"{what}: summary keys differ by "
+          f"{sorted(set(summary) ^ want)}")
+    check(all(np.isfinite(v) for v in summary.values()),
+          f"{what}: a summary value is not finite")
+
+
+def log_inference(what, summary, wall, ms, peak, launches):
+    log(f"    {what}: {len(summary)} summary keys, all finite; wall "
+        f"{wall:.1f} s, peak {peak / 2**30:.2f} GiB, {launches} rollout "
+        f"kernel launches (the f32 loop samples); stages (ms): "
+        + ", ".join(f"{k} {v:.0f}" for k, v in ms.items()))
+    log("    " + ", ".join(f"{k} {summary[k]:.4g}" for k in (
+        "recon_mse", "ADE_prior", "FDE_prior", "APD_prior", "ADE_flow",
+        "FDE_flow", "APD_flow", "ADE_c", "flow_ks_p", "score_prior",
+        "acc_prior", "loss_regressor_posthoc", "CF_cross")))
+
+
+def write_config(base, name, cfg):
+    path = os.path.join(base, name)
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def run_recorded(argv, profile_stage=None):
+    """``main`` with its cVAE and flow steps recorded; with
+    ``profile_stage``, one more step of that stage profiled after the run.
+    Returns (main's result, the steps, the profile or None)."""
+    recorder = BehaviorRecorder()
+    recorder.install()
+    try:
+        out = train_cli.main(argv)
+    finally:
+        recorder.uninstall()
+    profile = None
+    if profile_stage:
+        ms = float(np.median([r["ms"] for r in
+                              recorder.steps[profile_stage][1:]]))
+        profile = profile_stages(recorder, {profile_stage: ms})[
+            profile_stage]
+    recorder.last.clear()
+    return out, recorder.steps, profile
+
+
+def phase_behavior_rest(base):
+    """(a) -m infer on phase [10]'s run, (b) -f in a sibling project, (c)
+    the cVAE with training.bf16, (d) dataset: h36m_synthetic trained and
+    inferred; all at configs/behavior_net.yaml's widths, through main."""
+    f32 = RESULTS["behavior_train"]
+    path = os.path.join(base, "config.yaml")
+    seq_len = int(load_config(BEHAVIOR_CONFIG)["data"]["seq_length"][0])
+    out = {}
+    # (a)
+    summary, wall, ms, peak, launches = timed_inference(path, ["--debug"])
+    log(f"[12] the rest of the behavior experiment at full width "
+        f"(configs/behavior_net.yaml) through bdvs-train-torch's main")
+    log_inference("(a) -m infer --debug on [10]'s run (2 batches of 64 x 50 "
+                  "prior and flow rollouts, 64 cached sequences, 50 "
+                  "post-hoc iterations x 4 sources x 6 starts)", summary,
+                  wall, ms, peak, launches)
+    check_summary(summary, seq_len, "(a) -m infer")
+    check(launches == 0, f"-m infer launched the rollout kernel {launches} "
+          f"times; its rollouts are the f32 loop's")
+    run_dir = os.path.join(base, "behavior_net")
+    infer_lines = [r for r in metric_lines(run_dir)
+                   if any(k.startswith("infer/") for k in r)]
+    check(len(infer_lines) == 1, f"{len(infer_lines)} infer/ lines")
+    out["infer"] = dict(summary=summary, wall_s=wall, stage_ms=ms,
+                        peak_gib=peak / 2**30, rollout_launches=launches)
+    # (b): a sibling project without --debug, 1 epoch of 8 batches; [10]'s
+    # flow save (7.6 GB) and behavior.npz (2.5 GB) are no longer needed
+    debug_ckpt = os.path.join(run_dir, "ckpt", "debug")
+    shutil.rmtree(os.path.join(debug_ckpt, "flow_ckpt"))
+    os.remove(os.path.join(debug_ckpt, "behavior.npz"))
+    batch = int(behavior_config(base)["training"]["batch_size"])
+    cfg = deep_merge(behavior_config(base), {
+        "general": {"project_name": "sibling"}, "training": {"n_epochs": 1},
+        "data": {"n_samples": 8 * batch}})
+    t0 = time.perf_counter()
+    sib, steps, _ = run_recorded(["-c", write_config(base, "sibling.yaml",
+                                                     cfg),
+                                  "--device", "cuda", "-f"])
+    wall = time.perf_counter() - t0
+    n = {k: len(v) for k, v in steps.items()}
+    digest = module_digest(sib["modules"]["net"])
+    ckpt = os.path.join(run_dir, "ckpt", "sibling")
+    log(f"    (b) -f in the project 'sibling': {n} steps in {wall:.1f} s; "
+        f"its net's digest {digest:.6f} vs [10]'s {f32['net_digest']:.6f}; "
+        f"reg_ckpt saves {os.listdir(os.path.join(ckpt, 'reg_ckpt'))}, "
+        f"flow_ckpt saves {os.listdir(os.path.join(ckpt, 'flow_ckpt'))}")
+    check(n == {"cvae": 0, "flow": 8} and digest == f32["net_digest"]
+          and not os.listdir(os.path.join(ckpt, "reg_ckpt"))
+          and all(np.isfinite(v) for r in steps["flow"]
+                  for v in r.values()),
+          "-f did not train the flow alone over [10]'s cVAE")
+    out["flow_only"] = dict(steps=n, wall_s=wall,
+                            flow_step_ms_median=float(np.median(
+                                [r["ms"] for r in steps["flow"][1:]])))
+    del sib
+    shutil.rmtree(base, ignore_errors=True)
+    # (c)
+    base = tempfile.mkdtemp(prefix="chip_smoke_bf16_")
+    try:
+        cfg = deep_merge(behavior_config(base), {"training": {"bf16": True}})
+        bf, steps, prof = run_recorded(
+            ["-c", write_config(base, "c.yaml", cfg), "--device", "cuda",
+             "--debug"], profile_stage="cvae")
+        mods = bf["modules"]
+        check(len(steps["cvae"]) == BEHAVIOR_STEPS
+              and len(steps["flow"]) == BEHAVIOR_FLOW_STEPS
+              and all(np.isfinite(v) for r in steps["cvae"] + steps["flow"]
+                      for v in r.values())
+              and mods["net"].decoder.dtype == torch.bfloat16
+              and all(p.dtype == torch.float32 for m in mods.values()
+                      for p in m.parameters()),
+              "the bf16 run's steps or dtypes")
+        del bf, mods
+        ms_bf16 = float(np.median([r["ms"] for r in steps["cvae"][1:]]))
+        log(f"    (c) training.bf16: median cVAE step after the first "
+            f"{ms_bf16:.2f} ms, {batch * 1e3 / ms_bf16:.1f} sequences/s, "
+            f"beside [10]'s f32 {f32['cvae_step_ms_median']:.2f} ms, "
+            f"{f32['sequences_per_s']:.1f} sequences/s "
+            f"(x{f32['cvae_step_ms_median'] / ms_bf16:.3f}); last step "
+            + ", ".join(f"{k} {v:.4g}" for k, v in steps["cvae"][-1].items()
+                        if k in ("loss", "loss_recon", "kl_loss")))
+        out["bf16"] = dict(cvae_steps=steps["cvae"], profile=prof,
+                           cvae_step_ms_median=ms_bf16,
+                           sequences_per_s=batch * 1e3 / ms_bf16,
+                           f32_cvae_step_ms_median=f32["cvae_step_ms_median"])
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    # (d)
+    base = tempfile.mkdtemp(prefix="chip_smoke_h36m_")
+    try:
+        cfg = deep_merge(behavior_config(base),
+                         {"data": {"dataset": "h36m_synthetic"}})
+        path = write_config(base, "d.yaml", cfg)
+        t0 = time.perf_counter()
+        h36, steps, _ = run_recorded(["-c", path, "--device", "cuda",
+                                      "--debug"])
+        wall = time.perf_counter() - t0
+        n = {k: len(v) for k, v in steps.items()}
+        kps = h36["modules"]["net"].n_kps
+        # 2 train subjects x 3 actions x 120 frames a batch at a time
+        per_epoch = 2 * 3 * 120 // batch
+        check(n == {"cvae": 2 * per_epoch, "flow": per_epoch} and kps == 51
+              and all(np.isfinite(v) for r in steps["cvae"] + steps["flow"]
+                      for v in r.values()),
+              f"h36m_synthetic training: steps {n}, {kps} keypoints")
+        del h36
+        summary, iwall, ms, peak, launches = timed_inference(path,
+                                                             ["--debug"])
+        log(f"    (d) dataset: h36m_synthetic: trained {n} steps in "
+            f"{wall:.1f} s (51 keypoints, 4 action labels)")
+        log_inference("-m infer --debug on it", summary, iwall, ms, peak,
+                      launches)
+        check_summary(summary, seq_len, "(d) -m infer")
+        out["h36m_synthetic"] = dict(steps=n, train_wall_s=wall,
+                                     summary=summary, infer_wall_s=iwall,
+                                     stage_ms=ms, peak_gib=peak / 2**30)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    RESULTS["behavior_rest"] = out
+
+
+# -- 13. inference against the JAX package's golden ----------------------------
+def phase_infer_golden():
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_port_infer as TI
+
+    with np.load(INFER_GOLDEN) as data:
+        golden = unflatten_tree({k: data[k] for k in data.files})
+    trees, draws = TI.golden_inputs(golden)
+    with tempfile.TemporaryDirectory() as tmp:
+        summary = TI.port_run_inference(trees, tmp, draws, device=DEV)
+    worst, bad = TI.check_against_golden(summary, golden)
+    log(f"[13] golden -m infer at small width (f32, TF32 off): "
+        f"{len(golden['summary'])} summary values held, worst error / "
+        f"tolerance {worst:.3f}{' ' + str(bad) if bad else ''}")
+    RESULTS["golden_infer"] = dict(err_over_tol=worst, bad=bad,
+                                   summary=summary)
+    check(not bad, "golden -m infer out of tolerance")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch "
                                  "port on one NVIDIA GPU")
@@ -1743,8 +2036,14 @@ def main(argv=None):
     elu_launches = phase_train()
     phase_train_golden()
     rnb_launches = phase_org()
-    launches += phase_behavior()
-    phase_behavior_golden()
+    behavior_launches, behavior_base = phase_behavior()
+    launches += behavior_launches
+    try:
+        phase_behavior_golden()
+        phase_behavior_rest(behavior_base)
+    finally:
+        shutil.rmtree(behavior_base, ignore_errors=True)
+    phase_infer_golden()
     bound, bound_by = rollout_bound_ms(*ROLLOUT_SHAPES[0])
     source = "behavior_driven_video_synthesis_tpu_torch/csrc/"
     pallas = "behavior_driven_video_synthesis_tpu/ops/pallas/"

@@ -8,7 +8,12 @@ steps) writes ``metrics.jsonl`` (train/, eval/ and flow/ lines), its
 checkpoints and ``behavior.npz``/``.json``, which ``bdvs-generate-torch
 --behavior_params`` serves; ``-r`` after the run runs no step and leaves
 the state as it was, and ``-r`` after a lost epoch runs just that epoch
-and the flow stage.  What is not ported exits 2 or raises.
+and the flow stage.  A tiny run without ``--debug`` (its inference capped
+through ``metrics``) is evaluated with ``-m infer``, and ``-f`` in a
+sibling project trains the flow alone over its cVAE; a ``training.bf16``
+run, an ``h36m_synthetic`` run and a ``human3.6m`` run on a tiny
+``annot_export.h5`` train and infer through the CLI too.  What is not
+ported raises.
 """
 import io
 import json
@@ -219,27 +224,166 @@ def test_restart_after_a_lost_epoch_runs_the_rest(tmp_path, monkeypatch):
     assert sorted(os.listdir(ckpt / "reg_ckpt")) == ["step_4.pt", "step_8.pt"]
 
 
-@pytest.mark.parametrize("flags,message", [
-    (["-f"], "flow-only training, ROADMAP A6b"),
-    (["-m", "infer"], "-m infer: not ported yet")])
-def test_unported_options_exit(tmp_path, capsys, flags, message):
-    """cvbae's -r and -f: tests/test_torch_train_cli.py."""
-    with pytest.raises(SystemExit) as e:
-        main.main(["-c", _config(tmp_path), "--device", "cpu", *flags])
-    assert e.value.code == 2
-    assert message in capsys.readouterr().err
-    assert not (tmp_path / "runs").exists()
+# a run without --debug, whose inference caps its cache and post-hoc
+# iterations through the config (--debug would train the probes 50
+# iterations): 1 epoch of 4 cVAE steps, 5 flow epochs of 4 steps
+INFER = {"general": {"project_name": "tiny"},
+         "training": {"n_epochs": 1},
+         "metrics": {"max_cache": 4, "posthoc_iters": 2}}
+# the inference summary's keys at T=8 (start frames 0 and 7)
+SOURCES = ("prior", "cross", "self", "flow")
+SUMMARY_KEYS = (
+    {"recon_mse", "ADE_c", "FDE_c", "recon_mu", "recon_mu_std",
+     "distance_mu", "distance_mu_std", "flow_ks_p", "DE_t0", "DE_t7", "DE",
+     "loss_regressor_t0", "loss_regressor_t7", "loss_regressor_posthoc",
+     "CF_cross", "CF_logits_l2", "CF_logits_cos", "CF_action",
+     "CF_action_beta"}
+    | {f"{m}_{s}" for m in ("APD", "ASD", "FSD", "ADE", "FDE")
+       for s in ("prior", "flow")}
+    | {f"{p}_{s}{t}" for p in ("score", "acc") for s in SOURCES
+       for t in ("_t0", "_t7", "")})
+
+
+def _infer_lines(run_dir, project):
+    with open(run_dir / "log" / project / "metrics.jsonl") as f:
+        lines = [json.loads(line) for line in f]
+    return [r for r in lines if any(k.startswith("infer/") for k in r)]
+
+
+@pytest.fixture(scope="module")
+def tiny_run(tmp_path_factory, one_thread):
+    """A tiny run trained without --debug, then -m infer on it."""
+    tmp = tmp_path_factory.mktemp("behavior_infer")
+    path = _config(tmp, **INFER)
+    out = main.main(["-c", path, "--device", "cpu"])
+    summary = main.main(["-c", path, "--device", "cpu", "-m", "infer"])
+    return tmp, path, out, summary
+
+
+def test_infer_after_training_logs_an_infer_line(tiny_run):
+    """-m infer restores both stages and logs the JAX run's summary keys
+    under infer/ (their values are held against the JAX run in
+    tests/test_torch_behavior_infer.py)."""
+    tmp, _, out, summary = tiny_run
+    assert out["state"].step == 4 and out["flow_state"].step == 20
+    assert set(summary) == SUMMARY_KEYS and len(SUMMARY_KEYS) == 53
+    assert all(np.isfinite(v) for v in summary.values())
+    lines = _infer_lines(_run_dir(tmp), "tiny")
+    assert len(lines) == 1 and lines[0]["step"] == 0
+    assert {k: v for k, v in lines[0].items() if k != "step"} == {
+        f"infer/{k}": v for k, v in summary.items()}
+
+
+def test_infer_without_a_checkpoint_raises(tmp_path):
+    path = _config(tmp_path, **INFER)
+    with pytest.raises(FileNotFoundError, match="no behavior checkpoint"):
+        main.main(["-c", path, "--device", "cpu", "-m", "infer"])
+
+
+@pytest.mark.parametrize("how", ["-f", "only_flow"])
+def test_flow_only_in_a_sibling_project(tiny_run, monkeypatch, how):
+    """-f (or training.only_flow) in another project of the same
+    experiment finds the tiny run's reg_ckpt, runs no cVAE step and trains
+    the flow n_epochs (1) epochs over that net, which its behavior.npz
+    carries unchanged."""
+    tmp, path, out, _ = tiny_run
+    with open(path) as f:
+        cfg = yaml.safe_load(f)
+    cfg["general"]["project_name"] = f"sibling_{how.strip('-')}"
+    if how == "only_flow":
+        cfg["training"]["only_flow"] = True
+    sibling = tmp / f"{how.strip('-')}.yaml"
+    with open(sibling, "w") as f:
+        yaml.safe_dump(cfg, f)
+    counter = StepCounter(monkeypatch)
+    flow_out = main.main(["-c", str(sibling), "--device", "cpu"]
+                         + (["-f"] if how == "-f" else []))
+    assert counter.n == {"cvae": 0, "flow": 4}
+    assert flow_out["flow_state"].step == 4
+    ckpt = _run_dir(tmp) / "ckpt" / cfg["general"]["project_name"]
+    assert os.listdir(ckpt / "reg_ckpt") == []
+    assert os.listdir(ckpt / "flow_ckpt") == ["step_4.pt"]
+    for k, v in out["modules"]["net"].state_dict().items():
+        assert torch.equal(flow_out["modules"]["net"].state_dict()[k], v), k
+    tree = convert.load_flax_npz(flow_out["behavior_params"])
+    assert set(tree) == {"net", "flow"}
+    with open(_run_dir(tmp) / "config" / cfg["general"]["project_name"]
+              / "config.yaml") as f:
+        assert yaml.safe_load(f)["training"]["only_flow"] is True
+
+
+def test_flow_only_without_a_cvae_checkpoint_raises(tmp_path):
+    path = _config(tmp_path, **INFER)
+    with pytest.raises(FileNotFoundError, match="no cVAE checkpoint"):
+        main.main(["-c", path, "--device", "cpu", "-f"])
+
+
+def test_bf16_run_trains_and_infers_in_bf16_with_float32_parameters(
+        tmp_path):
+    """training.bf16: every module computes in bf16, the parameters and
+    Adam states stay float32, the metrics are finite, and -m infer runs
+    on the bf16 modules (the step is held against the JAX bf16 step in
+    tests/test_torch_behavior_infer.py)."""
+    path = _config(tmp_path, training={"bf16": True, "n_epochs": 1},
+                   **{k: v for k, v in INFER.items() if k != "training"})
+    out = main.main(["-c", path, "--device", "cpu"])
+    assert out["state"].step == 4 and out["flow_state"].step == 20
+    for name, m in out["modules"].items():
+        assert (m.decoder if name == "net" else m).dtype == torch.bfloat16
+        assert all(p.dtype == torch.float32 for p in m.parameters()), name
+    for opt in (o for k, o in out["state"].optimizers.items()
+                if k != "net_lr"):
+        for st in opt.state.values():
+            assert st["exp_avg"].dtype == torch.float32
+    summary = main.main(["-c", path, "--device", "cpu", "-m", "infer"])
+    assert set(summary) == SUMMARY_KEYS
+    with open(_run_dir(tmp_path) / "log" / "tiny" / "metrics.jsonl") as f:
+        lines = [json.loads(line) for line in f]
+    assert lines and all(np.isfinite(v) for r in lines for v in r.values())
+
+
+@pytest.mark.parametrize("dataset", ["h36m_synthetic", "human3.6m"])
+def test_human36m_trains_and_infers(tmp_path, dataset):
+    """dataset: h36m_synthetic (2 train subjects x 3 actions x 24 frames)
+    and human3.6m (a tiny annot_export.h5: 1 train subject x 2 actions x
+    30 frames) through the CLI: 51 keypoints from the data, the heads
+    sized by the action ids' span, the sequence sampler and loader; then
+    -m infer (the data path is held against the JAX package in
+    tests/test_torch_sequence_data.py)."""
+    data = {"dataset": dataset, "n_data_workers": 2}
+    if dataset == "human3.6m":
+        pytest.importorskip("h5py")
+        from torch_port_h36m import write_annot_export
+        write_annot_export(str(tmp_path))
+        data["datapath"] = str(tmp_path)
+        steps, n_labels = 60 // 4, 3          # actions 2 and 4
+    else:
+        data["n_frames_per_video"] = 24
+        steps, n_labels = 2 * 3 * 24 // 4, 4  # actions 2, 4 and 5
+    path = _config(tmp_path, data=data, **INFER)
+    out = main.main(["-c", path, "--device", "cpu"])
+    assert out["modules"]["net"].n_kps == 51
+    assert out["modules"]["cls_beta"].fc1.out_features == n_labels
+    assert out["state"].step == steps and out["flow_state"].step == 5 * steps
+    summary = main.main(["-c", path, "--device", "cpu", "-m", "infer"])
+    assert set(summary) == SUMMARY_KEYS
+    assert all(np.isfinite(v) for v in summary.values())
+    assert len(_infer_lines(_run_dir(tmp_path), "tiny")) == 1
 
 
 @pytest.mark.parametrize("sections,error,match", [
-    ({"training": {"bf16": True}}, NotImplementedError, "A6b"),
-    ({"training": {"only_flow": True}}, NotImplementedError, "A6b"),
     ({"training": {"fsdp": True}}, NotImplementedError, "A14"),
-    ({"general": {"visualization": True}}, NotImplementedError, "A6b"),
-    ({"data": {"dataset": "human3.6m"}}, ValueError, "A6b")])
+    ({"general": {"visualization": True}}, NotImplementedError, "A12")])
 def test_unported_config_raises(tmp_path, sections, error, match):
     path = _config(tmp_path, **sections)
     with pytest.raises(error, match=match):
+        main.main(["-c", path, "--device", "cpu", "--debug"])
+
+
+def test_missing_human36m_dataset_raises(tmp_path):
+    path = _config(tmp_path, data={"dataset": "human3.6m",
+                                   "datapath": str(tmp_path / "none")})
+    with pytest.raises(FileNotFoundError, match="annot_export.h5"):
         main.main(["-c", path, "--device", "cpu", "--debug"])
 
 

@@ -67,10 +67,15 @@ def test_sequence_batches_are_the_jax_experiments(mode, debug):
 
 
 def test_other_datasets_name_the_roadmap_item():
+    """A dataset name neither factory knows raises the JAX factory's
+    ValueError (the Human3.6M names are ported: tests/
+    test_torch_sequence_data.py)."""
     cfg = _config()
-    cfg["data"]["dataset"] = "h36m_synthetic"
-    with pytest.raises(ValueError, match="A6b"):
-        data_factory.build_sequence_data(cfg)
+    cfg["data"]["dataset"] = "kinetics"
+    for factory, c in ((data_factory, cfg), (jax_factory, Config(cfg))):
+        with pytest.raises(ValueError,
+                           match="unsupported sequence dataset: kinetics"):
+            factory.build_sequence_data(c)
 
 
 @pytest.mark.parametrize("action,offset", [
