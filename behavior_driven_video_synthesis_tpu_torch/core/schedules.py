@@ -1,10 +1,10 @@
 """Schedule controllers of the training steps.
 
 Counterpart of ``behavior_driven_video_synthesis_tpu/core/schedules.py:
-27-68``: the clipped linear ramp ``linear_var``, the information-bottleneck
-controller ``update_gamma``, the ``imax_scaling`` target schedule and the
-behavior net's ``multistep_lr``.  Each works on Python numbers; all but
-``multistep_lr`` also on tensors.
+27-88``: the clipped linear ramp ``linear_var``, the information-bottleneck
+controller ``update_gamma``, the ``imax_scaling`` target schedule, the
+behavior net's ``multistep_lr`` and the original VUNet's ``kl_ramp``.
+Each works on Python numbers; all but ``multistep_lr`` also on tensors.
 """
 from __future__ import annotations
 
@@ -66,3 +66,13 @@ def multistep_lr(lr_init: float, n_steps: int, tau: Sequence[float],
                 v = v * scale
         return v
     return schedule
+
+
+def kl_ramp(step, total_steps, start_frac=0.5, end_frac=0.75,
+            kl_init=1e-6, kl_max=1.0):
+    """The original VUNet's KL weight: linear from ``kl_init`` to
+    ``kl_max`` between int(total/2) and int(3 total/4), clipped to
+    [kl_init, 1]."""
+    return linear_var(step, int(start_frac * total_steps),
+                      int(end_frac * total_steps), kl_init, kl_max,
+                      kl_init, 1.0)

@@ -18,9 +18,9 @@ parallel numpy arrays (``datadict``) with per-key fetchers in
     its nearest same-action window under pose encodings.
 
 The image, stickman and part fetchers (JAX ``:310-452``) raise
-``NotImplementedError``: the image fetchers come with the org-VUNet
-training's part stacks (ROADMAP A10a), the stickman and synthesis-weight
-fetchers with the figures (A12).
+``NotImplementedError``: the image fetchers come with the real image
+datasets (ROADMAP A10c), the stickman and synthesis-weight fetchers with
+the figures (A12).
 """
 from __future__ import annotations
 
@@ -87,9 +87,9 @@ class BaseDataset:
             "stickman": _unported("stickman", "A12"),
             "paired_stickman": _unported("stickman", "A12"),
             "synth_weights": _unported("synthesis-weight", "A12"),
-            "pose_img": _unported("image", "A10a"),
-            "app_img": _unported("image", "A10a"),
-            "pose_img_inplane": _unported("in-plane part", "A10a"),
+            "pose_img": _unported("image", "A10c"),
+            "app_img": _unported("image", "A10c"),
+            "pose_img_inplane": _unported("in-plane part", "A10c"),
         }
         self.reg_steps = int(kwargs.get("reg_steps", 5))
 
@@ -211,7 +211,7 @@ class BaseDataset:
     def __getitem__(self, idx) -> Dict[str, np.ndarray]:
         if self.train_reg or "reg_imgs" in self.datakeys:
             raise NotImplementedError("the regressor's probe images are not "
-                                      "ported yet (ROADMAP A10a)")
+                                      "ported yet (ROADMAP A10c)")
         ids = self._sample_valid_seq_ids(idx)
         return {key: self._output_dict[key](ids) for key in self.datakeys}
 

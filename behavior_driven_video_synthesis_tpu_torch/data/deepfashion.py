@@ -1,10 +1,13 @@
 """The DeepFashion 18-keypoint (OpenPose) joint model.
 
 Counterpart of ``deepfashion_joint_model`` in
-``behavior_driven_video_synthesis_tpu/data/deepfashion.py``, without the
-part warps (``norm_T``), which this package does not port yet.
+``behavior_driven_video_synthesis_tpu/data/deepfashion.py``, with its part
+warps (``norm_T``: the body, the head and eight limb segments).
 """
+from functools import partial
+
 from ..geometry.stickman import JointModel
+from .parts import t2p, t3p, t4p
 
 
 def deepfashion_joint_model() -> JointModel:
@@ -21,4 +24,9 @@ def deepfashion_joint_model() -> JointModel:
                      "lshoulder", "lelbow", "lwrist", "rhip", "rknee",
                      "rankle", "lhip", "lknee", "lfoot", "reye", "leye",
                      "rear", "lear"],
+        norm_T=[t4p, t3p,
+                partial(t2p, ids=[2, 3]), partial(t2p, ids=[3, 4]),
+                partial(t2p, ids=[5, 6]), partial(t2p, ids=[6, 7]),
+                partial(t2p, ids=[8, 9]), partial(t2p, ids=[9, 10]),
+                partial(t2p, ids=[11, 12]), partial(t2p, ids=[12, 13])],
     )

@@ -21,12 +21,14 @@ geometry stack.
   * the keypoint fetcher, with the reprojection to normalized image
     coordinates for the regressor; the intrinsics and extrinsics fetchers.
 
-The joint models carry no ``norm_T`` part warps (the in-plane part stacks
-are ROADMAP A10a), and the stickman-from-3D fetcher is A12's.
+The joint models carry the JAX package's ``norm_T`` part warps; the
+Human3.6M images that they would warp are ROADMAP A10c, and the
+stickman-from-3D fetcher is A12's.
 """
 from __future__ import annotations
 
 from copy import deepcopy
+from functools import partial
 from os import path
 from typing import Dict, List, Optional
 
@@ -36,6 +38,7 @@ from ..geometry.normalization import (NormStats, normalization_stats,
                                       unnormalize)
 from ..geometry.stickman import JointModel
 from .base import BaseDataset, _unported
+from .parts import t2p, t3p, t4p, t5p
 
 ACTION_ID_TO_ACTION = {
     2: "Directions", 3: "Discussion", 4: "Eating", 5: "Greeting",
@@ -84,6 +87,11 @@ def small_joint_model() -> JointModel:
                      "r_shoulder", "r_elbow", "r_hand"],
         kps_to_change=[1, 2, 3, 6, 7, 8, 15, 17, 18, 22, 25, 26, 30],
         kps_to_change_rel=list(range(13)),
+        norm_T=[t3p, t4p,
+                partial(t2p, ids=[25, 26]), partial(t2p, ids=[26, 30]),
+                partial(t2p, ids=[17, 18]), partial(t2p, ids=[18, 22]),
+                partial(t2p, ids=[1, 2]), partial(t2p, ids=[2, 3]),
+                partial(t2p, ids=[6, 7]), partial(t2p, ids=[7, 8])],
     )
 
 
@@ -112,6 +120,11 @@ def detailed_joint_model(world_coords: bool) -> JointModel:
                      "l_foot", "pelvis", "thorax", "neck", "nose", "head",
                      "l_shoulder", "l_elbow", "l_wirst", "r_shoulder",
                      "r_elbow", "r_wrist"],
+        norm_T=[t3p, t5p,
+                partial(t2p, ids=[25, 26]), partial(t2p, ids=[26, 30]),
+                partial(t2p, ids=[17, 18]), partial(t2p, ids=[18, 22]),
+                partial(t2p, ids=[1, 2]), partial(t2p, ids=[2, 3]),
+                partial(t2p, ids=[6, 7]), partial(t2p, ids=[7, 8])],
     )
 
 

@@ -13,6 +13,11 @@ The JAX dataset draws with OpenCV on the host.  This one draws with the
 package's own raster (``geometry/stickman.py``), so its pixels differ from
 the JAX dataset's, and it renders every frame once, in bulk, on ``device``:
 a batch is then a gather.  Images are NHWC float32 in [-1, 1].
+
+With ``inplane_normalize`` the appearance ``app_img`` is the 30-channel
+part stack (``data/parts.py``) of the ``map_ids`` frame's uint8 render, at
+``spatial_size // 2**box_factor``: the homographies are solved on the host
+once, and every frame's stack is warped in one pass on the device.
 """
 from __future__ import annotations
 
@@ -24,18 +29,18 @@ import torch
 from ..geometry.stickman import (lines_coverage, polygon_mask,
                                  render_stickman)
 from .deepfashion import deepfashion_joint_model
+from .parts import part_transforms, warp_parts
 
 
 class SyntheticImageDataset:
     def __init__(self, n_persons: int = 8, frames_per_person: int = 16,
                  spatial_size: int = 64, seed: int = 0,
                  with_reg: bool = False, reg_steps: int = 2,
-                 inplane_normalize: bool = False, device=None):
-        if inplane_normalize:
-            raise NotImplementedError("the in-plane part stacks "
-                                      "(inplane_normalize) are not ported "
-                                      "yet")
+                 inplane_normalize: bool = False, box_factor: int = 2,
+                 device=None):
         self.spatial_size = spatial_size
+        self.inplane_normalize = inplane_normalize
+        self.box_factor = box_factor
         self.with_reg = with_reg
         self.reg_steps = reg_steps
         self.device = torch.device(device or "cpu")
@@ -88,10 +93,22 @@ class SyntheticImageDataset:
         poly = polygon_mask(px, py, verts, (verts >= 0).all(-1))
         photos = torch.where(poly[..., None], pal[:, None, None, 3], photos)
         sticks = render_stickman(kps, jm, S, thickness=float(S // 24))
-        self.photos = photos / 127.5 - 1.0
+        self.apps = self.photos = photos / 127.5 - 1.0
+        if self.inplane_normalize:
+            stacks = self.part_stacks(photos.round().to(torch.uint8))
+            self.apps = stacks / 127.5 - 1.0
         self.stickmen = sticks / 127.5 - 1.0
         self.keypoints = torch.as_tensor(self.norm_keypoints,
                                          dtype=torch.float32, device=dev)
+
+    def part_stacks(self, renders: torch.Tensor) -> torch.Tensor:
+        """Every frame's part stack (n, S', S', 30) uint8 from its uint8
+        render (n, S, S, 3) and keypoints."""
+        S = self.spatial_size
+        part = S // 2 ** self.box_factor
+        mats, valid = part_transforms(self.norm_keypoints * S,
+                                      self.joint_model, part, S)
+        return warp_parts(renders, mats, valid, part)
 
     def get_batch(self, idx: np.ndarray) -> Dict[str, torch.Tensor]:
         """The items ``idx`` stacked on the device; the regressor picks draw
@@ -102,8 +119,8 @@ class SyntheticImageDataset:
         batch = {
             "pose_img": self.photos[ix],
             "stickman": self.stickmen[ix],
-            "app_img": self.photos[torch.as_tensor(self.map_ids[idx],
-                                                   device=dev)],
+            "app_img": self.apps[torch.as_tensor(self.map_ids[idx],
+                                                 device=dev)],
             "sample_ids": ix,
             "p_ids": torch.as_tensor(self.p_ids[idx], device=dev),
         }

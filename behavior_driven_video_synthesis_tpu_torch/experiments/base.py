@@ -32,17 +32,21 @@ class Experiment:
         self._window.append(metrics)
 
     def log(self, step: int, prefix: str = "train/",
-            extra: Optional[Dict[str, float]] = None) -> Dict[str, float]:
-        """Average the collected metrics, add ``extra``, print them and
+            extra: Optional[Dict[str, float]] = None,
+            collected: bool = True) -> Dict[str, float]:
+        """Average the collected metrics (not with ``collected=False``,
+        which leaves them for a later line), add ``extra``, print them and
         append them to the metric log; returns the averages."""
-        if not self._window and not extra:
+        window = self._window if collected else []
+        if not window and not extra:
             return {}
-        keys = self._window[0].keys() if self._window else ()
+        keys = window[0].keys() if window else ()
         avg = {f"{prefix}{k}": float(torch.stack(
-            [m[k].float() for m in self._window]).mean()) for k in keys}
+            [m[k].float() for m in window]).mean()) for k in keys}
         avg.update({f"{prefix}{k}": float(v)
                     for k, v in (extra or {}).items()})
-        self._window = []
+        if collected:
+            self._window = []
         with open(os.path.join(self.dirs["log"], "metrics.jsonl"), "a") as f:
             f.write(json.dumps({"step": step, **avg}) + "\n")
         print(f"step {step}: " + ", ".join(

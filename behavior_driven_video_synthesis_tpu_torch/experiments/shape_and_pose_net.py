@@ -1,41 +1,78 @@
-"""cvbae experiment driver: VUNet-alter with a KL-to-prior bottleneck.
+"""The VUNet experiments: cvbae (``ShapePoseExperiment``, VUNet-alter with a
+KL-to-prior bottleneck) and the original VUNet (``VunetExperiment``).
 
-Counterpart of ``ShapePoseExperiment.run_training``
-(``behavior_driven_video_synthesis_tpu/experiments/shape_and_pose_net.py:
-158-236``): perceptual likelihood + adaptive-gamma KL + latent pose
-regressor, on the synthetic image dataset.  Not ported yet: the
-in-training SSIM / IS evaluation and image grids (ROADMAP A10, A12), real
-datasets, and resuming from a checkpoint.
+Counterpart of ``behavior_driven_video_synthesis_tpu/experiments/
+shape_and_pose_net.py`` (``run_training`` :158-236, ``_log_image_grids``
+:243-268, ``_batch_keypoints`` :270-282, ``_eval_ssim`` :284-418,
+``run_inference`` :420-442, ``_posthoc_latent_regressor`` :444-524,
+``VunetExperiment`` :527-537) on one device, on the synthetic image
+dataset (with ``data.inplane_normalize`` the appearance is the 30-channel
+part stack, and the VUNet's appearance encoder takes 30 channels):
 
-The synthesis model is written as ``<ckpt dir>/synth.npz`` (flax trees
-``vunet/...`` and ``regressor/...``) with ``synth.json`` (the run's
-``architecture``, ``data`` and ``general`` config) every ``ckpt_steps``
-steps and at the end: the files ``bdvs-generate-torch --synth_params``
-reads.
+  training: the cvbae step (perceptual likelihood, adaptive-gamma KL,
+            latent pose regressor) or the org step (perceptual likelihood,
+            ramped KL to the autoregressive prior), ``end_iteration``
+            steps (8 at most with ``--debug``); image grids every
+            ``logging.log_steps``; SSIM on ``metrics.ssim_train_samples``
+            test images every ``metrics.n_it_metrics``, recorded in
+            ``<ckpt dir>/metric_ckpts.json``; the train state saved every
+            ``logging.ckpt_steps`` and at the end;
+  inference (``-m infer``): the newest save restored; SSIM over up to
+            ``metrics.max_n_samples`` test images; with
+            ``metrics.posthoc_regressor`` (the default) a fresh pose
+            regressor trained on the frozen posterior means of the test
+            images (Adam 1e-3, 20 epochs, 2 with ``--debug``); the summary
+            logged under ``infer/``.
+
+The train state (the VUNet, the regressor, both optimizers and the lr
+schedule, gamma, the step and the noise and dropout generators) is saved
+in ``<ckpt dir>/reg_ckpt`` (``core/checkpoint.py``) and restored whenever
+a save exists, so the lr decay and the KL ramp go on from its step and a
+finished run runs no step.  The synthesis model is also written as
+``<ckpt dir>/synth.npz`` (flax trees ``vunet/...`` and, with a regressor,
+``regressor/...``) with ``synth.json`` (the run's ``architecture``,
+``data`` and ``general`` config): the files ``bdvs-generate-torch
+--synth_params`` reads.  Test images come from the dataset's seed 1, with
+epochs numbered from 1001, as in the JAX driver.
+
+Not ported: the real image datasets (ROADMAP A10c), IS and FID
+(``metrics.compute_is``, ``compute_fid``; A10b), and the GAN branch
+(``training.use_gan``; A11).  With in-plane part stacks the JAX post-hoc
+regressor encodes the 3-channel pose image with the 30-channel appearance
+encoder and fails (ROADMAP C6); this driver refuses that input up front.
 """
 from __future__ import annotations
 
 import json
 import os
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
+from ..core.checkpoint import CheckpointManager
 from ..data.synthetic_images import SyntheticImageDataset
+from ..metrics.ssim import ssim
 from ..models import convert
 from ..models.init import init_like_jax_
 from ..models.perceptual import perceptual_from_config
 from ..models.vunet import VunetRegressor, latent_widths, vunet_from_config
 from ..train.state import make_vunet_optimizers
-from ..train.vunet_exp import VunetTrainState, make_cvbae_train_step
+from ..train.vunet_exp import (VunetTrainState, make_cvbae_train_step,
+                               make_org_vunet_train_step)
+from ..viz.videos import frames_to_uint8, make_img_grid, write_image
 from .base import Experiment
+
+N_GRID_IMAGES = 4
 
 
 class _Epochs:
     """Batches of the dataset in a new order each epoch (the JAX driver's
-    ``_Adapter``: epoch seeds 2, 3, ...)."""
+    ``_Adapter``: epoch seeds 2, 3, ... for training, 1001, 1002, ... for
+    the test split)."""
 
-    def __init__(self, ds, batch_size):
-        self.ds, self.batch_size, self._epoch = ds, batch_size, 1
+    def __init__(self, ds, batch_size, first_epoch: int):
+        self.ds, self.batch_size, self._epoch = ds, batch_size, first_epoch
 
     def __len__(self):
         return len(self.ds) // self.batch_size
@@ -48,47 +85,173 @@ class _Epochs:
 class ShapePoseExperiment(Experiment):
     variant = "alter"
 
-    def _build_data(self):
+    def __init__(self, config, dirs, device):
+        super().__init__(config, dirs, device)
+        mcfg = config.get("metrics", {})
+        unported = [k for k in ("compute_is", "compute_fid")
+                    if mcfg.get(k, False)]
+        if unported:
+            raise NotImplementedError(
+                f"metrics.{', metrics.'.join(unported)}: IS and FID are not "
+                "ported yet (ROADMAP A10b)")
+        self.seed = int(config.get("general", {}).get("seed", 42))
+        self.inplane = bool(config.get("data", {}).get("inplane_normalize",
+                                                       False))
+        self._datasets = {}
+
+    # -- construction -------------------------------------------------------
+    def _build_data(self, mode: str):
+        """(batches, dataset) of the train (seed 0) or test (seed 1)
+        split; each split is rendered once."""
         dcfg = self.config.get("data", {})
         name = str(dcfg.get("dataset", "synthetic_images")).lower()
         if name not in ("synthetic_images", "synthetic"):
-            raise NotImplementedError(f"dataset {name!r} is not ported yet "
-                                      "(only synthetic_images is)")
-        ds = SyntheticImageDataset(
-            n_persons=int(dcfg.get("n_persons", 8)),
-            frames_per_person=int(dcfg.get("frames_per_person", 16)),
-            spatial_size=int(dcfg.get("spatial_size", 64)), seed=0,
-            with_reg=bool(self.config["training"].get("train_regressor",
-                                                      False)),
-            inplane_normalize=bool(dcfg.get("inplane_normalize", False)),
-            device=self.device)
-        return _Epochs(ds, int(self.config["training"]["batch_size"]))
+            raise NotImplementedError(
+                f"dataset {name!r} is not ported yet (only synthetic_images "
+                "is; the image datasets are ROADMAP A10c)")
+        if mode not in self._datasets:
+            self._datasets[mode] = SyntheticImageDataset(
+                n_persons=int(dcfg.get("n_persons", 8)),
+                frames_per_person=int(dcfg.get("frames_per_person", 16)),
+                spatial_size=int(dcfg.get("spatial_size", 64)),
+                seed=0 if mode == "train" else 1,
+                with_reg=bool(self.config["training"].get(
+                    "train_regressor", False)),
+                inplane_normalize=self.inplane,
+                box_factor=int(dcfg.get("box_factor", 2)),
+                device=self.device)
+        ds = self._datasets[mode]
+        return _Epochs(ds, int(self.config["training"]["batch_size"]),
+                       1 if mode == "train" else 1000), ds
 
-    def _build_models(self, spatial_size: int, generator):
+    def _latent_widths(self) -> List[int]:
+        arch, data = self.config.get("architecture", {}), self.config.get(
+            "data", {})
+        return latent_widths(int(data.get("spatial_size", 64)),
+                             int(data.get("bottleneck_factor", 2)),
+                             int(arch.get("n_scales", 0)),
+                             int(arch.get("n_latent_scales", 2)))
+
+    def _new_regressor(self, n_out: int, generator) -> VunetRegressor:
         arch = self.config.get("architecture", {})
-        vunet = vunet_from_config(self.config, self.variant, n_channels_x=3,
-                                  spatial_size=spatial_size,
+        regressor = VunetRegressor(
+            n_out=n_out, latent_widths=self._latent_widths(),
+            nf_max=int(arch.get("nf_max", 128)),
+            linear_width_factor=int(arch.get("linear_width_factor", 1)),
+            n_linear=int(arch.get("n_linear", 2)), device=self.device)
+        return init_like_jax_(regressor, generator)
+
+    def _build_models(self, generator):
+        vunet = vunet_from_config(self.config, self.variant,
+                                  n_channels_x=30 if self.inplane else 3,
+                                  spatial_size=int(self.config.get(
+                                      "data", {}).get("spatial_size", 64)),
                                   device=self.device)
         init_like_jax_(vunet, generator)
         regressor = None
         if bool(self.config["training"].get("train_regressor", False)):
-            regressor = VunetRegressor(
-                n_out=36,
-                latent_widths=latent_widths(
-                    spatial_size,
-                    int(self.config.get("data", {}).get("bottleneck_factor",
-                                                        2)),
-                    int(arch.get("n_scales", 0)),
-                    int(arch.get("n_latent_scales", 2))),
-                nf_max=int(arch.get("nf_max", 128)),
-                linear_width_factor=int(arch.get("linear_width_factor", 1)),
-                n_linear=int(arch.get("n_linear", 2)), device=self.device)
-            init_like_jax_(regressor, generator)
+            regressor = self._new_regressor(36, generator)
         return vunet, regressor
+
+    def _make_step(self, vunet, regressor, perceptual, optimizers):
+        return make_cvbae_train_step(vunet, regressor, perceptual,
+                                     optimizers, self.config)
+
+    def _eps(self, batch_size: int):
+        """Posterior noise of an evaluation's encoding of ``batch_size``
+        images, one tensor per latent scale; None draws it from the run's
+        generator (tests hand in shared noise here)."""
+        return None
+
+    # -- training -----------------------------------------------------------
+    def run_training(self):
+        """Train for ``end_iteration`` steps (8 at most with --debug),
+        going on from the newest save.  Returns the models, the train
+        state and the last synth.npz."""
+        cfg = self.config
+        tr = cfg["training"]
+        gens = [torch.Generator(device=self.device).manual_seed(
+            self.seed + i) for i in range(3)]
+        self.generator = gens[1]
+        loader, _ = self._build_data("train")
+        if len(loader) == 0:
+            raise ValueError("the dataset holds fewer items than one batch")
+        vunet, regressor = self._build_models(gens[0])
+        vunet.train()
+        perceptual = perceptual_from_config(cfg, self.device, gens[0])
+        optimizers = make_vunet_optimizers(vunet, regressor, tr)
+        step_fn = self._make_step(vunet, regressor, perceptual, optimizers)
+        state = VunetTrainState(gamma=torch.zeros((), device=self.device))
+        modules = {"vunet": vunet, "regressor": regressor}
+        mgr, _ = self.restore("reg_ckpt", lambda p: self._load(
+            p, modules, optimizers, state, gens[1:]))
+
+        end_iteration = int(tr.get("end_iteration", 1000))
+        if self.debug:
+            end_iteration = min(end_iteration, 8)
+        logging = cfg.get("logging", {})
+        ckpt_steps = int(logging.get("ckpt_steps", 500))
+        log_steps = int(logging.get("log_steps", 300))
+        mcfg = cfg.get("metrics", {})
+        metric_steps = int(mcfg.get("n_it_metrics", 1000))
+        ssim_samples = int(mcfg.get("ssim_train_samples", 256))
+        path = None
+
+        def save():
+            mgr.save(state.step, self._payload(modules, optimizers, state,
+                                               gens[1:]))
+            return self.save_synth(vunet, regressor)
+
+        while state.step < end_iteration:
+            for batch in loader:
+                self.collect(step_fn(state, batch, generator=gens[1],
+                                     dropout_generator=gens[2]))
+                it = state.step
+                if it % 50 == 0 or it == end_iteration:
+                    self.log(it)
+                if it % log_steps == 0:
+                    self._log_image_grids(vunet, batch, it)
+                if it % ckpt_steps == 0 or it == end_iteration:
+                    path = save()
+                if it % metric_steps == 0:
+                    self._record_metric_ckpt(it, self._eval_ssim(
+                        vunet, it, ssim_samples))
+                if it >= end_iteration:
+                    break
+        if mgr.latest_step() != state.step or path is None:
+            path = save()
+        return {"vunet": vunet, "regressor": regressor, "state": state,
+                "synth_params": path,
+                "n_params": sum(p.numel() for p in vunet.parameters())}
+
+    def _payload(self, modules, optimizers, state, gens) -> dict:
+        return {
+            "modules": {k: m.state_dict() for k, m in modules.items()
+                        if m is not None},
+            "optimizers": {k: o.state_dict() for k, o in optimizers.items()
+                           if o is not None},
+            "step": state.step, "gamma": state.gamma,
+            "generators": [g.get_state() for g in gens]}
+
+    @staticmethod
+    def _load(payload, modules, optimizers=None, state=None, gens=()):
+        for k, m in modules.items():
+            if m is not None:
+                m.load_state_dict(payload["modules"][k])
+        for k, o in (optimizers or {}).items():
+            if o is not None:
+                o.load_state_dict(payload["optimizers"][k])
+        if state is not None:
+            state.step = int(payload["step"])
+            state.gamma = payload["gamma"].to(state.gamma.device)
+        for g, s in zip(gens, payload["generators"]):
+            g.set_state(s)
 
     def save_synth(self, vunet, regressor) -> str:
         """Write synth.npz + synth.json; returns the .npz path."""
-        tree = {"vunet": convert.vunet_alter_to_flax(vunet.state_dict())}
+        to_flax = (convert.vunet_org_to_flax if self.variant == "org"
+                   else convert.vunet_alter_to_flax)
+        tree = {"vunet": to_flax(vunet.state_dict())}
         if regressor is not None:
             tree["regressor"] = convert.vunet_regressor_to_flax(
                 regressor.state_dict())
@@ -102,42 +265,158 @@ class ShapePoseExperiment(Experiment):
                       default=list)
         return path
 
-    def run_training(self):
-        """Train for ``end_iteration`` steps (8 at most with --debug).
-        Returns the models, the train state and the last synth.npz."""
-        cfg = self.config
-        tr = cfg["training"]
-        seed = int(cfg.get("general", {}).get("seed", 42))
-        gens = [torch.Generator(device=self.device).manual_seed(seed + i)
-                for i in range(3)]
-        loader = self._build_data()
-        if len(loader) == 0:
-            raise ValueError("the dataset holds fewer items than one batch")
-        spatial = int(cfg.get("data", {}).get("spatial_size", 64))
-        vunet, regressor = self._build_models(spatial, gens[0])
-        vunet.train()
-        perceptual = perceptual_from_config(cfg)
-        optimizers = make_vunet_optimizers(vunet, regressor, tr)
-        step_fn = make_cvbae_train_step(vunet, regressor, perceptual,
-                                        optimizers, cfg)
-        state = VunetTrainState(gamma=torch.zeros((), device=self.device))
+    def _record_metric_ckpt(self, step: int, ssim_val: float) -> None:
+        """The step's SSIM in ``<ckpt dir>/metric_ckpts.json`` (the JAX
+        driver's sidecar beside its integer-stepped saves)."""
+        path = os.path.join(self.dirs["ckpt"], "metric_ckpts.json")
+        records = {}
+        if os.path.exists(path):
+            with open(path) as f:
+                records = json.load(f)
+        records[str(step)] = {"ssim": ssim_val}
+        with open(path, "w") as f:
+            json.dump(records, f, indent=1)
 
-        end_iteration = int(tr.get("end_iteration", 1000))
-        if self.debug:
-            end_iteration = min(end_iteration, 8)
-        ckpt_steps = int(cfg.get("logging", {}).get("ckpt_steps", 500))
-        path = None
-        while state.step < end_iteration:
+    @torch.no_grad()
+    def _log_image_grids(self, vunet, batch, step: int,
+                         n: int = N_GRID_IMAGES) -> str:
+        """Target, stickman, transfer and prior sample of the first ``n``
+        items side by side, one item a row, under the generated dir."""
+        app, stick = batch["app_img"][:n], batch["stickman"][:n]
+        target = batch["pose_img"][:n]
+        recon = vunet.transfer(app, stick, self._eps(len(app)),
+                               self.generator)
+        prior = vunet.test_forward(stick, generator=self.generator)
+        rows = torch.cat([target[..., :3].float(), stick.float(),
+                          recon.float(), prior.float()], dim=2)
+        grid = make_img_grid(frames_to_uint8(rows.cpu().numpy()), n_cols=1)
+        return write_image(grid, os.path.join(self.dirs["generated"],
+                                              f"grid_{step:07d}.png"))
+
+    # -- evaluation ---------------------------------------------------------
+    @staticmethod
+    def _batch_keypoints(batch, ds) -> torch.Tensor:
+        """Normalized 2D keypoints of a batch: its own, or the dataset's
+        at its ``sample_ids``."""
+        if "keypoints" in batch:
+            return batch["keypoints"].float()
+        return ds.keypoints[batch["sample_ids"]]
+
+    @torch.no_grad()
+    def _eval_ssim(self, vunet, step: int,
+                   max_samples: Optional[int] = None) -> float:
+        """Mean SSIM of transfers (the posterior means of the appearance,
+        the target's stickman) against the targets on the test split,
+        clipped to [0, 1]; over at most ``max_samples`` images
+        (``metrics.max_n_samples``, 8000, if None).  Logged under
+        ``eval/`` with the count."""
+        if max_samples is None:
+            max_samples = int(self.config.get("metrics", {}).get(
+                "max_n_samples", 8000))
+        loader, _ = self._build_data("test")
+        vals, n_seen = [], 0
+        for batch in loader:
+            target = batch["pose_img"]
+            out = vunet.transfer(batch["app_img"], batch["stickman"],
+                                 self._eps(len(target)), self.generator)
+            vals.append(ssim(torch.clamp((out.float() + 1) / 2, 0, 1),
+                             (target + 1) / 2))
+            n_seen += int(target.shape[0])
+            if n_seen >= max_samples:
+                break
+        val = float(torch.cat(vals).mean())
+        self.log(step, prefix="eval/", extra={"ssim": val, "ssim_n": n_seen},
+                 collected=False)
+        return val
+
+    def run_inference(self) -> Dict[str, float]:
+        """SSIM and the post-hoc latent regressor on the newest save;
+        returns the summary it logs under ``infer/``."""
+        posthoc = bool(self.config.get("metrics", {}).get(
+            "posthoc_regressor", True))
+        if posthoc and self.inplane:
+            raise ValueError(
+                "metrics.posthoc_regressor with data.inplane_normalize: the "
+                "post-hoc regressor encodes the 3-channel pose image with "
+                "the 30-channel part-stack encoder, which the JAX package "
+                "does not run either (ROADMAP C6); set "
+                "metrics.posthoc_regressor: false")
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            self.seed)
+        vunet, _ = self._build_models(self.generator)
+        out = CheckpointManager(os.path.join(
+            self.dirs["ckpt"], "reg_ckpt")).restore_latest(
+                map_location="cpu")
+        if out is None:
+            raise FileNotFoundError("no VUNet checkpoint (reg_ckpt) to "
+                                    "evaluate")
+        self._load(out[0], {"vunet": vunet})
+        print(f"Restored reg_ckpt checkpoint at step {out[1]}")
+        vunet.eval().requires_grad_(False)
+        val = self._eval_ssim(vunet, 0)
+        print(f"inference SSIM: {val:.4f}")
+        summary = {"ssim": val}
+        if posthoc:
+            summary.update(self._posthoc_latent_regressor(vunet))
+        self.log(0, prefix="infer/", extra=summary, collected=False)
+        return summary
+
+    def _posthoc_latent_regressor(self, vunet) -> Dict[str, float]:
+        """A fresh pose regressor from the frozen posterior means of the
+        test images to their keypoints, Adam(1e-3) for 20 epochs (2 with
+        --debug): the disentanglement probe of the inference protocol.
+        Returns the mean of its last 100 losses; plots the loss course as
+        generated/loss_course_eval.png where matplotlib imports."""
+        loader, ds = self._build_data("test")
+        first = next(iter(loader))
+        n_out = self._batch_keypoints(first, ds)[0].numel()
+        regressor = self._new_regressor(n_out, self.generator)
+        opt = torch.optim.Adam(regressor.parameters(), lr=1e-3)
+
+        def encode(img):
+            with torch.no_grad():
+                return vunet.encode_means(img, self._eps(len(img)),
+                                          self.generator)[0]
+
+        losses = []
+        for _ in range(2 if self.debug else 20):
             for batch in loader:
-                self.collect(step_fn(state, batch, generator=gens[1],
-                                     dropout_generator=gens[2]))
-                it = state.step
-                if it % 50 == 0 or it == end_iteration:
-                    self.log(it)
-                if it % ckpt_steps == 0 or it == end_iteration:
-                    path = self.save_synth(vunet, regressor)
-                if it >= end_iteration:
-                    break
-        return {"vunet": vunet, "regressor": regressor, "state": state,
-                "synth_params": path,
-                "n_params": sum(p.numel() for p in vunet.parameters())}
+                tgt = self._batch_keypoints(batch, ds).reshape(
+                    len(batch["pose_img"]), -1)
+                means = encode(batch["pose_img"])
+                opt.zero_grad(set_to_none=True)
+                loss = torch.mean(torch.sqrt(torch.sum(
+                    (regressor(means) - tgt) ** 2, dim=1) + 1e-12))
+                loss.backward()
+                opt.step()
+                losses.append(loss.detach())
+        losses = torch.stack(losses).cpu().numpy()
+        self._plot_losses(losses)
+        return {"loss_regressor_posthoc": float(np.mean(losses[-100:]))}
+
+    def _plot_losses(self, losses) -> None:
+        try:
+            import matplotlib
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+        except ImportError:
+            print("regressor loss plot skipped: no matplotlib")
+            return
+        plt.plot(np.arange(len(losses)), losses)
+        plt.xlabel("Train iterations")
+        plt.ylabel("Loss")
+        plt.title("Loss of regressor from shape latents to pose.")
+        plt.savefig(os.path.join(self.dirs["generated"],
+                                 "loss_course_eval.png"))
+        plt.close()
+
+
+class VunetExperiment(ShapePoseExperiment):
+    """The original VUNet (variant "org"), trained by the org step."""
+
+    variant = "org"
+
+    def _make_step(self, vunet, regressor, perceptual, optimizers):
+        total = int(self.config["training"].get("end_iteration", 1000))
+        return make_org_vunet_train_step(vunet, perceptual, optimizers,
+                                         self.config, total)

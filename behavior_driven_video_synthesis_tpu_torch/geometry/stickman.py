@@ -16,15 +16,15 @@ of 256 px).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Sequence, Tuple
+from typing import Callable, Sequence, Tuple
 
 import torch
 
 
 @dataclass(frozen=True)
 class JointModel:
-    """Skeleton topology + rendering metadata (the fields the serving path
-    reads; the JAX package's ``norm_T`` part warps are not ported)."""
+    """Skeleton topology + rendering metadata; ``norm_T`` lists the part
+    homography builders of the in-plane part stack (``data/parts.py``)."""
 
     body: Sequence[int]
     right_lines: Sequence[Tuple[int, int]]
@@ -39,6 +39,7 @@ class JointModel:
     kp_to_joint: Sequence[str]
     kps_to_change: Sequence[int] = field(default_factory=list)
     kps_to_change_rel: Sequence[int] = field(default_factory=list)
+    norm_T: Sequence[Callable] = field(default_factory=list)
 
 
 def _segment_coverage(px, py, a, b, half_thickness):

@@ -3,7 +3,9 @@
 Counterpart of ``behavior_driven_video_synthesis_tpu/main.py`` (``main``,
 :148-186):
 
-    bdvs-train-torch -c configs/shape_and_pose_net.yaml [-m train] [-d] \\
+    bdvs-train-torch -c configs/shape_and_pose_net.yaml [-m train|infer] \\
+                     [-d] [-r] [--device cuda|cpu]
+    bdvs-train-torch -c configs/vunet.yaml [-m train|infer] [-d] [-r] \\
                      [--device cuda|cpu]
     bdvs-train-torch -c configs/behavior_net.yaml [-m train|infer] [-d] \\
                      [-r] [-f] [--device cuda|cpu]
@@ -12,17 +14,19 @@ Run directories are ``{ckpt,config,generated,log}/<project_name>`` under
 ``base_dir/experiment``; the config is dumped to
 ``config/<project>/config.yaml``, with ``general.tf32: false``: float32
 products and convolutions run without TF32 (``core/precision.py``).
-``--debug`` trains the "debug" project (cvbae: at most 8 steps;
+``--debug`` trains the "debug" project (cvbae and vunet: at most 8 steps;
 behavior_net: at most 2 epochs and 1 flow epoch on 8 batches).  The
-``cvbae`` and ``behavior_net`` experiments are ported.  For behavior_net,
-``-m infer`` runs the inference protocol on the run's checkpoints and logs
-its summary under ``infer/`` in the run's ``metrics.jsonl``; ``-f`` sets
-``training.only_flow`` (train the flow alone, over this run's or a sibling
-run's cVAE); ``-r`` resumes a run: it reloads the config dumped in the run
-directory (so the run's hyperparameters stay as they were) and restores
-the run's checkpoints; a finished run runs no step.  The other
-experiments, ``-m infer`` and ``-f`` for cvbae, ``-r`` for cvbae, and the
-``-v``, ``-s`` and ``-p`` options exit with status 2.
+``cvbae``, ``vunet`` and ``behavior_net`` experiments are ported.
+``-m infer`` evaluates the run's checkpoints (cvbae and vunet: SSIM and
+the post-hoc latent regressor; behavior_net: the inference protocol) and
+logs the summary under ``infer/`` in the run's ``metrics.jsonl``; ``-r``
+resumes a run: it reloads the config dumped in the run directory (so the
+run's hyperparameters stay as they were) and restores the run's
+checkpoints; a finished run runs no step.  ``-f`` (behavior_net only)
+sets ``training.only_flow`` (train the flow alone, over this run's or a
+sibling run's cVAE).  The other experiments, ``-f`` for the VUNet
+experiments, and the ``-v``, ``-s`` and ``-p`` options exit with status
+2.
 ``training.dropout_rng`` is accepted and has no effect (the TPU's rng-bit
 generator has no counterpart here).
 """
@@ -37,10 +41,7 @@ import torch
 from .core.config import load_config, save_config
 from .core.precision import disable_tf32, tf32_enabled
 
-PORTED_EXPERIMENTS = ("cvbae", "behavior_net")
-# experiments whose runs resume (-r), infer (-m infer) and train their flow
-# alone (-f)
-RESUMABLE_EXPERIMENTS = ("behavior_net",)
+PORTED_EXPERIMENTS = ("cvbae", "vunet", "behavior_net")
 
 
 def create_dir_structure(config: dict, model_name: str):
@@ -80,7 +81,7 @@ def parse_args(argv=None):
                     help="torch device (default cuda; pass cpu to train "
                          "on the CPU)")
     ap.add_argument("-r", "--restart", action="store_true",
-                    help="resume a behavior_net run from its checkpoints")
+                    help="resume a run from its checkpoints")
     ap.add_argument("-f", "--flow", action="store_true",
                     help="train only the flow stage of behavior_net")
     # options of the JAX CLI that this port does not have yet
@@ -117,13 +118,9 @@ def main(argv=None):
         sys.stderr.write(f"experiment {experiment!r}: not ported yet "
                          f"(ported: {', '.join(PORTED_EXPERIMENTS)})\n")
         raise SystemExit(2)
-    flags = [flag for flag, on in (("-r (resume)", args.restart),
-                                   ("-m infer", args.mode == "infer"),
-                                   ("-f (flow-only training)", args.flow))
-             if on]
-    if flags and experiment not in RESUMABLE_EXPERIMENTS:
-        sys.stderr.write(f"{', '.join(flags)} of {experiment!r}: not ported "
-                         f"yet (ROADMAP A7)\n")
+    if args.flow and experiment != "behavior_net":
+        sys.stderr.write(f"-f (flow-only training) of {experiment!r}: "
+                         f"behavior_net has the only flow stage\n")
         raise SystemExit(2)
     # the run's record of its float32 precision, dumped with the config
     config.setdefault("general", {})["tf32"] = tf32_enabled()
@@ -135,8 +132,12 @@ def main(argv=None):
         exp = BehaviorNetExperiment(config, dirs, device)
         return (exp.run_inference() if args.mode == "infer"
                 else exp.run_training())
-    from .experiments.shape_and_pose_net import ShapePoseExperiment
-    return ShapePoseExperiment(config, dirs, device).run_training()
+    if experiment == "vunet":
+        from .experiments.vunet import VunetExperiment as cls
+    else:
+        from .experiments.shape_and_pose_net import ShapePoseExperiment as cls
+    exp = cls(config, dirs, device)
+    return exp.run_inference() if args.mode == "infer" else exp.run_training()
 
 
 if __name__ == "__main__":

@@ -1,15 +1,23 @@
 """Perceptual feature pyramids for the VUNet likelihood.
 
-Counterpart of ``behavior_driven_video_synthesis_tpu/models/perceptual.py``
-for ``training.perceptual: laplacian``, the weight-free pyramid; the VGG19
-features (``perceptual: vgg``) are not ported yet.
+Counterpart of ``behavior_driven_video_synthesis_tpu/models/perceptual.py``:
+``training.perceptual: laplacian``, the weight-free pyramid, and ``vgg``
+(the default), the VGG19 trunk up to relu5_2.  VGG19 weights come from a
+``.npz`` of flax parameters (``training.vgg_weights_path``, the layout
+``load_npz_params`` reads) through :func:`vgg19_from_flax`, or, without
+one, from a seeded random init: no pretrained weights exist here and
+nothing is downloaded (WEIGHTS.md).
 """
 from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
+
+from .init import init_like_jax_
 
 
 def feature_names():
@@ -58,10 +66,106 @@ class LaplacianPyramidFeatures:
         return out
 
 
-def perceptual_from_config(config: dict):
-    """The feature net that ``training.perceptual`` names."""
-    mode = str(config.get("training", {}).get("perceptual", "vgg")).lower()
+# VGG19's conv layers up to conv5_2 ("M": a 2x2 max pool) and the taps
+# taken after the ReLU of five of them
+VGG19_CFG = [
+    ("conv1_1", 64), ("conv1_2", 64), "M",
+    ("conv2_1", 128), ("conv2_2", 128), "M",
+    ("conv3_1", 256), ("conv3_2", 256), ("conv3_3", 256), ("conv3_4", 256),
+    "M",
+    ("conv4_1", 512), ("conv4_2", 512), ("conv4_3", 512), ("conv4_4", 512),
+    "M",
+    ("conv5_1", 512), ("conv5_2", 512),
+]
+VGG19_TAPS = {"conv1_2": "relu1_2", "conv2_2": "relu2_2",
+              "conv3_2": "relu3_2", "conv4_2": "relu4_2",
+              "conv5_2": "relu5_2"}
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+class PerceptualVGG19(nn.Module):
+    """VGG19 up to relu5_2 on NHWC input in [-1, 1] (rescaled to [0, 1],
+    then ImageNet-normalized), returning the feature pyramid
+    {input, relu1_2, ..., relu5_2}, NHWC, in float32.  Layers are named
+    as the flax module's (``conv1_1.weight`` is its ``conv1_1/kernel``)."""
+
+    def __init__(self, device=None):
+        super().__init__()
+        cin = 3
+        for item in VGG19_CFG:
+            if item != "M":
+                name, ch = item
+                self.add_module(name, nn.Conv2d(cin, ch, 3, padding=1,
+                                                device=device))
+                cin = ch
+        self.register_buffer("mean", torch.tensor(IMAGENET_MEAN,
+                                                  device=device),
+                             persistent=False)
+        self.register_buffer("std", torch.tensor(IMAGENET_STD,
+                                                 device=device),
+                             persistent=False)
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        out = {"input": x}
+        h = ((x.float() + 1.0) / 2.0 - self.mean) / self.std
+        h = h.permute(0, 3, 1, 2)
+        for item in VGG19_CFG:
+            if item == "M":
+                h = F.max_pool2d(h, 2, 2)
+                continue
+            h = torch.relu(getattr(self, item[0])(h))
+            if item[0] in VGG19_TAPS:
+                out[VGG19_TAPS[item[0]]] = h.permute(0, 2, 3, 1)
+        return out
+
+
+def load_npz_params(path: str) -> Dict:
+    """The flax variables ``{"params": {layer: {kernel, bias}}}`` of a
+    ``.npz`` whose keys are ``<layer>.<kernel|bias>``."""
+    params: Dict[str, Dict[str, np.ndarray]] = {}
+    with np.load(path) as data:
+        for key in data.files:
+            lname, k = key.rsplit(".", 1)
+            params.setdefault(lname, {})[k] = np.asarray(data[key])
+    return {"params": params}
+
+
+def vgg19_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """A flax VGG19 tree (HWIO kernels) -> :class:`PerceptualVGG19`'s
+    state dict (OIHW weights)."""
+    params = variables.get("params", variables)
+    sd = {}
+    for lname, p in params.items():
+        sd[f"{lname}.weight"] = torch.tensor(
+            np.asarray(p["kernel"], np.float32).transpose(3, 2, 0, 1))
+        sd[f"{lname}.bias"] = torch.tensor(np.asarray(p["bias"],
+                                                      np.float32))
+    return sd
+
+
+def perceptual_from_config(config: dict, device=None, generator=None):
+    """The feature net that ``training.perceptual`` names: the Laplacian
+    pyramid, or VGG19 (the default) with the weights of
+    ``training.vgg_weights_path`` or, without it, the JAX package's
+    initializers drawn from ``generator``.  The VGG19 is frozen."""
+    tr = config.get("training", {})
+    mode = str(tr.get("perceptual", "vgg")).lower()
     if mode == "laplacian":
+        print("perceptual: laplacian pyramid (weight-free)")
         return LaplacianPyramidFeatures()
-    raise NotImplementedError(f"perceptual {mode!r} is not ported yet "
-                              "(only 'laplacian' is)")
+    if mode != "vgg":
+        raise ValueError(f"unknown perceptual {mode!r}; expected 'vgg' or "
+                         "'laplacian'")
+    vgg = PerceptualVGG19(device=device)
+    weights_path = tr.get("vgg_weights_path")
+    if weights_path:
+        print(f"perceptual: VGG19 with weights from {weights_path}")
+        vgg.load_state_dict(vgg19_from_flax(load_npz_params(
+            str(weights_path))))
+    else:
+        print("perceptual: VGG19 with RANDOM init (no pretrained "
+              "weights in this environment; metrics are not "
+              "literature-comparable — see WEIGHTS.md)")
+        init_like_jax_(vgg, generator)
+    return vgg.eval().requires_grad_(False)

@@ -23,6 +23,13 @@ generator, ``dropout_generator`` (the JAX package's "sample" and "dropout"
 rng collections).  ``rnb_impl="fused"`` runs every RNB without auxiliary
 input (EncUp's, and the org prior's ``pre`` block) through the fused RNB
 kernel at inference.
+
+``remat`` (``training.remat``) trades memory for compute in the training
+``forward``: ``True`` or ``"rnb"`` recomputes every ``VunetRNB`` in the
+backward pass, ``"subnet"`` each of eu, ed, du and dd whole; the
+recomputations draw the same noise and masks
+(``ops.nn.checkpoint_with_generators``), and the state dict is the same
+under every setting, so remat can be flipped on any checkpoint.
 """
 from __future__ import annotations
 
@@ -33,9 +40,11 @@ import torch
 from torch import nn
 
 from ..ops.nn import (Downsample, NormConv2d, Upsample, VunetRNB,
-                      conv2d_nhwc, depth_to_space, space_to_depth)
+                      checkpoint_with_generators, conv2d_nhwc,
+                      depth_to_space, space_to_depth)
 
 VARIANTS = ("alter", "org")
+REMAT = (False, True, "rnb", "subnet")
 
 
 def compute_n_scales(spatial_size: int, bottleneck_factor: int,
@@ -293,14 +302,15 @@ class VUNet(nn.Module):
             "conv_layer_type": (conv_layer_type, "l1"),
             "quant": (quant, "none"),
             "upsample_transpose": (upsample_transpose, False),
-            "remat": (remat, False),
         }
         for name, (value, supported) in unported.items():
             if value != supported:
                 raise NotImplementedError(
                     f"VUNet {name}={value!r} is not ported yet")
+        if remat not in REMAT:
+            raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
         self.spatial_size, self.dtype = spatial_size, dtype
-        self.variant = variant
+        self.variant, self.remat = variant, remat
         n_scales = compute_n_scales(spatial_size, bottleneck_factor,
                                     n_scales_cfg)
         n_scales_x = n_scales - box_factor if n_channels_x > 3 else n_scales
@@ -313,6 +323,19 @@ class VUNet(nn.Module):
         self.dd = DecDown(self.du.out_channels, n_scales, nf_max, nf_start,
                           3, n_latent_scales, subpixel_upsampling, variant,
                           **kw)
+        if remat is True or remat == "rnb":
+            for m in self.modules():
+                if isinstance(m, VunetRNB):
+                    m.remat = True
+
+    def _subnet(self, module, generators, *args, **kwargs):
+        """module(*args, **kwargs), recomputed in the backward pass under
+        ``remat="subnet"`` when training under autograd."""
+        if (self.remat == "subnet" and kwargs.get("train")
+                and torch.is_grad_enabled()):
+            return checkpoint_with_generators(module, generators, *args,
+                                              **kwargs)
+        return module(*args, **kwargs)
 
     def forward(self, x, c, train: bool = False, eps=None, generator=None,
                 dropout_generator=None):
@@ -322,10 +345,13 @@ class VUNet(nn.Module):
         as the JAX ``VUNet.__call__``: ``ps`` are the org prior's means
         (empty for "alter"), activations are (hs, es, gs, ds)."""
         drop = dict(train=train, dropout_generator=dropout_generator)
-        hs = self.eu(x, **drop)
-        es, means, logstds, zs = self.ed(hs, eps, generator, **drop)
-        gs = self.du(c, **drop)
-        imgs, ds, ps = self.dd(gs, zs, prior=True, **drop)
+        gens = (generator, dropout_generator)
+        hs = self._subnet(self.eu, gens, x, **drop)
+        es, means, logstds, zs = self._subnet(self.ed, gens, hs, eps,
+                                              generator, **drop)
+        gs = self._subnet(self.du, gens, c, **drop)
+        imgs, ds, ps = self._subnet(self.dd, gens, gs, zs, prior=True,
+                                    **drop)
         return imgs, means, logstds, ps, (hs, es, gs, ds)
 
     def encode_means(self, x, eps=None, generator=None):

@@ -16,6 +16,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from .cuda.elu_dropout import elu_dropout
@@ -200,6 +201,34 @@ def dropout(x: torch.Tensor, rate: float,
     return x * keep / (1.0 - rate)
 
 
+def checkpoint_with_generators(fn, generators, *args, **kwargs):
+    """``torch.utils.checkpoint`` (non-reentrant) of fn(*args, **kwargs)
+    whose recomputation draws what its forward drew.  torch restores only
+    the default generators' states for a recomputation, and every mask
+    and noise here comes from an explicit ``torch.Generator`` (the
+    ELU+dropout kernel's seed words are drawn from one too): so each of
+    ``generators`` is set back to its state at the call for the
+    recomputation, and to its state before it afterwards."""
+    gens = [g for g in generators if g is not None]
+    at_call = [g.get_state() for g in gens]
+    calls = []
+
+    def run(*a, **kw):
+        calls.append(None)
+        if len(calls) == 1:
+            return fn(*a, **kw)
+        now = [g.get_state() for g in gens]
+        for g, state in zip(gens, at_call):
+            g.set_state(state)
+        try:
+            return fn(*a, **kw)
+        finally:
+            for g, state in zip(gens, now):
+                g.set_state(state)
+    return torch.utils.checkpoint.checkpoint(run, *args,
+                                             use_reentrant=False, **kwargs)
+
+
 class VunetRNB(nn.Module):
     """Pre-activation residual block:
     out = x + conv(dropout(elu([x] or [x, nin(elu(a))]))).
@@ -216,6 +245,11 @@ class VunetRNB(nn.Module):
     3x3 conv, not training) as one fused RNB kernel
     (``ops/cuda/fused_rnb.py``); every other block, and every block under
     the default ``"cudnn"``, runs the cuDNN conv and eager elementwise ops.
+
+    With ``remat`` set (an attribute, not a parameter: the state dict is
+    the same either way) a training forward under autograd stores only the
+    block's inputs and recomputes the block in the backward pass
+    (:func:`checkpoint_with_generators`).
     """
 
     def __init__(self, channels: int, residual: bool = False,
@@ -240,6 +274,7 @@ class VunetRNB(nn.Module):
         self.conv = NormConv2d((2 if residual else 1) * channels, channels,
                                kernel_size, padding=kernel_size // 2,
                                dtype=dtype, device=device)
+        self.remat = False
 
     def _act(self, v):
         return F.elu(v) if self.activate else v
@@ -257,6 +292,12 @@ class VunetRNB(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.fused and a is None and not train:
             return fused_rnb(x.to(self.conv.dtype), self)
+        if self.remat and train and torch.is_grad_enabled():
+            return checkpoint_with_generators(self._forward, (generator,),
+                                              x, a, train, generator)
+        return self._forward(x, a, train, generator)
+
+    def _forward(self, x, a, train, generator):
         act = self._act_dropout(train, generator)
         if a is not None:
             if not self.residual:

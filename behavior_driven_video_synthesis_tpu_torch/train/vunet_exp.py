@@ -1,7 +1,8 @@
-"""The cvbae VUNet training step.
+"""The VUNet training steps: cvbae and the original VUNet.
 
 Counterpart of ``behavior_driven_video_synthesis_tpu/train/vunet_exp.py:
-107-252`` (``make_cvbae_train_step``).  One step:
+107-302`` (``make_cvbae_train_step``, ``make_org_vunet_train_step``).  One
+cvbae step:
 
   loss = ll_weight * sum(vgg_loss levels)
          + gamma * compute_kl_with_prior     [from step n_init_batches on;
@@ -15,6 +16,10 @@ Counterpart of ``behavior_driven_video_synthesis_tpu/train/vunet_exp.py:
   without gradient, as in the JAX step;
   the gamma controller after the step.
 
+One original-VUNet step: loss = ll_weight * sum(vgg_loss levels)
++ kl_ramp(step) * compute_kl_loss(prior means, posterior means), one Adam
+update from ``grad_accum`` microbatches as above.
+
 Parameters and optimizer states change in place; ``VunetTrainState`` holds
 the step count and gamma.  Posterior noise comes from ``eps`` (one list of
 tensors per microbatch) or the ``generator``; the regressor's encodings
@@ -24,12 +29,13 @@ dropout masks come from ``dropout_generator``.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from functools import partial
 from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
 from ..core import schedules
-from .losses import compute_kl_with_prior, vgg_loss
+from .losses import compute_kl_loss, compute_kl_with_prior, vgg_loss
 
 
 @dataclass
@@ -41,6 +47,31 @@ class VunetTrainState:
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every element (optax.global_norm)."""
     return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in tensors))
+
+
+def _accumulate(loss_fn, params, tensors, grad_accum: int, eps):
+    """Gradients of ``loss_fn(*microbatch, eps_i)`` over ``grad_accum``
+    sequential microbatches of ``tensors``, averaged into the parameters'
+    ``.grad``.  Returns (mean loss, mean aux, the gradients)."""
+    bsz = tensors[0].shape[0]
+    if bsz % grad_accum:
+        raise ValueError(f"batch {bsz} not divisible by "
+                         f"grad_accum={grad_accum}")
+    micro = [t.split(bsz // grad_accum) for t in tensors]
+    losses, auxs = [], []
+    for i in range(grad_accum):
+        loss_i, aux_i = loss_fn(*(m[i] for m in micro),
+                                None if eps is None else eps[i])
+        loss_i.backward()
+        losses.append(loss_i.detach())
+        auxs.append({k: v.detach() for k, v in aux_i.items()})
+    grads = [p.grad for p in params if p.grad is not None]
+    if grad_accum > 1:
+        for g in grads:
+            g.div_(grad_accum)
+    aux = {k: torch.mean(torch.stack([a[k] for a in auxs]))
+           for k in auxs[0]}
+    return torch.mean(torch.stack(losses)), aux, grads
 
 
 def make_cvbae_train_step(vunet, regressor, perceptual, optimizers: dict,
@@ -70,8 +101,8 @@ def make_cvbae_train_step(vunet, regressor, perceptual, optimizers: dict,
     opt, lr_schedule = optimizers["vunet"], optimizers["vunet_lr"]
     opt_reg = optimizers.get("regressor")
 
-    def loss_fn(state, app, shape, target, eps, generator,
-                dropout_generator):
+    def loss_fn(state, generator, dropout_generator, app, shape, target,
+                eps):
         out, means, logstds, _, _ = vunet(
             app, shape, train=True, eps=eps, generator=generator,
             dropout_generator=dropout_generator)
@@ -111,28 +142,10 @@ def make_cvbae_train_step(vunet, regressor, perceptual, optimizers: dict,
                    ) -> Dict[str, torch.Tensor]:
         target = batch["pose_img"]
         tensors = (batch.get("app_img", target), batch["stickman"], target)
-        bsz = target.shape[0]
-        if bsz % grad_accum:
-            raise ValueError(f"batch {bsz} not divisible by "
-                             f"grad_accum={grad_accum}")
-        micro = [t.split(bsz // grad_accum) for t in tensors]
         opt.zero_grad(set_to_none=True)
-        losses, auxs = [], []
-        for i in range(grad_accum):
-            loss_i, aux_i = loss_fn(
-                state, micro[0][i], micro[1][i], micro[2][i],
-                None if eps is None else eps[i], generator,
-                dropout_generator)
-            loss_i.backward()
-            losses.append(loss_i.detach())
-            auxs.append({k: v.detach() for k, v in aux_i.items()})
-        grads = [p.grad for p in params if p.grad is not None]
-        if grad_accum > 1:
-            for g in grads:
-                g.div_(grad_accum)
-        loss = torch.mean(torch.stack(losses))
-        aux = {k: torch.mean(torch.stack([a[k] for a in auxs]))
-               for k in auxs[0]}
+        loss, aux, grads = _accumulate(
+            partial(loss_fn, state, generator, dropout_generator), params,
+            tensors, grad_accum, eps)
 
         loss_reg = torch.zeros((), device=target.device)
         if train_reg:
@@ -154,5 +167,57 @@ def make_cvbae_train_step(vunet, regressor, perceptual, optimizers: dict,
                    "loss_reg": loss_reg}
         metrics.update({k: v for k, v in aux.items() if k.startswith("ll_")})
         return metrics
+
+    return train_step
+
+
+def make_org_vunet_train_step(vunet, perceptual, optimizers: dict,
+                              config: dict, total_steps: int) -> Callable:
+    """``train_step(state, batch, generator=None, dropout_generator=None,
+    eps=None) -> metrics`` of the original VUNet: the KL weight ramps with
+    ``state.step`` over ``total_steps`` (``training.kl_init``,
+    ``kl_max``); ``batch`` holds NHWC ``app_img`` (the part stack),
+    ``stickman`` and ``pose_img``; ``eps`` as the cvbae step's."""
+    tr = config.get("training", {})
+    ll_weight = float(tr.get("ll_weight", 1.0))
+    vgg_weights = list(tr.get("vgg_weights", [1.0] * 6))
+    grad_accum = int(tr.get("grad_accum", 1))
+    kl_init, kl_max = float(tr.get("kl_init", 1e-6)), float(
+        tr.get("kl_max", 1.0))
+    params = list(vunet.parameters())
+    opt, lr_schedule = optimizers["vunet"], optimizers["vunet_lr"]
+
+    def loss_fn(kl_weight, generator, dropout_generator, app, shape,
+                target, eps):
+        out, q_means, _, p_means, _ = vunet(
+            app, shape, train=True, eps=eps, generator=generator,
+            dropout_generator=dropout_generator)
+        ll_dict = vgg_loss(perceptual(target),
+                           perceptual(out.to(target.dtype)), vgg_weights)
+        likelihood = ll_weight * sum(ll_dict.values())
+        kl = compute_kl_loss(p_means, q_means)
+        return likelihood + kl_weight * kl, {"likelihood_loss": likelihood,
+                                             "kl_loss": kl}
+
+    def train_step(state: VunetTrainState, batch: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator] = None,
+                   dropout_generator: Optional[torch.Generator] = None,
+                   eps: Optional[Sequence[Sequence[torch.Tensor]]] = None
+                   ) -> Dict[str, torch.Tensor]:
+        target = batch["pose_img"]
+        kl_weight = schedules.kl_ramp(state.step, total_steps,
+                                      kl_init=kl_init, kl_max=kl_max)
+        opt.zero_grad(set_to_none=True)
+        loss, aux, grads = _accumulate(
+            partial(loss_fn, kl_weight, generator, dropout_generator),
+            params, (batch["app_img"], batch["stickman"], target),
+            grad_accum, eps)
+        grad_norm = global_norm(grads)
+        opt.step()
+        lr_schedule.step()
+        state.step += 1
+        return {"loss": loss,
+                "kl_weight": torch.tensor(kl_weight, device=target.device),
+                "grad_norm": grad_norm, **aux}
 
     return train_step

@@ -44,7 +44,8 @@ CUDA toolkit (nvcc) and PyTorch.  It imports no JAX.  Phases:
    nf 32->128, regressor on, dropout 0.05, bf16) with
    ``dropout_impl: pallas`` and 6 steps; every step must be finite and
    launch each ELU+dropout kernel once per dropout site; the written
-   ``synth.npz`` then serves one ``transfer_cached`` call;
+   ``synth.npz`` then serves one ``transfer_cached`` call (the run's
+   checkpoint is resumed in phase [14]);
 8. the port's cvbae step at small width against
    ``tests/golden/torch_port_train_small.npz`` (two JAX steps), in f32 with
    TF32 off;
@@ -83,8 +84,30 @@ CUDA toolkit (nvcc) and PyTorch.  It imports no JAX.  Phases:
 13. the port's ``-m infer`` at small width against
     ``tests/golden/torch_port_infer_small.npz`` (the JAX run's summary
     and draws; weights rebuilt from its numpy seed), in f32 with TF32
-    off: every value except the post-hoc classifiers' scores, whose
-    initial weights the golden does not hold.
+    off;
+14. the VUNet experiments at full width through ``main`` in-process:
+    (a) ``configs/vunet.yaml`` as published (256 px, B=8, nf 32->128, a
+    30-channel 64x64 part stack, bf16, Laplacian perceptual, dropout 0),
+    6 org steps, every metric finite, the median step, img/s, one
+    profiled step's busy share, peak memory and the part stacks' render
+    time; a second ``main`` with ``-r`` restores step 6 and runs no
+    step; the written ``synth.npz`` serves one org ``transfer_cached``
+    chunk; (b) 2 org steps with ``dropout_prob: 0.05, dropout_impl:
+    pallas``, which must launch the ELU+dropout forward kernel at all 76
+    dropout sites and the backward at the 72 that reach the loss, and
+    whose next step's loss must equal the same step through the kernels'
+    plain Philox versions to 1e-5; (c) phase [7]'s cvbae run resumed with
+    ``-r`` to step 8 (it must restore step 6), then ``-m infer`` with
+    ``general.debug``: SSIM, the post-hoc regressor's loss and the wall
+    time by stage; (d) ``-m infer`` on (a)'s run with
+    ``metrics.posthoc_regressor: false`` (ROADMAP C6); (e) the device
+    part-stack warp of (a)'s dataset against its plain numpy version:
+    within 1 uint8 level at >= 99.9 % of values, none more than 8 apart;
+15. the port's org training step at small width against
+    ``tests/golden/torch_port_org_train_small.npz`` (three JAX steps;
+    weights, batch and noise rebuilt from its numpy seed), in f32 with
+    TF32 off: the metrics at rtol 1e-4 and every leaf's update within 5 %
+    of the JAX update.
 
 The last two lines are a JSON object of kernel results and
 ``{"ok": true, "device": {...}}``; any failure exits non-zero before them.
@@ -92,6 +115,7 @@ All measured values also go to a JSON file, ``build/chip_smoke.json`` unless
 ``--out PATH`` names another.
 """
 import argparse
+import copy
 import gc
 import json
 import os
@@ -121,8 +145,11 @@ from behavior_driven_video_synthesis_tpu_torch.experiments.data_factory import (
     build_sequence_data)
 from behavior_driven_video_synthesis_tpu_torch.flax_npz import (
     flatten_tree, unflatten_tree)
+from behavior_driven_video_synthesis_tpu_torch.data import parts
 from behavior_driven_video_synthesis_tpu_torch.data.human36m import (
     detailed_joint_model)
+from behavior_driven_video_synthesis_tpu_torch.data.synthetic_images import (
+    SyntheticImageDataset)
 from behavior_driven_video_synthesis_tpu_torch.geometry.stickman import (
     render_stickman)
 from behavior_driven_video_synthesis_tpu_torch.models import convert
@@ -1093,11 +1120,14 @@ class StepRecorder:
     recorded with its metrics, its ELU+dropout launches and the host time
     since the previous step ended (the data pipeline's share)."""
 
-    def __init__(self):
+    def __init__(self, make=None, stop_after=None):
         self.steps, self.last, self._end = [], None, None
+        self._make = make or make_cvbae_train_step
+        self.stop_after, self.args = stop_after, None
 
     def make(self, *args, **kwargs):
-        step = make_cvbae_train_step(*args, **kwargs)
+        step = self._make(*args, **kwargs)
+        self.args = args
 
         def recorded(state, batch, **kw):
             torch.cuda.synchronize()
@@ -1114,8 +1144,14 @@ class StepRecorder:
                 bwd_launches=elu_dropout.elu_dropout_bwd_launches - bwd0,
                 **{k: float(v) for k, v in metrics.items()}))
             self.last = (step, state, batch, kw)
+            if self.stop_after and len(self.steps) >= self.stop_after:
+                raise StopTraining
             return metrics
         return recorded
+
+
+class StopTraining(Exception):
+    """Raised by a StepRecorder after its ``stop_after`` steps."""
 
 
 def train_config(base_dir):
@@ -1279,7 +1315,7 @@ def phase_train():
         kernel_bound_ms_per_step=bound_ms, profile=prof,
         vunet_params=out["n_params"])
     serve_trained(out["synth_params"])
-    return launches
+    return launches, base, path
 
 
 def serve_trained(synth_params):
@@ -2013,6 +2049,346 @@ def phase_infer_golden():
     check(not bad, "golden -m infer out of tolerance")
 
 
+# -- 14. the VUNet experiments at full width ----------------------------------
+# the org VUNet's dropout sites at 256 px with a 64x64 part stack: 10 RNBs
+# in the appearance EncUp (5 scales), 14 in the shape EncUp, 5 residual
+# RNBs in EncDown and 14 in DecDown (two sites each), and at each of the 2
+# latent scales the prior's pre block (one) and 3 residual blocks (two)
+ORG_DROPOUT_SITES = 10 + 14 + 2 * 5 + 2 * 14 + 2 * (1 + 2 * 3)
+ORG_TRAIN_STEPS, ORG_DROPOUT_STEPS, CVBAE_RESUMED_TO = 6, 2, 8
+ORG_TRAIN_GOLDEN = os.path.join(ROOT, "tests", "golden",
+                                "torch_port_org_train_small.npz")
+
+
+def org_train_config(base_dir, **training):
+    cfg = load_config(ORG_CONFIG)
+    return deep_merge(cfg, {
+        "general": {"base_dir": base_dir, "project_name": "chip_smoke"},
+        "training": training})
+
+
+def rnb_dropout_sites(vunet):
+    """(forward, backward) ELU+dropout launches of a training step: one
+    site per RNB input (two for a residual block), less EncDown's last two
+    residual blocks' backward (DEAD_BACKWARD_SITES)."""
+    fwd = sum(1 + int(m.residual) for m in vunet.modules()
+              if isinstance(m, ops_nn.VunetRNB))
+    return fwd, fwd - DEAD_BACKWARD_SITES
+
+
+def recorded_main(argv, make_name, stop_after=None):
+    """``main`` with the training step that shape_and_pose_net's
+    ``make_name`` makes recorded; returns (main's result, recorder)."""
+    recorder = StepRecorder(getattr(shape_and_pose_net, make_name),
+                            stop_after)
+    made = getattr(shape_and_pose_net, make_name)
+    setattr(shape_and_pose_net, make_name, recorder.make)
+    try:
+        out = train_cli.main(argv)
+    except StopTraining:
+        out = None
+    finally:
+        setattr(shape_and_pose_net, make_name, made)
+    return out, recorder
+
+
+def timed_vunet_inference(path):
+    """``main -m infer`` on a VUNet run, its stages timed; returns
+    (summary, wall s, stage ms, peak bytes)."""
+    timer = StageTimer()
+    exp = shape_and_pose_net.ShapePoseExperiment
+    timer.wrap(shape_and_pose_net.CheckpointManager, "restore_latest",
+               "restore")
+    timer.wrap(exp, "_eval_ssim", "SSIM")
+    timer.wrap(exp, "_posthoc_latent_regressor", "post-hoc regressor")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        summary = train_cli.main(["-c", path, "--device", "cuda", "-m",
+                                  "infer"])
+        torch.cuda.synchronize()
+    finally:
+        timer.uninstall()
+    return (summary, time.perf_counter() - t0, timer.ms,
+            torch.cuda.max_memory_allocated())
+
+
+def log_vunet_inference(what, summary, wall, ms, peak):
+    log(f"    {what}: " + ", ".join(f"{k} {v:.5g}" for k, v in
+                                    summary.items())
+        + f"; wall {wall:.2f} s, peak {peak / 2**30:.2f} GiB; stages (ms): "
+        + ", ".join(f"{k} {v:.0f}" for k, v in ms.items()))
+    check(all(np.isfinite(v) for v in summary.values()),
+          f"{what}: a summary value is not finite")
+
+
+def snapshot(vunet, opts, state, gens):
+    return (copy.deepcopy(vunet.state_dict()),
+            {k: copy.deepcopy(o.state_dict()) for k, o in opts.items()
+             if o is not None},
+            state.step, [g.get_state() for g in gens])
+
+
+def restore_snapshot(snap, vunet, opts, state, gens):
+    sd, osd, step, gstates = snap
+    vunet.load_state_dict(sd)
+    for k, v in osd.items():
+        opts[k].load_state_dict(copy.deepcopy(v))
+    state.step = step
+    for g, st in zip(gens, gstates):
+        g.set_state(st)
+
+
+def phase_vunet(cvbae_base, cvbae_path):
+    """(a) configs/vunet.yaml trained 6 steps and resumed, its synth.npz
+    served; (b) 2 org steps through the ELU+dropout kernels against their
+    plain versions; (c) phase [7]'s cvbae run resumed to step 8 and
+    evaluated; (d) the org run evaluated; (e) the device part-stack warp
+    against its plain version.  Returns the ELU+dropout launches of (b)
+    and (c)."""
+    base = tempfile.mkdtemp(prefix="chip_smoke_vunet_")
+    try:
+        return _phase_vunet(base, cvbae_base, cvbae_path)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+        shutil.rmtree(cvbae_base, ignore_errors=True)
+
+
+def _phase_vunet(base, cvbae_base, cvbae_path):
+    # (a) org training as published, 6 steps
+    cfg = org_train_config(base, end_iteration=ORG_TRAIN_STEPS)
+    path = write_config(base, "vunet.yaml", cfg)
+    render_ms = []
+    stacks = SyntheticImageDataset.part_stacks
+
+    def timed_stacks(self, renders):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = stacks(self, renders)
+        torch.cuda.synchronize()
+        render_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+    SyntheticImageDataset.part_stacks = timed_stacks
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        out, rec = recorded_main(["-c", path, "--device", "cuda"],
+                                 "make_org_vunet_train_step")
+    finally:
+        SyntheticImageDataset.part_stacks = stacks
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    steps = rec.steps
+    B = int(cfg["training"]["batch_size"])
+    check(len(steps) == ORG_TRAIN_STEPS and out["state"].step
+          == ORG_TRAIN_STEPS, f"org training ran {len(steps)} steps")
+    check(all(np.isfinite(r[k]) for r in steps for k in (
+        "loss", "likelihood_loss", "kl_loss", "kl_weight", "grad_norm")),
+        "an org training metric is not finite")
+    step_ms = float(np.median([r["ms"] for r in steps[1:]]))
+    log(f"[14] (a) org VUNet training (configs/vunet.yaml, B={B}, "
+        f"{ORG_TRAIN_STEPS} steps) through main: {wall:.1f} s in all; "
+        f"VUNet {out['n_params']:,} parameters; part stacks of the "
+        f"{len(render_ms)} split(s) rendered in "
+        + ", ".join(f"{ms:.2f}" for ms in render_ms) + " ms")
+    for r in steps:
+        log(f"    step {r['step']}: loss {r['loss']:.6g} (likelihood "
+            f"{r['likelihood_loss']:.6g}, kl {r['kl_loss']:.6g}, kl_weight "
+            f"{r['kl_weight']:.3g}, grad_norm {r['grad_norm']:.4g}); "
+            f"{r['ms']:.2f} ms")
+    step, state, batch, kw = rec.last
+    prof = profile_call(lambda: step(state, batch, **kw), step_ms)
+    busy = "not measured" if prof is None else (
+        f"{prof['busy_share']:.3f} ({prof['busy_share_unprofiled']:.3f} of "
+        f"the median step), device {prof['device_busy_ms']:.2f} ms in "
+        f"{prof['launches']} launches")
+    log(f"    median step after the first {step_ms:.2f} ms, "
+        f"{B * 1e3 / step_ms:.1f} img/s; peak {peak / 2**30:.2f} GiB; "
+        f"profiled step busy share {busy}")
+    rec.last = None
+    RESULTS["org_train"] = dict(
+        steps=steps, step_ms_median=step_ms, img_per_s=B * 1e3 / step_ms,
+        peak_gib=peak / 2**30, wall_s=wall, part_stack_ms=render_ms,
+        profile=prof, vunet_params=out["n_params"])
+    synth = out["synth_params"]
+    del out, step, state, batch, kw
+    out, rec = recorded_main(["-c", path, "--device", "cuda", "-r"],
+                             "make_org_vunet_train_step")
+    check(out["state"].step == ORG_TRAIN_STEPS and not rec.steps,
+          f"-r ran {len(rec.steps)} steps from step {out['state'].step}")
+    log(f"    -r: restored step {out['state'].step}, ran no step")
+    del out
+    serve_org_chunk(synth)
+
+    # (b) 2 org steps through the ELU+dropout kernels
+    cfg_b = org_train_config(os.path.join(base, "dropout"),
+                             dropout_prob=0.05, dropout_impl="pallas")
+    path_b = write_config(base, "vunet_dropout.yaml", cfg_b)
+    elu_dropout.elu_dropout_fwd_launches = 0   # counts start here: the
+    elu_dropout.elu_dropout_bwd_launches = 0   # org step with dropout
+    _, rec = recorded_main(["-c", path_b, "--device", "cuda"],
+                           "make_org_vunet_train_step",
+                           stop_after=ORG_DROPOUT_STEPS)
+    launches_b = (elu_dropout.elu_dropout_fwd_launches,
+                  elu_dropout.elu_dropout_bwd_launches)
+    vunet, _, opts = rec.args[:3]
+    sites = rnb_dropout_sites(vunet)
+    check(sites[0] == ORG_DROPOUT_SITES, f"org dropout sites {sites}")
+    check(len(rec.steps) == ORG_DROPOUT_STEPS and all(
+        (r["fwd_launches"], r["bwd_launches"]) == sites for r in rec.steps),
+        f"an org step did not launch the ELU+dropout kernels {sites} times: "
+        + str([(r["fwd_launches"], r["bwd_launches"]) for r in rec.steps]))
+    check(all(np.isfinite(r["loss"]) for r in rec.steps),
+          "an org dropout step's loss is not finite")
+    step, state, batch, kw = rec.last
+    gens = [kw["generator"], kw["dropout_generator"]]
+    snap = snapshot(vunet, opts, state, gens)
+    loss_k = float(step(state, batch, **kw)["loss"])
+    restore_snapshot(snap, vunet, opts, state, gens)
+    launch = elu_dropout._launch_fwd, elu_dropout._launch_bwd
+    elu_dropout._launch_fwd = elu_dropout.elu_dropout_plain
+    elu_dropout._launch_bwd = elu_dropout.elu_dropout_backward_plain
+    try:
+        loss_p = float(step(state, batch, **kw)["loss"])
+    finally:
+        elu_dropout._launch_fwd, elu_dropout._launch_bwd = launch
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    log(f"    (b) {ORG_DROPOUT_STEPS} org steps, dropout 0.05 through the "
+        f"ELU+dropout kernels: {sites[0]} forward / {sites[1]} backward "
+        f"launches a step ({launches_b} in all); losses "
+        + ", ".join(f"{r['loss']:.6g}" for r in rec.steps)
+        + f"; a step {float(np.mean([r['ms'] for r in rec.steps])):.2f} ms; "
+        f"the next step's loss {loss_k:.8g} vs the plain Philox route "
+        f"{loss_p:.8g}: rel {rel:.2e} (<= 1e-5)")
+    check(rel <= 1e-5, "the org step through the kernels disagrees with "
+          "their plain versions")
+    RESULTS["org_dropout"] = dict(steps=rec.steps, sites=list(sites),
+                                  launches=list(launches_b), loss_kernel=
+                                  loss_k, loss_plain=loss_p, rel=rel)
+    del vunet, opts, step, state, batch, kw, snap, rec
+
+    # (c) phase [7]'s cvbae run, resumed to step 8 and evaluated
+    run_cfg = os.path.join(cvbae_base, "cvbae", "config", "chip_smoke",
+                           "config.yaml")
+    dumped = load_config(run_cfg)
+    dumped["training"]["end_iteration"] = CVBAE_RESUMED_TO
+    with open(run_cfg, "w") as f:
+        yaml.safe_dump(dumped, f)
+    elu_dropout.elu_dropout_fwd_launches = 0   # counts start here: the
+    elu_dropout.elu_dropout_bwd_launches = 0   # resumed cvbae run
+    out, rec = recorded_main(["-c", cvbae_path, "--device", "cuda", "-r"],
+                             "make_cvbae_train_step")
+    launches_c = (elu_dropout.elu_dropout_fwd_launches,
+                  elu_dropout.elu_dropout_bwd_launches)
+    check([r["step"] for r in rec.steps] == list(range(
+        TRAIN_STEPS + 1, CVBAE_RESUMED_TO + 1))
+        and out["state"].step == CVBAE_RESUMED_TO,
+        f"the resumed cvbae run took steps {[r['step'] for r in rec.steps]}")
+    check(all(np.isfinite(r["loss"]) for r in rec.steps),
+          "a resumed cvbae step's loss is not finite")
+    log(f"    (c) cvbae -r: restored step {TRAIN_STEPS}, ran to "
+        f"{CVBAE_RESUMED_TO}: losses "
+        + ", ".join(f"{r['loss']:.6g}" for r in rec.steps)
+        + f"; ELU+dropout launches {launches_c}")
+    del out, rec
+    infer_cfg = load_config(run_cfg)
+    infer_cfg["general"]["debug"] = True      # 2 post-hoc epochs
+    summary, wall, ms, peak = timed_vunet_inference(
+        write_config(base, "cvbae_infer.yaml", infer_cfg))
+    check(set(summary) == {"ssim", "loss_regressor_posthoc"},
+          f"cvbae -m infer summary {sorted(summary)}")
+    log_vunet_inference("cvbae -m infer (debug)", summary, wall, ms, peak)
+    RESULTS["cvbae_infer"] = dict(summary=summary, wall_s=wall,
+                                  stages_ms=ms, peak_gib=peak / 2**30)
+
+    # (d) the org run evaluated, without the post-hoc regressor (C6)
+    org_infer = deep_merge(cfg, {"general": {"debug": True},
+                                 "metrics": {"posthoc_regressor": False}})
+    summary, wall, ms, peak = timed_vunet_inference(
+        write_config(base, "vunet_infer.yaml", org_infer))
+    check(set(summary) == {"ssim"}, f"org -m infer summary {summary}")
+    log_vunet_inference("org -m infer (debug, posthoc_regressor off)",
+                        summary, wall, ms, peak)
+    RESULTS["org_infer"] = dict(summary=summary, wall_s=wall,
+                                stages_ms=ms, peak_gib=peak / 2**30)
+
+    # (e) the device part-stack warp against its plain version
+    dcfg = cfg["data"]
+    ds = SyntheticImageDataset(
+        spatial_size=int(dcfg["spatial_size"]), inplane_normalize=True,
+        box_factor=int(dcfg["box_factor"]), device=DEV)
+    S = ds.spatial_size
+    part = S // 2 ** ds.box_factor
+    renders = ((ds.photos + 1) * 127.5).round().to(torch.uint8)
+    mats, valid = parts.part_transforms(ds.norm_keypoints * S,
+                                        ds.joint_model, part, S)
+    device_ms = cuda_ms(lambda: parts.warp_parts(renders, mats, valid,
+                                                 part), 5)
+    stack = parts.warp_parts(renders, mats, valid, part).cpu().numpy()
+    t0 = time.perf_counter()
+    plain = parts.warp_parts_plain(renders.cpu().numpy(), mats, valid, part)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    d = np.abs(stack.astype(int) - plain.astype(int))
+    within, worst = float((d <= 1).mean()), int(d.max())
+    log(f"    (e) part-stack warp, {ds.n} frames x {mats.shape[1]} parts at "
+        f"{part}x{part} from {S} px: device {device_ms:.3f} ms (events), "
+        f"the plain numpy loop {plain_ms:.0f} ms; {within:.5f} of values "
+        f"within 1 level (>= 0.999), worst {worst} (<= 8); homographies "
+        f"valid {valid.mean():.3f}")
+    check(within >= 0.999 and worst <= 8,
+          "the device part-stack warp disagrees with its plain version")
+    RESULTS["part_stack_warp"] = dict(
+        frames=ds.n, device_ms=device_ms, plain_ms=plain_ms,
+        within_1=within, worst=worst)
+    return (launches_b[0] + launches_c[0], launches_b[1] + launches_c[1])
+
+
+def serve_org_chunk(synth_params):
+    """The org run's synth.npz, strictly into a serving VUNet, and one
+    transfer_cached chunk of 125 frames."""
+    tree, cfg = cli._load_params(synth_params)
+    vunet = vunet_from_config(cfg, "org", dtype=torch.bfloat16,
+                              device=DEV).eval()
+    vunet.load_state_dict(convert.vunet_org_from_flax(tree["vunet"]),
+                          strict=True)
+    S = vunet.spatial_size
+    g = torch.Generator(device=DEV).manual_seed(3)
+    app = torch.rand(1, S // 4, S // 4, 30, generator=g, device=DEV) * 2 - 1
+    stick = torch.rand(125, S, S, 3, generator=g, device=DEV) * 2 - 1
+    with torch.inference_mode():
+        means, _ = vunet.encode_means(app, generator=g)
+        frames = vunet.transfer_cached(
+            [m.expand(125, *m.shape[1:]) for m in means], stick)
+    check(frames.shape == (125, S, S, 3)
+          and bool(torch.isfinite(frames.float()).all()),
+          "the org run's synth.npz does not serve")
+    log(f"    synth.npz loaded strictly and served one org transfer_cached "
+        f"chunk: frames {tuple(frames.shape)}")
+
+
+# -- 15. the org training step against the JAX package's golden ---------------
+def phase_org_train_golden():
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_port_org_train as TO
+
+    with np.load(ORG_TRAIN_GOLDEN) as data:
+        golden = unflatten_tree({k: data[k] for k in data.files})
+    tree, batch, noise = TO.golden_inputs(golden)
+    metrics, after = TO.port_steps(tree, batch, noise, device=DEV)
+    worst_m, worst_u = TO.check_against_golden(metrics, tree, after, golden)
+    log(f"[15] golden org step x{len(metrics)} (f32, TF32 off): worst "
+        f"metric error / tolerance {worst_m:.3f}, worst update error / "
+        f"tolerance {worst_u:.3f} (each <= 1)")
+    RESULTS["golden_org_train"] = dict(metric_err_over_tol=worst_m,
+                                       update_err_over_tol=worst_u)
+    check(worst_m <= 1.0 and worst_u <= 1.0,
+          "golden org training step out of tolerance")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch "
                                  "port on one NVIDIA GPU")
@@ -2033,7 +2409,7 @@ def main(argv=None):
     phase_cli()
     phase_golden()
     phase_org_golden()
-    elu_launches = phase_train()
+    elu_launches, cvbae_base, cvbae_path = phase_train()
     phase_train_golden()
     rnb_launches = phase_org()
     behavior_launches, behavior_base = phase_behavior()
@@ -2044,6 +2420,9 @@ def main(argv=None):
     finally:
         shutil.rmtree(behavior_base, ignore_errors=True)
     phase_infer_golden()
+    vunet_launches = phase_vunet(cvbae_base, cvbae_path)
+    elu_launches = tuple(a + b for a, b in zip(elu_launches, vunet_launches))
+    phase_org_train_golden()
     bound, bound_by = rollout_bound_ms(*ROLLOUT_SHAPES[0])
     source = "behavior_driven_video_synthesis_tpu_torch/csrc/"
     pallas = "behavior_driven_video_synthesis_tpu/ops/pallas/"

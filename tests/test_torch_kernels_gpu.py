@@ -406,3 +406,47 @@ def test_fused_rnb_kernel_plan_fits_the_card(cuda):
         assert (plan["warp_rows"] * plan["warp_channels"]
                 * plan["threads"] // 32) == 16 * C
     assert FR.kernel_plan(32, cuda)["blocks_per_sm"] >= 2
+
+
+def _org_dropout_sites(vunet):
+    """(forward, backward) ELU+dropout launches of one org training step:
+    a site per RNB input (two for a residual block); EncDown's last two
+    residual blocks reach no loss, so their backward never runs."""
+    fwd = sum(1 + int(m.residual) for m in vunet.modules()
+              if isinstance(m, pnn.VunetRNB))
+    return fwd, fwd - 2 * 2
+
+
+@pytest.mark.parametrize("remat", [False, "subnet"])
+def test_org_step_through_the_elu_dropout_kernels(cuda, remat):
+    """The org training step with dropout_impl pallas: every dropout site
+    launches the forward kernel and every site that reaches the loss the
+    backward kernel; the loss and the updates equal the same step through
+    the kernels' plain Philox versions (bit-exact keep decisions)."""
+    import torch_port_org_train as T
+
+    tree, batch, noise = T.make_inputs(0)
+    cfg = T.config(dropout_prob=0.05, dropout_impl="pallas", remat=remat)
+    runs = {}
+    for route in ("kernel", "plain"):
+        launch = E._launch_fwd, E._launch_bwd
+        if route == "plain":
+            E._launch_fwd = E.elu_dropout_plain
+            E._launch_bwd = E.elu_dropout_backward_plain
+        E.elu_dropout_fwd_launches = E.elu_dropout_bwd_launches = 0
+        try:
+            gens = tuple(torch.Generator(device=cuda).manual_seed(s)
+                         for s in (1, 2))
+            runs[route] = T.port_steps(tree, batch, noise, n_steps=1,
+                                       device=cuda, cfg=cfg,
+                                       generators=gens)
+        finally:
+            E._launch_fwd, E._launch_bwd = launch
+        if route == "kernel" and not remat:   # remat launches again
+            sites = _org_dropout_sites(T.port_vunet(cfg))
+            assert (E.elu_dropout_fwd_launches,
+                    E.elu_dropout_bwd_launches) == sites
+    (m_k, after_k), (m_p, after_p) = runs["kernel"], runs["plain"]
+    assert abs(m_k[0]["loss"] - m_p[0]["loss"]) <= 1e-5 * abs(m_p[0]["loss"])
+    errs = T.update_errors(tree, after_k, after_p)
+    assert max(errs.values()) <= 1e-3, max(errs.values())

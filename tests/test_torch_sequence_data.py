@@ -166,7 +166,7 @@ def test_image_fetchers_name_their_roadmap_items():
     with pytest.raises(NotImplementedError, match="A12"):
         mine[0]
     mine, _ = _datasets("train", keys=["app_img"])
-    with pytest.raises(NotImplementedError, match="A10a"):
+    with pytest.raises(NotImplementedError, match="A10c"):
         mine[0]
 
 

@@ -4,7 +4,8 @@ dataset, on the CPU.
 A tiny cvbae run (32 px, nf 4->8, B=2, 3 steps, ``dropout_impl: pallas``,
 which on CPU tensors runs the kernel's plain version) writes a
 ``synth.npz`` that ``bdvs-generate-torch --device cpu`` serves; the CLI
-refuses what is not ported, and without ``--device cpu`` it needs a card.
+evaluates (``-m infer``) and resumes (``-r``) the run, refuses what is not
+ported, and without ``--device cpu`` it needs a card.
 The dataset draws what the JAX dataset draws from the same seeds.
 """
 import json
@@ -118,10 +119,27 @@ def test_both_clis_pin_tf32_off(tmp_path, monkeypatch, cli):
 @pytest.mark.parametrize("flags", [["-m", "infer"], ["-r"], ["-f"], ["-v"],
                                    ["-s", "x"], ["-p", "x"]])
 def test_train_cli_unported_options_exit(tmp_path, flags, capsys):
+    """-v, -s and -p are not ported and -f belongs to behavior_net: each
+    exits 2 for a cvbae run.  -m infer and -r are ported for cvbae: on a
+    trained run they evaluate it and resume it (a finished run runs no
+    step)."""
+    path = _config(tmp_path)
+    if flags[0] in ("-m", "-r"):
+        main.main(["-c", path, "--device", "cpu"])
+        out = main.main(["-c", path, "--device", "cpu", *flags])
+        if flags[0] == "-m":
+            assert set(out) == {"ssim", "loss_regressor_posthoc"}
+            assert all(np.isfinite(v) for v in out.values())
+        else:
+            assert out["state"].step == 3
+            assert "Restored reg_ckpt checkpoint at step 3" in (
+                capsys.readouterr().out)
+        return
     with pytest.raises(SystemExit) as e:
-        main.main(["-c", _config(tmp_path), "--device", "cpu", *flags])
+        main.main(["-c", path, "--device", "cpu", *flags])
     assert e.value.code == 2
-    assert "not ported yet" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert ("behavior_net" if flags[0] == "-f" else "not ported yet") in err
 
 
 def test_train_cli_unported_experiment_exits(tmp_path, capsys):

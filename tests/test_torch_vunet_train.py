@@ -192,8 +192,9 @@ def test_laplacian_pyramid_matches_jax():
     assert list(out) == list(ref)
     for k in ref:
         _close(out[k], ref[k], 1e-5)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        perceptual_from_config({"training": {"perceptual": "vgg"}})
+    # "vgg" is ported (held in tests/test_torch_perceptual_vgg.py)
+    vgg = perceptual_from_config({"training": {"perceptual": "vgg"}})
+    assert list(vgg(_t(x))) == list(ref)
     assert isinstance(perceptual_from_config(
         {"training": {"perceptual": "laplacian"}}), LaplacianPyramidFeatures)
 
