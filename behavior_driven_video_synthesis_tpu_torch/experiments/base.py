@@ -2,19 +2,23 @@
 
 Counterpart of ``behavior_driven_video_synthesis_tpu/experiments/base.py``
 for one device: no mesh.  Metrics are averaged over the steps since the
-last log line, printed and appended to ``<log dir>/metrics.jsonl``.
-Checkpoints of a role live in ``<ckpt dir>/<role>`` (``core/checkpoint.py``)
-and are restored whenever they exist, as the JAX experiments do.
+last log line, printed and appended to ``<log dir>/metrics.jsonl``
+through ``core/logging_util.py:MetricLogger``.  Checkpoints of a role live
+in ``<ckpt dir>/<role>`` (``core/checkpoint.py``) and are restored
+whenever they exist, as the JAX experiments do, unless
+``general.fresh_start`` (the answer "n" to the CLI's resume prompt) has
+the role's old saves deleted first.
 """
 from __future__ import annotations
 
-import json
 import os
+import shutil
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..core.checkpoint import CheckpointManager
+from ..core.logging_util import MetricLogger
 
 
 class Experiment:
@@ -24,7 +28,12 @@ class Experiment:
         self.device = torch.device(device)
         for d in dirs.values():
             os.makedirs(d, exist_ok=True)
-        self.debug = bool(config.get("general", {}).get("debug", False))
+        general = config.get("general", {})
+        self.debug = bool(general.get("debug", False))
+        self.logger = MetricLogger(
+            dirs["log"], project=general.get("project_name"),
+            use_wandb=bool(config.get("logging", {}).get("use_wandb",
+                                                         False)))
         self._window = []
 
     def collect(self, metrics: Dict[str, torch.Tensor]) -> None:
@@ -41,14 +50,12 @@ class Experiment:
         if not window and not extra:
             return {}
         keys = window[0].keys() if window else ()
-        avg = {f"{prefix}{k}": float(torch.stack(
-            [m[k].float() for m in window]).mean()) for k in keys}
-        avg.update({f"{prefix}{k}": float(v)
-                    for k, v in (extra or {}).items()})
+        avg = {k: float(torch.stack([m[k].float() for m in window]).mean())
+               for k in keys}
+        avg.update({k: float(v) for k, v in (extra or {}).items()})
         if collected:
             self._window = []
-        with open(os.path.join(self.dirs["log"], "metrics.jsonl"), "a") as f:
-            f.write(json.dumps({"step": step, **avg}) + "\n")
+        avg = self.logger.log(avg, step, prefix=prefix)
         print(f"step {step}: " + ", ".join(
             f"{k[len(prefix):]} {v:.5g}" for k, v in avg.items()))
         return avg
@@ -57,7 +64,13 @@ class Experiment:
         """The role's checkpoint manager and the step of its newest save,
         which ``load(payload)`` has restored (0 and no call without
         one)."""
-        mgr = CheckpointManager(os.path.join(self.dirs["ckpt"], role))
+        directory = os.path.join(self.dirs["ckpt"], role)
+        if (self.config.get("general", {}).get("fresh_start", False)
+                and os.path.isdir(directory) and os.listdir(directory)):
+            print(f"fresh start: clearing stale '{role}' checkpoints under "
+                  f"{directory}")
+            shutil.rmtree(directory)
+        mgr = CheckpointManager(directory)
         out = mgr.restore_latest(map_location="cpu")
         if out is None:
             return mgr, 0

@@ -85,6 +85,16 @@ def to_flax(state_dict: Mapping, plan: Plan) -> Dict[str, Any]:
     return tree
 
 
+def _rnn_l0(key: str, path: Tuple[str, ...]) -> Plan:
+    """An ``nn.LSTM``'s or ``nn.GRU``'s layer-0 weights <-> a flax cell's
+    ``w_ih``, ``w_hh``, ``b_ih``, ``b_hh``."""
+    return [(f"{key}.{w}_l0", path + (f,), kind)
+            for w, f, kind in (("weight_ih", "w_ih", "T"),
+                               ("weight_hh", "w_hh", "T"),
+                               ("bias_ih", "b_ih", "id"),
+                               ("bias_hh", "b_hh", "id"))]
+
+
 def _norm_conv(key: str, path: Tuple[str, ...], v_kind: str = "hwio") -> Plan:
     return [(f"{key}.conv.weight_v", path + ("v",), v_kind),
             (f"{key}.conv.weight_g", path + ("g",), "g"),
@@ -96,12 +106,7 @@ def _norm_conv(key: str, path: Tuple[str, ...], v_kind: str = "hwio") -> Plan:
 # -- behavior net -----------------------------------------------------------
 
 def behavior_net_plan(ib: bool = True, nin: bool = False) -> Plan:
-    plan: Plan = [
-        (f"b_enc.rnn.{w}_l0", ("b_enc", "rnn", f), kind)
-        for w, f, kind in (("weight_ih", "w_ih", "T"),
-                           ("weight_hh", "w_hh", "T"),
-                           ("bias_ih", "b_ih", "id"),
-                           ("bias_hh", "b_hh", "id"))]
+    plan = _rnn_l0("b_enc.rnn", ("b_enc", "rnn"))
     if ib:
         for head in ("mu_fn", "std_fn"):
             plan += _norm_conv(f"b_enc.{head}", ("b_enc", head), "dense_v")
@@ -333,23 +338,14 @@ def regressor_fly_plan() -> Plan:
 def classifier_action_plan() -> Plan:
     """``ClassifierAction``: ``RNN`` <-> ``LSTM_0``, ``fc1`` <-> ``Dense_0``,
     ``fc3`` <-> ``Dense_1`` (``convert_classifier_action``)."""
-    return ([(f"RNN.{w}_l0", ("LSTM_0", f), kind)
-             for w, f, kind in (("weight_ih", "w_ih", "T"),
-                                ("weight_hh", "w_hh", "T"),
-                                ("bias_ih", "b_ih", "id"),
-                                ("bias_hh", "b_hh", "id"))]
-            + _dense("fc1", ("Dense_0",)) + _dense("fc3", ("Dense_1",)))
+    return (_rnn_l0("RNN", ("LSTM_0",)) + _dense("fc1", ("Dense_0",))
+            + _dense("fc3", ("Dense_1",)))
 
 
 def classifier_plan() -> Plan:
     """The post-hoc real/fake ``Classifier``: ``RNN`` (a GRU, torch gate
     order) <-> ``GRUCell_0``, ``fc`` <-> ``Dense_0``."""
-    return ([(f"RNN.{w}_l0", ("GRUCell_0", f), kind)
-             for w, f, kind in (("weight_ih", "w_ih", "T"),
-                                ("weight_hh", "w_hh", "T"),
-                                ("bias_ih", "b_ih", "id"),
-                                ("bias_hh", "b_hh", "id"))]
-            + _dense("fc", ("Dense_0",)))
+    return _rnn_l0("RNN", ("GRUCell_0",)) + _dense("fc", ("Dense_0",))
 
 
 def regressor_plan() -> Plan:
@@ -448,3 +444,27 @@ def sequence_disc_michael_to_flax(state_dict: Mapping) -> Dict[str, Any]:
                        if k.startswith(f"layer{li}.")
                        and k.endswith(".conv1.weight")) for li in (1, 2))
     return to_flax(state_dict, sequence_disc_michael_plan(layers))
+
+
+# -- MT-VAE -------------------------------------------------------------------
+
+def mtvae_plan() -> Plan:
+    """``MTVAE`` (the mapping of the JAX package's ``convert_mtvae``): the
+    LSTMs' layer-0 weights <-> ``w_ih``.., an FCResnet's ``shortcut``,
+    ``fc1``..``fc3`` <-> ``Dense_0``..``Dense_3``, the heads <-> Dense."""
+    plan = _rnn_l0("lstm_enc", ("lstm_enc",)) + _rnn_l0("lstm_dec",
+                                                           ("lstm_dec",))
+    for net in ("latent_enc", "latent_dec"):
+        for i, layer in enumerate(("shortcut", "fc1", "fc2", "fc3")):
+            plan += _dense(f"{net}.{layer}", (net, f"Dense_{i}"))
+    for head in ("make_keypoints", "inv_z", "make_h_dec", "make_c_dec"):
+        plan += _dense(head, (head,))
+    return plan
+
+
+def mtvae_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    return from_flax(_params(tree), mtvae_plan())
+
+
+def mtvae_to_flax(state_dict: Mapping) -> Dict[str, Any]:
+    return to_flax(state_dict, mtvae_plan())

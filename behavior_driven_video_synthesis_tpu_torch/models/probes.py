@@ -1,15 +1,16 @@
 """Probe heads of the behavior experiment: the action classifiers and the
 adversarial regressor trained beside the cVAE, and the post-hoc real/fake
-classifier and start-pose regressor of the inference protocol.
+classifier and start-pose regressor of the inference protocol; and the
+MT-VAE's linear residual block.
 
 Counterpart of ``Classifier``, ``ClassifierAction``,
-``ClassifierActionBeta``, ``Regressor`` and ``RegressorFly`` in
-``behavior_driven_video_synthesis_tpu/models/probes.py:25-93``, with the
+``ClassifierActionBeta``, ``Regressor``, ``RegressorFly`` and ``FCResnet``
+in ``behavior_driven_video_synthesis_tpu/models/probes.py:25-138``, with the
 reference's state-dict names (``RNN.weight_ih_l0``, ``fc1``, ``fc3``;
 ``fc1``..``fc5``), which the JAX package's ``convert_*`` functions read,
 and the same names for the two heads that have no reference converter
 (``Classifier``: ``RNN``, a GRU, and ``fc``; ``Regressor``: ``fc1``..
-``fc3``).  Products run in ``dtype`` while the parameters stay float32,
+``fc3``; ``FCResnet``: the reference's ``shortcut`` and ``fc1``..``fc3``).  Products run in ``dtype`` while the parameters stay float32,
 as the flax modules' ``param_dtype=float32`` has it.  Unlike flax, torch
 needs each input width up front.
 """
@@ -113,3 +114,26 @@ class RegressorFly(nn.Module):
         h = F.relu(linear(self.fc3, h, dt))
         c = F.relu(linear(self.fc4, t_onehot, dt))
         return linear(self.fc5, torch.cat([h, c], dim=-1), dt)
+
+
+class FCResnet(nn.Module):
+    """relu(fc3(relu(fc2(relu(fc1(x)))))) + shortcut(x), fc1 and fc2 at
+    out_dim / 2, through a LayerNorm without scale or bias (eps 1e-5, its
+    statistics in float32 as flax computes them)."""
+
+    def __init__(self, n_in: int, out_dim: int, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.dtype = dtype
+        half = out_dim // 2
+        self.shortcut = nn.Linear(n_in, out_dim, device=device)
+        self.fc1 = nn.Linear(n_in, half, device=device)
+        self.fc2 = nn.Linear(half, half, device=device)
+        self.fc3 = nn.Linear(half, out_dim, device=device)
+
+    def forward(self, x):
+        dt = self.dtype
+        h = F.relu(linear(self.fc1, x, dt))
+        h = F.relu(linear(self.fc2, h, dt))
+        out = F.relu(linear(self.fc3, h, dt)) + linear(self.shortcut, x, dt)
+        return F.layer_norm(out.float(), out.shape[-1:], eps=1e-5).to(dt)

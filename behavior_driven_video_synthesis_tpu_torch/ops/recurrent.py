@@ -1,7 +1,8 @@
 """Full-sequence LSTM and GRU forwards.
 
 Counterpart of ``behavior_driven_video_synthesis_tpu/ops/recurrent.py``
-``LSTM`` (``lengths`` and ``return_sequences``) and ``GRUCell`` (scanned
+``LSTM`` (``lengths``, ``return_sequences`` and ``static_steps``) and
+``GRUCell`` (scanned
 over a sequence, as the JAX package's ``Classifier`` does).  Gate orders
 are torch's ((i, f, g, o); the GRU's (r, z, n) with
 ``n = tanh(W_in x + b_in + r * (W_hn h + b_hn))``) and the parameters keep
@@ -20,7 +21,10 @@ from torch import nn
 
 class LSTM(nn.Module):
     """LSTM over (B, T, D).  With ``lengths`` the carries freeze once
-    t >= length, so the final state is each row's last valid step."""
+    t >= length, so the final state is each row's last valid step.  With
+    ``static_steps=T`` the input is one (B, D) fed the same at each of T
+    steps (the MT-VAE decoder): it is projected once, and autograd sums
+    that projection's gradient over the T steps."""
 
     def __init__(self, input_size: int, hidden: int, dtype=torch.float32,
                  device=None):
@@ -37,12 +41,18 @@ class LSTM(nn.Module):
                 lengths: Optional[torch.Tensor] = None,
                 initial_carry: Optional[Tuple[torch.Tensor,
                                               torch.Tensor]] = None,
-                return_sequences: bool = True):
+                return_sequences: bool = True,
+                static_steps: Optional[int] = None):
         """Returns (hs (B, T, H) or None, (h_fin, c_fin))."""
         dt = self.dtype
-        B, T, _ = xs.shape
-        x_proj = (xs.transpose(0, 1).to(dt) @ self.weight_ih_l0.to(dt).t()
-                  + (self.bias_ih_l0 + self.bias_hh_l0).to(dt))  # (T, B, 4H)
+        bias = (self.bias_ih_l0 + self.bias_hh_l0).to(dt)
+        if static_steps is None:
+            B, T, _ = xs.shape
+            x_proj = (xs.transpose(0, 1).to(dt)
+                      @ self.weight_ih_l0.to(dt).t() + bias)  # (T, B, 4H)
+        else:
+            (B, _), T = xs.shape, static_steps
+            x_proj = xs.to(dt) @ self.weight_ih_l0.to(dt).t() + bias  # (B, 4H)
         if initial_carry is None:
             h = torch.zeros(B, self.hidden, dtype=dt, device=xs.device)
             c = torch.zeros_like(h)
@@ -51,7 +61,8 @@ class LSTM(nn.Module):
         w_hh = self.weight_hh_l0.to(dt).t()
         hs = []
         for t in range(T):
-            i, f, g, o = torch.chunk(x_proj[t] + h @ w_hh, 4, dim=-1)
+            xp = x_proj if static_steps is not None else x_proj[t]
+            i, f, g, o = torch.chunk(xp + h @ w_hh, 4, dim=-1)
             c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
             h_new = torch.sigmoid(o) * torch.tanh(c_new)
             if lengths is not None:

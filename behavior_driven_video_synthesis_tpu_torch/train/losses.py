@@ -4,8 +4,9 @@ Counterpart of ``behavior_driven_video_synthesis_tpu/train/losses.py:22-100``:
 ``kl_loss`` (diagonal Gaussian to N(0, 1)), ``latent_kl`` and
 ``compute_kl_loss`` (the original VUNet's KL between per-scale means),
 ``compute_kl_with_prior`` (cvbae), ``vgg_loss`` (weighted L1 over a
-feature pyramid), and the behavior step's ``mse_loss``,
-``recon_loss_per_seq``, ``cross_entropy`` and ``accuracy``.
+feature pyramid), the behavior step's ``mse_loss``,
+``recon_loss_per_seq``, ``cross_entropy`` and ``accuracy``, and the MT-VAE
+step's ``l1_loss``.
 """
 from __future__ import annotations
 
@@ -57,6 +58,10 @@ def vgg_loss(feats_target: Dict[str, torch.Tensor],
 
 def mse_loss(pred, target):
     return torch.mean((pred - target) ** 2)
+
+
+def l1_loss(pred, target):
+    return torch.mean(torch.abs(pred - target))
 
 
 def recon_loss_per_seq(pred, target):

@@ -1,8 +1,9 @@
-"""The optimizers of the cvbae and behavior experiments.
+"""The optimizers of the cvbae, behavior and MT-VAE experiments.
 
 Counterpart of ``behavior_driven_video_synthesis_tpu/train/state.py``,
-``experiments/shape_and_pose_net.py:138-156`` and
-``experiments/behavior_net.py:95-114, 205-213``.  ``torch.optim.Adam`` is
+``experiments/shape_and_pose_net.py:138-156``,
+``experiments/behavior_net.py:95-114, 205-213`` and
+``experiments/mt_vae.py:33-40``.  ``torch.optim.Adam`` is
 optax's ``adam`` exactly (eps 1e-8 outside the square root, bias
 correction from the first step) and, with ``weight_decay``, the JAX
 package's ``torch_adam``: the L2 term joins the gradient before the
@@ -76,3 +77,12 @@ def make_flow_optimizer(flow: nn.Module, training: dict
         * int(training["batch_size"]),
         betas=(0.5, 0.9), weight_decay=float(training.get("weight_decay",
                                                           0.0)))
+
+
+def make_mtvae_optimizer(model: nn.Module, training: dict
+                         ) -> torch.optim.Adam:
+    """The MT-VAE's Adam: lr ``lr_init``, with ``weight_decay`` as an L2
+    term in the gradient (the yaml's 1e-12)."""
+    return torch.optim.Adam(
+        model.parameters(), lr=float(training.get("lr_init", 1e-4)),
+        weight_decay=float(training.get("weight_decay", 0.0)))

@@ -107,7 +107,23 @@ CUDA toolkit (nvcc) and PyTorch.  It imports no JAX.  Phases:
     ``tests/golden/torch_port_org_train_small.npz`` (three JAX steps;
     weights, batch and noise rebuilt from its numpy seed), in f32 with
     TF32 off: the metrics at rtol 1e-4 and every leaf's update within 5 %
-    of the JAX update.
+    of the JAX update;
+16. the MT-VAE experiment at full width through ``main`` in-process:
+    ``configs/mt_vae.yaml`` as published (B=256, T=61 with n_cond 10 and
+    51 predicted frames, 51 keypoints, dim 1024, z 512, f32) with
+    ``general.debug`` (2 epochs of 8 batches), every metric finite, the
+    median step, sequences/s, one profiled step's busy share, launches
+    and top kernels, peak memory; ``-r`` runs no step; ``-m infer`` (2
+    batches x 50 prior samples, 50 post-hoc iterations) with its wall time
+    by stage, its summary keys the JAX experiment's and all finite; ``-p`` of
+    the run with ``-d`` restores the copied save in the "debug" project
+    and runs no step; the same training with ``training.bf16`` beside the
+    f32 step.  No hand-written kernel is on this path;
+17. the port's MT-VAE step at small width against
+    ``tests/golden/torch_port_mtvae_small.npz`` (two JAX steps; weights,
+    batch and draws rebuilt from its numpy seed), in f32 with TF32 off:
+    the metrics at rtol 1e-4 and every leaf's update within 5 % of the
+    JAX update.
 
 The last two lines are a JSON object of kernel results and
 ``{"ok": true, "device": {...}}``; any failure exits non-zero before them.
@@ -140,7 +156,7 @@ from behavior_driven_video_synthesis_tpu_torch.core.config import (
 from behavior_driven_video_synthesis_tpu_torch.core.precision import (
     disable_tf32)
 from behavior_driven_video_synthesis_tpu_torch.experiments import (
-    behavior_net, shape_and_pose_net)
+    behavior_net, mt_vae, shape_and_pose_net)
 from behavior_driven_video_synthesis_tpu_torch.experiments.data_factory import (
     build_sequence_data)
 from behavior_driven_video_synthesis_tpu_torch.flax_npz import (
@@ -1464,26 +1480,30 @@ def phase_org():
 
 
 # -- 10. behavior_net training at full width ----------------------------------
-class BehaviorRecorder:
-    """Wraps the cVAE and flow steps that ``experiments/behavior_net.py``
-    makes: each step runs between two ``torch.cuda.synchronize()`` calls
-    and is recorded with its metrics; the last call of each stage is kept
-    for the profiler."""
+BEHAVIOR_MAKERS = (("make_behavior_train_step", "cvae"),
+                   ("make_flow_train_step", "flow"))
 
-    def __init__(self):
-        self.steps = {"cvae": [], "flow": []}
+
+class BehaviorRecorder:
+    """Wraps the step makers of an experiment module (by default the cVAE
+    and flow steps of ``experiments/behavior_net.py``): each step runs
+    between two ``torch.cuda.synchronize()`` calls and is recorded with
+    its metrics; the last call of each stage is kept for the profiler."""
+
+    def __init__(self, owner=behavior_net, makers=BEHAVIOR_MAKERS):
+        self.owner, self.makers = owner, makers
+        self.steps = {stage: [] for _, stage in makers}
         self.last = {}
         self._made = {}
 
     def install(self):
-        for name, stage in (("make_behavior_train_step", "cvae"),
-                            ("make_flow_train_step", "flow")):
-            self._made[name] = make = getattr(behavior_net, name)
-            setattr(behavior_net, name, self._wrap(make, stage))
+        for name, stage in self.makers:
+            self._made[name] = make = getattr(self.owner, name)
+            setattr(self.owner, name, self._wrap(make, stage))
 
     def uninstall(self):
         for name, make in self._made.items():
-            setattr(behavior_net, name, make)
+            setattr(self.owner, name, make)
 
     def _wrap(self, make, stage):
         def recorded_make(*args, **kwargs):
@@ -1889,11 +1909,12 @@ def write_config(base, name, cfg):
     return path
 
 
-def run_recorded(argv, profile_stage=None):
-    """``main`` with its cVAE and flow steps recorded; with
-    ``profile_stage``, one more step of that stage profiled after the run.
-    Returns (main's result, the steps, the profile or None)."""
-    recorder = BehaviorRecorder()
+def run_recorded(argv, profile_stage=None, recorder=None):
+    """``main`` with its steps recorded (by default behavior_net's cVAE
+    and flow steps); with ``profile_stage``, one more step of that stage
+    profiled after the run.  Returns (main's result, the steps, the
+    profile or None)."""
+    recorder = recorder or BehaviorRecorder()
     recorder.install()
     try:
         out = train_cli.main(argv)
@@ -2389,6 +2410,209 @@ def phase_org_train_golden():
           "golden org training step out of tolerance")
 
 
+# -- 16. the MT-VAE experiment at full width -----------------------------------
+MTVAE_CONFIG = os.path.join(ROOT, "configs", "mt_vae.yaml")
+MTVAE_GOLDEN = os.path.join(ROOT, "tests", "golden",
+                            "torch_port_mtvae_small.npz")
+MTVAE_STEPS = 16          # debug: 2 epochs of 8 batches of 256
+
+
+def mtvae_recorder():
+    return BehaviorRecorder(mt_vae, (("make_mtvae_train_step", "mtvae"),))
+
+
+def mtvae_config(base_dir, **sections):
+    """configs/mt_vae.yaml under base_dir with ``general.debug`` (2 epochs
+    of 8 batches, as ``--debug``) in its own project, so that ``-p -d``
+    can warm-start the "debug" project beside it."""
+    return deep_merge(load_config(MTVAE_CONFIG), deep_merge(
+        {"general": {"base_dir": base_dir, "debug": True}}, sections))
+
+
+def mtvae_summary_keys(t_out):
+    """The JAX experiment's summary keys at t_out predicted frames (held
+    against a live JAX run in tests/test_torch_mtvae_cli.py)."""
+    starts = dict.fromkeys(min(t, t_out - 1) for t in (0, 10, 20, 30, 40, 49))
+    per_start = [f"_t{t}" for t in starts] + [""]
+    return ({"APD", "ASD", "FSD", "ADE", "FDE", "self_recon_mse", "ADE_c",
+             "FDE_c"} | {f"DE{t}" for t in per_start}
+            | {f"{p}_{s}{t}" for p in ("score", "acc")
+               for s in ("prior", "self", "cross") for t in per_start})
+
+
+def kernel_launches():
+    return dict(rollout=rollout.rollout_launches,
+                elu_dropout_fwd=elu_dropout.elu_dropout_fwd_launches,
+                elu_dropout_bwd=elu_dropout.elu_dropout_bwd_launches,
+                fused_rnb=fused_rnb.fused_rnb_launches)
+
+
+def zero_kernel_launches():
+    rollout.rollout_launches = fused_rnb.fused_rnb_launches = 0
+    elu_dropout.elu_dropout_fwd_launches = 0
+    elu_dropout.elu_dropout_bwd_launches = 0
+
+
+def timed_mtvae_inference(path):
+    """``main -m infer`` on an mtvae run with its stages timed; returns
+    (summary, wall s, stage ms, peak bytes)."""
+    timer = StageTimer()
+    timer.wrap(mt_vae.CheckpointManager, "restore_latest", "restore")
+    timer.wrap(mt_vae.MTVAEExperiment, "_sample_prior", "prior sampling",
+               static=True)
+    timer.wrap(mt_vae, "sequence_sample_metrics", "sample metrics")
+    timer.wrap(mt_vae, "cross_transfer_metrics", "sample metrics")
+    timer.wrap(mt_vae, "train_posthoc_classifiers", "post-hoc probes")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        summary = train_cli.main(["-c", path, "--device", "cuda", "-m",
+                                  "infer"])
+        torch.cuda.synchronize()
+    finally:
+        timer.uninstall()
+    wall = time.perf_counter() - t0
+    timer.ms["other (self and cross forwards, data)"] = (
+        wall * 1e3 - sum(timer.ms.values()))
+    return summary, wall, timer.ms, torch.cuda.max_memory_allocated()
+
+
+def phase_mtvae():
+    base = tempfile.mkdtemp(prefix="chip_smoke_mtvae_")
+    try:
+        RESULTS["mtvae"] = _phase_mtvae(base)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def _phase_mtvae(base):
+    cfg = mtvae_config(base)
+    path = write_config(base, "mt_vae.yaml", cfg)
+    batch = int(cfg["training"]["batch_size"])
+    project = cfg["general"]["project_name"]
+    run_dir = os.path.join(base, "mtvae")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_launches()
+    t0 = time.perf_counter()
+    run, steps, prof = run_recorded(["-c", path, "--device", "cuda"],
+                                    "mtvae", mtvae_recorder())
+    wall = time.perf_counter() - t0
+    launches = kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    steps = steps["mtvae"]
+    model = run["model"]
+    T = int(cfg["data"]["seq_length"][0]) + 1
+    log(f"[16] mtvae at full width (configs/mt_vae.yaml, general.debug) "
+        f"through bdvs-train-torch's main: B={batch}, T={T} (n_cond "
+        f"{model.n_cond}), {model.n_in} keypoints, dim {model.dim}, "
+        f"{model.dtype}, TF32 off; {run['n_params']} parameters; "
+        f"{len(steps)} steps in {wall:.1f} s (the profiled step after "
+        f"them included); launches of the hand-written kernels "
+        f"{launches} (none is on this path)")
+    check(len(steps) == MTVAE_STEPS and all(
+        np.isfinite(v) for r in steps for v in r.values()),
+        f"{len(steps)} mtvae steps, or a metric is not finite")
+    for r in steps[:2] + steps[-1:]:
+        log(f"    step {r['step']}: {r['ms']:.2f} ms; " + ", ".join(
+            f"{k} {v:.5g}" for k, v in r.items() if k not in ("step", "ms")))
+    ms = float(np.median([r["ms"] for r in steps[1:]]))
+    log(f"    median step after the first {ms:.2f} ms, "
+        f"{batch * 1e3 / ms:.1f} sequences/s; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    with open(os.path.join(run_dir, "log", project, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    check([r["step"] for r in lines] == [8, 16] and all(
+        np.isfinite(v) for r in lines for v in r.values()),
+        f"metrics.jsonl steps {[r['step'] for r in lines]}")
+    del run, model
+    out = dict(steps=steps, step_ms_median=ms,
+               sequences_per_s=batch * 1e3 / ms, peak_gib=peak / 2**30,
+               wall_s=wall, profile=prof, kernel_launches=launches)
+
+    again, rsteps, _ = run_recorded(["-c", path, "--device", "cuda", "-r"],
+                                    recorder=mtvae_recorder())
+    check(not rsteps["mtvae"] and again["state"].step == MTVAE_STEPS,
+          f"-r after the run ran {len(rsteps['mtvae'])} steps")
+    log(f"    -r after the run: restored step {again['state'].step}, no "
+        f"step run")
+    del again
+
+    summary, iwall, stage_ms, ipeak = timed_mtvae_inference(path)
+    want = mtvae_summary_keys(T - int(cfg["training"]["n_cond"]))
+    check(set(summary) == want, f"-m infer summary keys differ by "
+          f"{sorted(set(summary) ^ want)}")
+    check(all(np.isfinite(v) for v in summary.values()),
+          "a -m infer summary value is not finite")
+    log(f"    -m infer (2 batches x 50 prior samples, 50 post-hoc "
+        f"iterations): {len(summary)} summary keys, all finite, equal to "
+        f"the JAX experiment's; wall {iwall:.1f} s, peak {ipeak / 2**30:.2f} "
+        f"GiB; stages (ms): " + ", ".join(f"{k} {v:.0f}"
+                                          for k, v in stage_ms.items()))
+    log("    " + ", ".join(f"{k} {summary[k]:.4g}" for k in (
+        "ADE", "FDE", "APD", "self_recon_mse", "ADE_c", "FDE_c",
+        "score_prior", "acc_prior", "score_cross", "DE")))
+    out["infer"] = dict(summary=summary, wall_s=iwall, stage_ms=stage_ms,
+                        peak_gib=ipeak / 2**30)
+
+    pretrained = os.path.join(run_dir, "config", project)
+    warm, wsteps, _ = run_recorded(
+        ["-c", path, "--device", "cuda", "-p", pretrained, "-d"],
+        recorder=mtvae_recorder())
+    saves = sorted(os.listdir(os.path.join(run_dir, "ckpt", "debug",
+                                           "reg_ckpt")))
+    check(not wsteps["mtvae"] and warm["state"].step == MTVAE_STEPS
+          and saves == sorted(os.listdir(os.path.join(
+              run_dir, "ckpt", project, "reg_ckpt"))),
+          f"-p -d: {len(wsteps['mtvae'])} steps, saves {saves}")
+    log(f"    -p {project} -d: the 'debug' project restored the copied "
+        f"step {warm['state'].step} ({saves}), no step run")
+    del warm
+
+    cfg16 = mtvae_config(base, general={"project_name": "bf16"},
+                         training={"bf16": True})
+    bf, bsteps, bprof = run_recorded(
+        ["-c", write_config(base, "bf16.yaml", cfg16), "--device", "cuda"],
+        "mtvae", mtvae_recorder())
+    bsteps = bsteps["mtvae"]
+    check(len(bsteps) == MTVAE_STEPS and bf["model"].dtype == torch.bfloat16
+          and all(p.dtype == torch.float32 for p in bf["model"].parameters())
+          and all(np.isfinite(v) for r in bsteps for v in r.values()),
+          "the bf16 mtvae run's steps or dtypes")
+    del bf
+    ms16 = float(np.median([r["ms"] for r in bsteps[1:]]))
+    log(f"    training.bf16: median step after the first {ms16:.2f} ms, "
+        f"{batch * 1e3 / ms16:.1f} sequences/s, beside f32 {ms:.2f} ms "
+        f"(x{ms / ms16:.3f}); last step " + ", ".join(
+            f"{k} {v:.4g}" for k, v in bsteps[-1].items()
+            if k in ("loss", "rec_loss", "kl_loss")))
+    out["bf16"] = dict(steps=bsteps, step_ms_median=ms16,
+                       sequences_per_s=batch * 1e3 / ms16, profile=bprof)
+    return out
+
+
+# -- 17. the MT-VAE step against the JAX package's golden ----------------------
+def phase_mtvae_golden():
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_port_mtvae as TM
+
+    with np.load(MTVAE_GOLDEN) as data:
+        golden = unflatten_tree({k: data[k] for k in data.files})
+    tree, batch, noise = TM.golden_inputs(golden)
+    metrics, after = TM.port_steps(tree, batch, noise, device=DEV)
+    worst_m, worst_u = TM.check_against_golden(metrics, tree, after, golden)
+    log(f"[17] golden mtvae step x{len(metrics)} (f32, TF32 off): worst "
+        f"metric error / tolerance {worst_m:.3f}, worst update error / "
+        f"tolerance {worst_u:.3f} (each <= 1)")
+    RESULTS["golden_mtvae"] = dict(metric_err_over_tol=worst_m,
+                                   update_err_over_tol=worst_u)
+    check(worst_m <= 1.0 and worst_u <= 1.0,
+          "golden mtvae training step out of tolerance")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch "
                                  "port on one NVIDIA GPU")
@@ -2423,6 +2647,8 @@ def main(argv=None):
     vunet_launches = phase_vunet(cvbae_base, cvbae_path)
     elu_launches = tuple(a + b for a, b in zip(elu_launches, vunet_launches))
     phase_org_train_golden()
+    phase_mtvae()
+    phase_mtvae_golden()
     bound, bound_by = rollout_bound_ms(*ROLLOUT_SHAPES[0])
     source = "behavior_driven_video_synthesis_tpu_torch/csrc/"
     pallas = "behavior_driven_video_synthesis_tpu/ops/pallas/"

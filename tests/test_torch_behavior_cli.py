@@ -125,7 +125,7 @@ def test_debug_run_writes_metrics_checkpoints_and_behavior_files(run):
     assert [r["step"] for r in by_prefix["train/"]] == [4, 8]
     assert [r["step"] for r in by_prefix["eval/"]] == [4, 8]
     assert [r["step"] for r in by_prefix["flow/"]] == [FLOW_STEPS]
-    assert len(by_prefix["train/"][0]) == 1 + 13
+    assert len(by_prefix["train/"][0]) == 2 + 13    # step, time, metrics
     assert all(np.isfinite(v) for r in lines for v in r.values())
     assert 0.0 < by_prefix["flow/"][0]["flow/flow_ks_p"] <= 1.0
     ckpt = _run_dir(tmp) / "ckpt" / "debug"
@@ -270,7 +270,8 @@ def test_infer_after_training_logs_an_infer_line(tiny_run):
     assert all(np.isfinite(v) for v in summary.values())
     lines = _infer_lines(_run_dir(tmp), "tiny")
     assert len(lines) == 1 and lines[0]["step"] == 0
-    assert {k: v for k, v in lines[0].items() if k != "step"} == {
+    assert {k: v for k, v in lines[0].items()
+            if k not in ("step", "time")} == {
         f"infer/{k}": v for k, v in summary.items()}
 
 

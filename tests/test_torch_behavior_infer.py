@@ -50,7 +50,8 @@ def test_run_inference_summary_matches_jax(jax_inference, tmp_path):
               "metrics.jsonl") as f:
         line = __import__("json").loads(f.readlines()[-1])
     assert line["step"] == 0
-    assert {k[len("infer/"):] for k in line if k != "step"} == set(ref)
+    assert {k[len("infer/"):] for k in line
+            if k not in ("step", "time")} == set(ref)
 
 
 _F32_CONFIG = TB.config

@@ -16,6 +16,8 @@ plain version round elu(x) and W to bf16 and accumulate in f32; they
 differ in summation order and, rarely, in a bf16 rounding of elu(x) or of
 the output, so atol 1e-2, rtol 1e-2.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -450,3 +452,22 @@ def test_org_step_through_the_elu_dropout_kernels(cuda, remat):
     assert abs(m_k[0]["loss"] - m_p[0]["loss"]) <= 1e-5 * abs(m_p[0]["loss"])
     errs = T.update_errors(tree, after_k, after_p)
     assert max(errs.values()) <= 1e-3, max(errs.values())
+
+
+def test_mtvae_steps_on_the_card_hold_the_golden(cuda):
+    """The small MT-VAE step (no hand-written kernel) on the card against
+    the JAX package's golden, as chip_smoke.py phase [17] holds it: the
+    metrics at rtol 1e-4, every leaf's update within 5 %."""
+    import torch_port_mtvae as TM
+
+    from behavior_driven_video_synthesis_tpu_torch.flax_npz import (
+        unflatten_tree)
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "golden", "torch_port_mtvae_small.npz")
+    with np.load(path) as data:
+        golden = unflatten_tree({k: data[k] for k in data.files})
+    tree, batch, noise = TM.golden_inputs(golden)
+    metrics, after = TM.port_steps(tree, batch, noise, device=cuda)
+    worst_m, worst_u = TM.check_against_golden(metrics, tree, after, golden)
+    assert worst_m <= 1.0 and worst_u <= 1.0, (worst_m, worst_u)

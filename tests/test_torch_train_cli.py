@@ -4,12 +4,19 @@ dataset, on the CPU.
 A tiny cvbae run (32 px, nf 4->8, B=2, 3 steps, ``dropout_impl: pallas``,
 which on CPU tensors runs the kernel's plain version) writes a
 ``synth.npz`` that ``bdvs-generate-torch --device cpu`` serves; the CLI
-evaluates (``-m infer``) and resumes (``-r``) the run, refuses what is not
-ported, and without ``--device cpu`` it needs a card.
-The dataset draws what the JAX dataset draws from the same seeds.
+evaluates (``-m infer``) and resumes (``-r``) the run, warm-starts another
+from it (``-p``), asks on a terminal whether to resume it (``fresh_start``
+on "n"), re-roots it under ``DATAPATH``, accepts ``--gpu``, refuses what
+is not ported, and without ``--device cpu`` it needs a card; the metric
+log writes its lines and forwards them to wandb.  The dataset draws what
+the JAX dataset draws from the same seeds.
 """
+import io
 import json
 import os
+import shutil
+import sys
+import types
 
 import numpy as np
 import pytest
@@ -117,12 +124,12 @@ def test_both_clis_pin_tf32_off(tmp_path, monkeypatch, cli):
 
 
 @pytest.mark.parametrize("flags", [["-m", "infer"], ["-r"], ["-f"], ["-v"],
-                                   ["-s", "x"], ["-p", "x"]])
+                                   ["-s", "x"]])
 def test_train_cli_unported_options_exit(tmp_path, flags, capsys):
-    """-v, -s and -p are not ported and -f belongs to behavior_net: each
-    exits 2 for a cvbae run.  -m infer and -r are ported for cvbae: on a
-    trained run they evaluate it and resume it (a finished run runs no
-    step)."""
+    """-v and -s (the figures) are not ported and -f belongs to
+    behavior_net: each exits 2 for a cvbae run.  -m infer and -r are
+    ported for cvbae: on a trained run they evaluate it and resume it (a
+    finished run runs no step); -p has its own tests below."""
     path = _config(tmp_path)
     if flags[0] in ("-m", "-r"):
         main.main(["-c", path, "--device", "cpu"])
@@ -139,10 +146,13 @@ def test_train_cli_unported_options_exit(tmp_path, flags, capsys):
         main.main(["-c", path, "--device", "cpu", *flags])
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert ("behavior_net" if flags[0] == "-f" else "not ported yet") in err
+    assert ("behavior_net" if flags[0] == "-f"
+            else "not ported yet (the figures, ROADMAP A12)") in err
 
 
 def test_train_cli_unported_experiment_exits(tmp_path, capsys):
+    """Every experiment of the JAX registry is ported; a name outside it
+    exits 2 before any run directory exists."""
     path = _config(tmp_path)
     cfg = load_config(path)
     cfg["general"]["experiment"] = "mt_vae"
@@ -151,7 +161,138 @@ def test_train_cli_unported_experiment_exits(tmp_path, capsys):
     with pytest.raises(SystemExit) as e:
         main.main(["-c", path, "--device", "cpu"])
     assert e.value.code == 2
-    assert "not ported yet" in capsys.readouterr().err
+    assert "unknown experiment: 'mt_vae'" in capsys.readouterr().err
+    assert not (tmp_path / "runs").exists()
+
+
+SAVES = ["step_2.pt", "step_3.pt"]     # ckpt_steps 2, and the last step
+
+
+def _ckpt(tmp_path, project):
+    return tmp_path / "runs" / "cvbae" / "ckpt" / project / "reg_ckpt"
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """A finished tiny cvbae run (3 steps, project "tiny")."""
+    tmp = tmp_path_factory.mktemp("trained")
+    main.main(["-c", _config(tmp), "--device", "cpu"])
+    return tmp
+
+
+def _copy_run(trained, tmp_path) -> str:
+    """The trained run under tmp_path, as if trained there; returns its
+    config's path."""
+    shutil.copytree(trained / "runs", tmp_path / "runs")
+    dumped = tmp_path / "runs" / "cvbae" / "config" / "tiny" / "config.yaml"
+    cfg = load_config(dumped)
+    cfg["general"]["base_dir"] = str(tmp_path / "runs")
+    with open(dumped, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return _config(tmp_path)
+
+
+@pytest.mark.parametrize("how", ["moved", "debug", "in_place"])
+def test_pretrained_warm_start(trained, tmp_path, how, capsys):
+    """-p adopts a trained run's config and copies its checkpoints into
+    the new run, which restores them (the 3-step run is finished, so no
+    step runs).  "moved": the run was moved away, so its adopted config
+    names a fresh directory, given as the experiment root; "debug": -p
+    with --debug writes into the "debug" project beside it, from its
+    config directory; "in_place": the run is where its config says, so
+    -p goes on in it and warns."""
+    path = _copy_run(trained, tmp_path)
+    src = tmp_path / "runs" / "cvbae"
+    if how == "moved":
+        os.rename(tmp_path / "runs", tmp_path / "trained")
+        src = tmp_path / "trained" / "cvbae"
+    pretrained = str(src / "config" / "tiny") if how == "debug" else str(src)
+    capsys.readouterr()
+    out = main.main(["-c", path, "--device", "cpu", "-p", pretrained]
+                    + (["-d"] if how == "debug" else []))
+    printed = capsys.readouterr().out
+    assert out["state"].step == 3
+    assert "Restored reg_ckpt checkpoint at step 3" in printed
+    project = "debug" if how == "debug" else "tiny"
+    assert sorted(os.listdir(_ckpt(tmp_path, project))) == SAVES
+    assert ("IN PLACE" in printed) == (how == "in_place")
+    assert ("warm start: copied" in printed) == (how != "in_place")
+    if how == "debug":   # the pretrained run is left as it was
+        assert sorted(os.listdir(_ckpt(tmp_path, "tiny"))) == SAVES
+
+
+def test_pretrained_needs_one_project(tmp_path):
+    (tmp_path / "run" / "config" / "a").mkdir(parents=True)
+    with pytest.raises(FileNotFoundError, match="exactly one"):
+        main.main(["-c", _config(tmp_path), "--device", "cpu", "-p",
+                   str(tmp_path / "run")])
+
+
+def test_datapath_reroots_the_run_and_the_data(tmp_path, monkeypatch):
+    monkeypatch.setenv("DATAPATH", str(tmp_path / "root"))
+    cfg = load_config(_config(tmp_path))
+    cfg["general"]["base_dir"] = "/runs/"
+    cfg["data"]["datapath"] = "data/h36m"
+    config, dirs = main.load_parameters(cfg, debug=False)
+    assert dirs["ckpt"] == str(tmp_path / "root" / "runs" / "cvbae" / "ckpt"
+                               / "tiny")
+    assert config["data"]["datapath"] == str(tmp_path / "root" / "data"
+                                             / "h36m")
+    assert (tmp_path / "root" / "runs" / "cvbae" / "config" / "tiny"
+            / "config.yaml").is_file()
+
+
+class _Tty(io.StringIO):
+    def isatty(self):
+        return True
+
+
+@pytest.mark.parametrize("answers", [["y"], ["maybe", "n"]])
+def test_resume_prompt_on_a_terminal(trained, tmp_path, monkeypatch,
+                                     capsys, answers):
+    """A run whose directory holds a config asks on a terminal: "y"
+    resumes (the 3-step run is finished: no step, its save kept); "n"
+    (after an answer that is neither) starts over: the old saves are
+    deleted and the run trains its 3 steps again."""
+    path = _copy_run(trained, tmp_path)
+    ckpt = _ckpt(tmp_path, "tiny")
+    os.utime(ckpt / "step_3.pt", (0, 0))
+    asked = list(answers)
+    monkeypatch.setattr(sys, "stdin", _Tty())
+    monkeypatch.setattr("builtins.input", lambda prompt: asked.pop(0))
+    capsys.readouterr()
+    out = main.main(["-c", path, "--device", "cpu"])
+    printed = capsys.readouterr().out
+    assert not asked and out["state"].step == 3
+    fresh = answers[-1] == "n"
+    assert ("Invalid answer" in printed) == (len(answers) > 1)
+    assert ("fresh start: clearing stale 'reg_ckpt'" in printed) == fresh
+    assert ("Restored reg_ckpt checkpoint at step 3" in printed) != fresh
+    assert sorted(os.listdir(ckpt)) == SAVES
+    assert (os.path.getmtime(ckpt / "step_3.pt") > 0) == fresh
+    # "n" holds for that run only: -r after it restores what it saved
+    dumped = load_config(tmp_path / "runs" / "cvbae" / "config" / "tiny"
+                         / "config.yaml")
+    assert "fresh_start" not in dumped["general"]
+    monkeypatch.setattr(sys, "stdin", io.StringIO())
+    assert main.main(["-c", path, "--device", "cpu", "-r"])[
+        "state"].step == 3
+    assert "Restored reg_ckpt checkpoint at step 3" in (
+        capsys.readouterr().out)
+
+
+def test_off_a_terminal_the_run_is_not_asked(trained, tmp_path,
+                                             monkeypatch):
+    path = _copy_run(trained, tmp_path)
+    monkeypatch.setattr("builtins.input", lambda prompt: 1 / 0)
+    assert main.main(["-c", path, "--device", "cpu"])["state"].step == 3
+
+
+def test_gpu_is_accepted_and_has_no_effect():
+    args = main.parse_args(["-c", "x.yaml", "--gpu", "0", "1", "--device",
+                            "cpu"])
+    assert args.gpu == [0, 1] and args.device == "cpu"
+    assert main.parse_args(["-c", "x.yaml", "--gpu"]).device == "cuda"
 
 
 def test_debug_caps_the_run_and_rbg_is_accepted(tmp_path):
@@ -191,3 +332,30 @@ def test_dataset_draws_what_the_jax_dataset_draws():
                          .round().reshape(-1, 3).int().tolist()))
         assert colors <= ({(60 + 10 * (p % 4),) * 3}
                           | set(map(tuple, mine.palettes[p].tolist())))
+
+
+@pytest.mark.parametrize("wandb", ["installed", "missing"])
+def test_metric_log_writes_lines_and_forwards_to_wandb(tmp_path, monkeypatch,
+                                                       wandb):
+    """Each call appends {"step", "time", <prefix><name>} to
+    metrics.jsonl and, with use_wandb, logs the same scalars to wandb
+    where it imports; where it does not, the run goes on without it."""
+    from behavior_driven_video_synthesis_tpu_torch.core.logging_util import (
+        MetricLogger)
+
+    calls = []
+    fake = types.SimpleNamespace(init=lambda **kw: calls.append(kw),
+                                 log=lambda m, step: calls.append((step, m)))
+    monkeypatch.setitem(sys.modules, "wandb",
+                        fake if wandb == "installed" else None)
+    logger = MetricLogger(str(tmp_path / "log"), project="p", use_wandb=True)
+    assert logger.log({"loss": 1.5, "n": 2}, 3, prefix="train/") == {
+        "train/loss": 1.5, "train/n": 2.0}
+    with open(tmp_path / "log" / "metrics.jsonl") as f:
+        line = json.loads(f.read())
+    assert line.pop("time") > 0
+    assert line == {"step": 3, "train/loss": 1.5, "train/n": 2.0}
+    assert calls == ([{"project": "p", "dir": str(tmp_path / "log"),
+                       "resume": "allow"},
+                      (3, {"train/loss": 1.5, "train/n": 2.0})]
+                     if wandb == "installed" else [])
