@@ -17,18 +17,54 @@ parallel numpy arrays (``datadict``) with per-key fetchers in
   * the per-action tables and ``_match_subsequence`` pair a sequence with
     its nearest same-action window under pose encodings.
 
-The image, stickman and part fetchers (JAX ``:310-452``) raise
-``NotImplementedError``: the image fetchers come with the real image
-datasets (ROADMAP A10c), the stickman and synthesis-weight fetchers with
-the figures (A12).
+The image half (JAX ``:220-246``, ``:310-452``): ``_load_image_rgb``
+decodes a JPEG through the port's libjpeg binding (``data/native.py``,
+DCT-scaled to the smallest size not below ``spatial_size``) unless the
+library is missing or the file carries an EXIF orientation, else with
+cv2 (BGR to RGB); ``_prep_image`` resizes to ``spatial_size`` (cv2
+``INTER_LINEAR``); the pose, appearance and in-plane fetchers give float32
+[-1, 1] HWC images, the appearance of the item's ``map_ids`` frame, with
+``inplane_normalize`` the part stacks of ``data/parts.py``; the stickman
+is the host cv2 raster (``geometry/stickman.py:make_joint_img``) of
+``_get_kps_for_rendering``; with ``train_regressor`` an item also holds
+``reg_imgs`` and ``reg_targets``, the probe images of its first frame and
+``reg_steps - 1`` random frames and their keypoints over
+``spatial_size``.  The part stacks are left to the device: an item holds
+what they are made from (``data/parts.py:PartStackSource``), which
+``data/parts.py:finish_part_stacks`` turns into the stacks of a batch.
+The synthesis-weight
+fetcher raises ``NotImplementedError`` (ROADMAP A12).
 """
 from __future__ import annotations
 
+import threading
+from collections import Counter
 from typing import Callable, Dict, Optional
 
 import numpy as np
 
-from ..geometry.stickman import JointModel
+from ..geometry.stickman import JointModel, get_line_colors, make_joint_img
+from . import native
+from .parts import PART_SUFFIXES, PartStackSource, part_stack_source
+
+# images decoded by each route since the process started (or the last
+# reset by the caller): "native" (libjpeg) or "cv2"
+DECODES: Counter = Counter()
+_DECODES_LOCK = threading.Lock()
+
+
+def _cv2():
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError("the image datasets read, resize and warp images "
+                          "with OpenCV, and cv2 is not installed") from e
+    return cv2
+
+
+def _count(route: str) -> None:
+    with _DECODES_LOCK:
+        DECODES[route] += 1
 
 
 def _unported(what: str, item: str) -> Callable:
@@ -52,9 +88,16 @@ class BaseDataset:
         self.spatial_size = int(kwargs.get("spatial_size", 256))
         self.box_factor = int(kwargs.get("box_factor", 2))
         self.sequential_frame_lag = int(kwargs.get("sequential_frame_lag", 1))
+        self.use_crops = bool(kwargs.get("use_crops", False))
+        self.inplane_normalize = bool(kwargs.get("inplane_normalize", False))
         self.label_transfer = bool(kwargs.get("label_transfer", False))
         self.train_reg = bool(kwargs.get("train_regressor", False))
         self.rng = np.random.RandomState(kwargs.get("data_seed", None))
+        self.line_colors = None
+        if kwargs.get("diff_line_colors", False):
+            self.line_colors = get_line_colors(
+                (len(joint_model.left_lines), len(joint_model.right_lines),
+                 len(joint_model.head_lines) + len(joint_model.face)))
 
         self.datadict: Dict[str, np.ndarray] = {
             "img_paths": np.asarray([]),
@@ -84,12 +127,13 @@ class BaseDataset:
                 np.asarray(ids)].astype(np.int64),
             "img_size": lambda ids: np.asarray(
                 [self.spatial_size, self.spatial_size]),
-            "stickman": _unported("stickman", "A12"),
-            "paired_stickman": _unported("stickman", "A12"),
+            "stickman": self._get_stickman,
+            "paired_stickman": lambda ids: self._get_paired(
+                self._get_stickman, ids),
             "synth_weights": _unported("synthesis-weight", "A12"),
-            "pose_img": _unported("image", "A10c"),
-            "app_img": _unported("image", "A10c"),
-            "pose_img_inplane": _unported("in-plane part", "A10c"),
+            "pose_img": self._get_pose_img,
+            "app_img": self._get_app_img,
+            "pose_img_inplane": self._get_pose_img_inplane,
         }
         self.reg_steps = int(kwargs.get("reg_steps", 5))
 
@@ -209,11 +253,37 @@ class BaseDataset:
 
     # -- item assembly -------------------------------------------------------
     def __getitem__(self, idx) -> Dict[str, np.ndarray]:
-        if self.train_reg or "reg_imgs" in self.datakeys:
-            raise NotImplementedError("the regressor's probe images are not "
-                                      "ported yet (ROADMAP A10c)")
         ids = self._sample_valid_seq_ids(idx)
-        return {key: self._output_dict[key](ids) for key in self.datakeys}
+        data = {}
+        for key in self.datakeys:
+            if key not in ("reg_imgs", "reg_targets"):
+                _put(data, key, self._output_dict[key](ids))
+        if self.train_reg or "reg_imgs" in self.datakeys:
+            self._add_reg_imgs(ids, data)
+        return data
+
+    def _add_reg_imgs(self, ids, data):
+        """The regressor's probe images and their keypoints over
+        ``spatial_size``: the window's first frame and ``reg_steps - 1``
+        frames drawn without replacement."""
+        ids = list(np.asarray(ids))
+        reg_ids = [int(ids[0])]
+        if self.reg_steps > 1:
+            reg_ids += [int(e) for e in self.rng.choice(
+                len(self), self.reg_steps - 1, replace=False)]
+        fetch = (self._get_pose_img_inplane if self.inplane_normalize
+                 else self._get_pose_img)
+        imgs = fetch(np.asarray(reg_ids))
+        if isinstance(imgs, PartStackSource):
+            if imgs.src.ndim == 3:
+                imgs = PartStackSource(*(a[None] for a in imgs))
+        elif imgs.ndim == 3:
+            imgs = imgs[None]
+        _put(data, "reg_imgs", imgs)
+        data["reg_targets"] = np.stack(
+            [self._get_kps_for_rendering(i) / self.spatial_size
+             for i in reg_ids]).astype(np.float32)
+        return data
 
     # -- fetchers ------------------------------------------------------------
     def _get_paired(self, fetch, ids, matched: bool = False):
@@ -276,3 +346,121 @@ class BaseDataset:
 
     def _get_keypoints(self, ids):
         return self.datadict["keypoints"][np.asarray(ids)].astype(np.float32)
+
+    def _get_kps_for_rendering(self, idx: int) -> np.ndarray:
+        """The 2D pixel keypoints (K, 2) of one frame (subclass hook)."""
+        return self.datadict["keypoints"][idx].reshape(-1, 2)
+
+    def _get_stickman(self, ids):
+        size = (self.spatial_size, self.spatial_size, 3)
+        out = [self._to_float(make_joint_img(
+            size, self._get_kps_for_rendering(int(i)), self.joint_model,
+            line_colors=self.line_colors,
+            scale_factor=self.stickman_scale_factor()))
+            for i in np.asarray(ids)]
+        return self._squeeze_seq(np.stack(out))
+
+    def stickman_scale_factor(self):
+        return None
+
+    # -- images ------------------------------------------------------------
+    def _load_image(self, idx: int) -> np.ndarray:
+        """The uint8 HWC BGR image of frame idx, read by cv2."""
+        img = _cv2().imread(str(self.datadict["img_paths"][idx]))
+        if img is None:
+            raise FileNotFoundError(self.datadict["img_paths"][idx])
+        return img
+
+    def _load_image_rgb(self, idx: int, min_dim=None) -> np.ndarray:
+        """The uint8 HWC RGB image of frame idx: a JPEG without an EXIF
+        orientation through libjpeg, at the largest DCT downscale that
+        keeps both dims >= ``min_dim``; anything else (or a stream the
+        library refuses) through cv2."""
+        p = str(self.datadict["img_paths"][idx])
+        if p.lower().endswith((".jpg", ".jpeg")) and \
+                native.decode_available():
+            try:
+                with open(p, "rb") as f:
+                    data = f.read()
+                if native.jpeg_orientation(data) in (None, 1):
+                    denom = 1
+                    if min_dim:
+                        denom = native.pick_scale_denom(
+                            *native.jpeg_dims(data), min_dim)
+                    img = native.decode_jpeg(data, denom)
+                    _count("native")
+                    return img
+            except (ValueError, OSError):
+                pass            # a stream the library refuses: cv2 reads it
+        img = self._load_image(idx)
+        _count("cv2")
+        if img.ndim == 3 and img.shape[-1] == 3:
+            img = _cv2().cvtColor(img, _cv2().COLOR_BGR2RGB)
+        return img
+
+    def _prep_image(self, idx: int) -> np.ndarray:
+        img = self._load_image_rgb(idx, min_dim=self.spatial_size)
+        if img.shape[:2] != (self.spatial_size, self.spatial_size):
+            cv2 = _cv2()
+            img = cv2.resize(img, (self.spatial_size, self.spatial_size),
+                             interpolation=cv2.INTER_LINEAR)
+        return img
+
+    def _to_float(self, img: np.ndarray) -> np.ndarray:
+        """uint8 [0, 255] -> float32 [-1, 1]."""
+        return (img.astype(np.float32) / 127.5) - 1.0
+
+    def _squeeze_seq(self, arr):
+        """A single-frame dataset (seq_length (0, 0)) gives the frame, not
+        a sequence of one."""
+        if isinstance(arr, PartStackSource):
+            return PartStackSource(*(self._squeeze_seq(a) for a in arr))
+        if self.seq_length == (0, 0) and arr.shape[0] == 1:
+            return arr[0]
+        return arr
+
+    def _part_stacks(self, ids) -> PartStackSource:
+        """What the part stacks of frames ``ids`` are made from."""
+        return self._squeeze_seq(part_stack_source(
+            [self._prep_image(int(i)) for i in ids],
+            [self._get_kps_for_rendering(int(i)) for i in ids],
+            self.joint_model, self.spatial_size // 2 ** self.box_factor))
+
+    def _get_pose_img(self, ids):
+        out = []
+        for i in np.asarray(ids):
+            img = self._prep_image(int(i))
+            if self.use_crops:
+                from ..utils.boxes import crop_with_bbox
+
+                cv2 = _cv2()
+                img = cv2.resize(
+                    crop_with_bbox(img, self._get_kps_for_rendering(int(i))),
+                    (self.spatial_size, self.spatial_size),
+                    interpolation=cv2.INTER_LINEAR)
+            out.append(self._to_float(img))
+        return self._squeeze_seq(np.stack(out))
+
+    def _get_app_img(self, ids):
+        mapped = self.datadict["map_ids"][np.asarray(ids)]
+        if self.inplane_normalize:
+            return self._part_stacks(mapped)
+        return self._squeeze_seq(np.stack(
+            [self._to_float(self._prep_image(int(i))) for i in mapped]))
+
+    def _get_pose_img_inplane(self, ids):
+        ids = np.asarray(ids)
+        if self.inplane_normalize:
+            return self._part_stacks(ids)
+        return self._squeeze_seq(np.stack(
+            [self._to_float(self._prep_image(int(i))) for i in ids]))
+
+
+def _put(data: Dict, key: str, value) -> None:
+    """``data[key] = value``, a :class:`PartStackSource` as its three
+    arrays."""
+    if isinstance(value, PartStackSource):
+        for suffix, a in zip(PART_SUFFIXES, value):
+            data[key + suffix] = a
+    else:
+        data[key] = value

@@ -6,7 +6,8 @@ numpy only; the constants are copied because that module pulls in the JAX
 geometry stack.
 
   * ``annot_export.h5``'s columns (``H5_ATTRIBUTE_MAPPING``) fill the column
-    store (``_load_h36m_full``, which imports h5py when it runs);
+    store (``_load_h36m_full``: h5py where it is installed, else
+    ``data/h5lite.py``);
     ``populate_from_arrays`` fills it from arrays instead;
   * composite video ids ``1e6*cam + 1e4*action + 1e3*subaction + pid`` are
     remapped to dense ints;
@@ -21,10 +22,14 @@ geometry stack.
   * the keypoint fetcher, with the reprojection to normalized image
     coordinates for the regressor; the intrinsics and extrinsics fetchers.
 
-The joint models carry the JAX package's ``norm_T`` part warps; the
-Human3.6M images that they would warp are ROADMAP A10c, and the
-stickman-from-3D fetcher is A12's.
-"""
+The frames' images come through the base dataset's image fetchers on
+``img_paths`` (joined onto ``datapath``); ``_get_kps_for_rendering`` gives
+a frame's pixel keypoints (the world keypoints projected into the image,
+for ``keypoints_3d_world``), which the stickman, the part stacks and the
+probe targets read; with ``use_3d_for_stickman`` the stickman is drawn
+from the 3D keypoints through the frame's camera
+(``_get_stickman_from_3d``; from joint angles it would need forward
+kinematics, ROADMAP A3, and raises).  """
 from __future__ import annotations
 
 from copy import deepcopy
@@ -36,8 +41,8 @@ import numpy as np
 
 from ..geometry.normalization import (NormStats, normalization_stats,
                                       unnormalize)
-from ..geometry.stickman import JointModel
-from .base import BaseDataset, _unported
+from ..geometry.stickman import JointModel, make_joint_img
+from .base import BaseDataset
 from .parts import t2p, t3p, t4p, t5p
 
 ACTION_ID_TO_ACTION = {
@@ -146,10 +151,20 @@ class Human36mDataset(BaseDataset):
         self.actions_to_discard = kwargs.get("actions_to_discard", None)
         self.all_actions = bool(kwargs.get("all_actions", True))
         self.debug = bool(kwargs.get("debug", False))
+        self.stickman_scale = kwargs.get("stickman_scale", 50)
 
         world = self.keypoint_key == "keypoints_3d_world"
         jm = (small_joint_model() if self.small_joint_model
               else detailed_joint_model(world))
+        if self.use_3d_for_stickman and (
+                self.keypoint_key not in ("angle_world_expmap",
+                                          "keypoints_3d_world")
+                or (world and self.small_joint_model)
+                or not self.train_synthesis):
+            raise ValueError(
+                "use_3d_for_stickman needs keypoint_type keypoints_3d_world "
+                "(with the detailed joint model) or angle_world_expmap, and "
+                "train_synthesis")
         super().__init__(transforms, mode, seq_length, data_keys, jm,
                          **kwargs)
 
@@ -162,8 +177,7 @@ class Human36mDataset(BaseDataset):
                 ids, use_map_ids=True),
         })
         if self.use_3d_for_stickman:
-            self._output_dict["stickman"] = _unported("stickman-from-3D",
-                                                      "A12")
+            self._output_dict["stickman"] = self._get_stickman_from_3d
 
         self.label_type = "action"
         self.datapath = kwargs.get("datapath", "")
@@ -183,16 +197,18 @@ class Human36mDataset(BaseDataset):
 
     # -- population --------------------------------------------------------
     def _load_h36m_full(self, basepath: str):
+        h5_file = path.join(basepath, "annot_export.h5")
         try:
             import h5py
-        except ImportError as e:
-            raise ImportError("reading Human3.6M's annot_export.h5 needs "
-                              "h5py, which is not installed") from e
-        h5_file = path.join(basepath, "annot_export.h5")
-        with h5py.File(h5_file, "r") as f:
-            for k in f.keys():
-                if k in H5_ATTRIBUTE_MAPPING:
-                    self.datadict[H5_ATTRIBUTE_MAPPING[k]] = np.asarray(f[k])
+        except ImportError:
+            from .h5lite import read_columns
+            columns = read_columns(h5_file)
+        else:
+            with h5py.File(h5_file, "r") as f:
+                columns = {k: np.asarray(f[k]) for k in f.keys()}
+        for k, v in columns.items():
+            if k in H5_ATTRIBUTE_MAPPING:
+                self.datadict[H5_ATTRIBUTE_MAPPING[k]] = v
         if self.keypoint_key and self.keypoint_key not in self.datadict:
             raise KeyError(f"{self.keypoint_key} not in h5 columns")
 
@@ -388,6 +404,34 @@ class Human36mDataset(BaseDataset):
             return np.stack(projected).astype(np.float32).squeeze()
         return kps.astype(np.float32).squeeze() if kps.shape[0] == 1 \
             and self.seq_length == (0, 0) else kps.astype(np.float32)
+
+    def _get_stickman_from_3d(self, ids):
+        """The stickman of each frame drawn from its 3D keypoints through
+        its camera, lines ``spatial_size // stickman_scale`` thick."""
+        if self.keypoint_key != "keypoints_3d_world":
+            raise NotImplementedError(
+                f"the stickman from {self.keypoint_key} needs forward "
+                "kinematics, which is not ported yet (ROADMAP A3)")
+        size = (self.spatial_size, self.spatial_size, 3)
+        out = []
+        for i in np.asarray(ids):
+            kps3d_w = self._unnorm_world_kps(
+                self.datadict[self.keypoint_key][int(i)])
+            img = make_joint_img(size, self._project_to_pixels(int(i),
+                                                               kps3d_w),
+                                 self.joint_model,
+                                 line_colors=self.line_colors,
+                                 scale_factor=self.stickman_scale)
+            out.append(self._to_float(img))
+        return self._squeeze_seq(np.stack(out))
+
+    def _get_kps_for_rendering(self, idx: int) -> np.ndarray:
+        if self.keypoint_key == "keypoints_3d_world":
+            w = self._unnorm_world_kps(self.datadict[self.keypoint_key][idx])
+            return self._project_to_pixels(idx, w)
+        kps = self.datadict.get("keypoints", self.datadict.get(
+            "norm_keypoints"))[idx]
+        return np.asarray(kps).reshape(-1, 2)
 
     def _get_intrinsics(self, ids, use_map_ids=False):
         ids = np.asarray(ids)

@@ -15,11 +15,18 @@ samples bilinearly with the coordinates clamped to the image (OpenCV's
 ``BORDER_REPLICATE``), and rounds to uint8.  :func:`warp_parts_plain` is
 the same warp as a float64 numpy loop over frames and parts, the
 reference the device warp is held against.
+
+The image datasets (``data/base.py``) stack the parts of real images the
+same way (the JAX package's ``normalize_parts``): a dataset leaves each
+item's uint8 image and homographies in the batch under
+``<key>:parts_src``, ``:parts_mats`` and ``:parts_valid``, which
+:func:`finish_part_stacks` turns into the stacks with one device gather
+per batch.
 """
 from __future__ import annotations
 
 from functools import partial
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -247,3 +254,38 @@ def warp_parts_plain(imgs: np.ndarray, mats: np.ndarray, valid: np.ndarray,
                                                      C)
     return out
 
+
+class PartStackSource(NamedTuple):
+    """What a part stack is made from: uint8 images (..., S, S, 3) and
+    their homographies (..., P, 3, 3) and validity (..., P)."""
+    src: np.ndarray
+    mats: np.ndarray
+    valid: np.ndarray
+
+
+PART_SUFFIXES = (":parts_src", ":parts_mats", ":parts_valid")
+
+
+def part_stack_source(imgs: Sequence[np.ndarray], kps: Sequence[np.ndarray],
+                      joint_model, part_size: int) -> PartStackSource:
+    """The images (N, S, S, 3) uint8 with their parts' homographies."""
+    mats, valid = part_transforms(kps, joint_model, part_size,
+                                  imgs[0].shape[0])
+    return PartStackSource(np.stack(imgs), mats, valid)
+
+
+def finish_part_stacks(batch: Dict, part_size: int) -> Dict:
+    """Replace each ``<key>:parts_*`` triple of a batch (the source on the
+    device, the homographies in numpy) by ``<key>``, its part stacks in
+    [-1, 1] float32 on the source's device, all items in one gather."""
+    for key in [k[:-len(PART_SUFFIXES[0])] for k in batch
+                if k.endswith(PART_SUFFIXES[0])]:
+        src, mats, valid = (batch.pop(key + s) for s in PART_SUFFIXES)
+        lead = tuple(src.shape[:-3])
+        mats, valid = np.asarray(mats), np.asarray(valid)
+        stacks = warp_parts(src.reshape((-1,) + tuple(src.shape[-3:])),
+                            mats.reshape((-1,) + mats.shape[-3:]),
+                            valid.reshape(-1, valid.shape[-1]), part_size)
+        batch[key] = (stacks.float() / 127.5 - 1.0).reshape(
+            lead + tuple(stacks.shape[1:]))
+    return batch

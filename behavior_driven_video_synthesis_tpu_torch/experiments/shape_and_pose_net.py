@@ -5,9 +5,18 @@ Counterpart of ``behavior_driven_video_synthesis_tpu/experiments/
 shape_and_pose_net.py`` (``run_training`` :158-236, ``_log_image_grids``
 :243-268, ``_batch_keypoints`` :270-282, ``_eval_ssim`` :284-418,
 ``run_inference`` :420-442, ``_posthoc_latent_regressor`` :444-524,
-``VunetExperiment`` :527-537) on one device, on the synthetic image
-dataset (with ``data.inplane_normalize`` the appearance is the 30-channel
-part stack, and the VUNet's appearance encoder takes 30 channels):
+``VunetExperiment`` :527-537) on one device.  The data (``_build_data``)
+is the synthetic image dataset (``dataset: synthetic_images``, rendered
+on the device) or a real one through ``data/__init__.py:get_dataset``:
+``human3.6m`` (an ``annot_export.h5`` tree), ``deepfashion`` or
+``market`` (an ``index.p`` tree) under ``data.datapath``, whose items
+``data.n_data_workers`` threads fetch (``data/loader.py:Loader``, a
+``PerPersonSampler`` where the dataset has persons, else a
+``RandomSampler``, under a ``SequenceSampler``) and whose batches go to
+the device from pinned memory without blocking, a batch ahead, the part
+stacks made there.  With ``data.inplane_normalize`` the appearance is the
+30-channel part stack, and the VUNet's appearance encoder takes 30
+channels:
 
   training: the cvbae step (perceptual likelihood, adaptive-gamma KL,
             latent pose regressor) or the org step (perceptual likelihood,
@@ -18,8 +27,17 @@ part stack, and the VUNet's appearance encoder takes 30 channels):
             ``<ckpt dir>/metric_ckpts.json``; the train state saved every
             ``logging.ckpt_steps`` and at the end;
   inference (``-m infer``): the newest save restored; SSIM over up to
-            ``metrics.max_n_samples`` test images; with
-            ``metrics.posthoc_regressor`` (the default) a fresh pose
+            ``metrics.max_n_samples`` test images, and with
+            ``metrics.compute_is`` / ``compute_fid`` the Inception Score
+            of the transfers (``is_recon``) and of prior samples
+            (``is_transfer``) and the FID of the transfers against the
+            targets, all resized to 128 px (antialiased) and, with
+            ``metrics.is_on_crops`` (the default), cropped about the
+            keypoints first; the targets' features are cached in
+            ``<ckpt dir>/<dataset>-fid-features.npy`` and read by later
+            evaluations; InceptionV3 loads
+            ``metrics.inception_weights_path`` or is randomly initialized;
+            with ``metrics.posthoc_regressor`` (the default) a fresh pose
             regressor trained on the frozen posterior means of the test
             images (Adam 1e-3, 20 epochs, 2 with ``--debug``); the summary
             logged under ``infer/``.
@@ -32,14 +50,16 @@ finished run runs no step.  The synthesis model is also written as
 ``<ckpt dir>/synth.npz`` (flax trees ``vunet/...`` and, with a regressor,
 ``regressor/...``) with ``synth.json`` (the run's ``architecture``,
 ``data`` and ``general`` config): the files ``bdvs-generate-torch
---synth_params`` reads.  Test images come from the dataset's seed 1, with
-epochs numbered from 1001, as in the JAX driver.
+--synth_params`` reads.  Synthetic test images come from the dataset's
+seed 1, with epochs numbered from 1001, as in the JAX driver.
 
-Not ported: the real image datasets (ROADMAP A10c), IS and FID
-(``metrics.compute_is``, ``compute_fid``; A10b), and the GAN branch
-(``training.use_gan``; A11).  With in-plane part stacks the JAX post-hoc
-regressor encodes the 3-channel pose image with the 30-channel appearance
-encoder and fails (ROADMAP C6); this driver refuses that input up front.
+The cvbae regressor predicts the probe images' keypoints: 36 outputs (18
+keypoints) as in the JAX driver, or twice the dataset's keypoints
+(Human3.6M's 17 give 34, where the JAX driver's 36 outputs fail against
+34 targets, ROADMAP C8).  Not ported: the GAN branch (``training.use_gan``;
+A11).  With in-plane part stacks the JAX post-hoc regressor encodes the
+3-channel pose image with the 30-channel appearance encoder and fails
+(ROADMAP C6); this driver refuses that input up front.
 """
 from __future__ import annotations
 
@@ -51,15 +71,24 @@ import numpy as np
 import torch
 
 from ..core.checkpoint import CheckpointManager
+from ..data import get_dataset
+from ..data.loader import Loader, prefetch_iter
+from ..data.parts import PART_SUFFIXES, finish_part_stacks
+from ..data.samplers import PerPersonSampler, RandomSampler, SequenceSampler
 from ..data.synthetic_images import SyntheticImageDataset
+from ..metrics.fid import fid_from_features
+from ..metrics.inception_score import inception_score_from_logits
 from ..metrics.ssim import ssim
 from ..models import convert
+from ..models.inception import (InceptionV3Features, inception_features,
+                                load_inception_weights)
 from ..models.init import init_like_jax_
 from ..models.perceptual import perceptual_from_config
 from ..models.vunet import VunetRegressor, latent_widths, vunet_from_config
 from ..train.state import make_vunet_optimizers
 from ..train.vunet_exp import (VunetTrainState, make_cvbae_train_step,
                                make_org_vunet_train_step)
+from ..utils.boxes import bounding_box_batch
 from ..viz.videos import frames_to_uint8, make_img_grid, write_image
 from .base import Experiment
 
@@ -82,18 +111,38 @@ class _Epochs:
         return self.ds.batches(self.batch_size, seed=self._epoch)
 
 
+class _DeviceBatches:
+    """A loader's numpy batches on ``device``: each array copied from
+    pinned memory without blocking (a plain copy off the card) on a
+    background thread a batch ahead, then the batch's part stacks made
+    (``data/parts.py:finish_part_stacks``)."""
+
+    def __init__(self, loader, device, part_size: int):
+        self.loader, self.device, self.part_size = loader, device, part_size
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        return prefetch_iter(iter(self.loader), self.place, n=1)
+
+    def place(self, batch: Dict[str, np.ndarray]) -> Dict:
+        out = {}
+        for k, v in batch.items():
+            if k.endswith(PART_SUFFIXES[1:]):      # homographies stay
+                out[k] = v
+                continue
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            out[k] = (t.pin_memory().to(self.device, non_blocking=True)
+                      if self.device.type == "cuda" else t.to(self.device))
+        return finish_part_stacks(out, self.part_size)
+
+
 class ShapePoseExperiment(Experiment):
     variant = "alter"
 
     def __init__(self, config, dirs, device):
         super().__init__(config, dirs, device)
-        mcfg = config.get("metrics", {})
-        unported = [k for k in ("compute_is", "compute_fid")
-                    if mcfg.get(k, False)]
-        if unported:
-            raise NotImplementedError(
-                f"metrics.{', metrics.'.join(unported)}: IS and FID are not "
-                "ported yet (ROADMAP A10b)")
         self.seed = int(config.get("general", {}).get("seed", 42))
         self.inplane = bool(config.get("data", {}).get("inplane_normalize",
                                                        False))
@@ -101,28 +150,54 @@ class ShapePoseExperiment(Experiment):
 
     # -- construction -------------------------------------------------------
     def _build_data(self, mode: str):
-        """(batches, dataset) of the train (seed 0) or test (seed 1)
-        split; each split is rendered once."""
+        """(batches, dataset) of the train or test split, built once a
+        split: the synthetic dataset (seed 0 or 1) rendered on the device,
+        or a real dataset's batches placed on it (:class:`_DeviceBatches`).
+        """
+        if mode in self._datasets:
+            return self._datasets[mode]
         dcfg = self.config.get("data", {})
+        bs = int(self.config["training"]["batch_size"])
+        train_reg = bool(self.config["training"].get("train_regressor",
+                                                     False))
         name = str(dcfg.get("dataset", "synthetic_images")).lower()
-        if name not in ("synthetic_images", "synthetic"):
-            raise NotImplementedError(
-                f"dataset {name!r} is not ported yet (only synthetic_images "
-                "is; the image datasets are ROADMAP A10c)")
-        if mode not in self._datasets:
-            self._datasets[mode] = SyntheticImageDataset(
+        if name in ("synthetic_images", "synthetic"):
+            ds = SyntheticImageDataset(
                 n_persons=int(dcfg.get("n_persons", 8)),
                 frames_per_person=int(dcfg.get("frames_per_person", 16)),
                 spatial_size=int(dcfg.get("spatial_size", 64)),
-                seed=0 if mode == "train" else 1,
-                with_reg=bool(self.config["training"].get(
-                    "train_regressor", False)),
+                seed=0 if mode == "train" else 1, with_reg=train_reg,
                 inplane_normalize=self.inplane,
                 box_factor=int(dcfg.get("box_factor", 2)),
                 device=self.device)
-        ds = self._datasets[mode]
-        return _Epochs(ds, int(self.config["training"]["batch_size"]),
-                       1 if mode == "train" else 1000), ds
+            out = (_Epochs(ds, bs, 1 if mode == "train" else 1000), ds)
+        else:
+            kwargs = {k: v for k, v in dcfg.items()
+                      if k not in ("dataset", "seq_length")}
+            ds = get_dataset({"dataset": name})(
+                transforms=None,
+                data_keys=["pose_img", "stickman", "app_img", "sample_ids"],
+                seq_length=tuple(dcfg.get("seq_length", (0, 0))), mode=mode,
+                train_regressor=train_reg, **kwargs)
+            if len(ds) == 0:
+                raise ValueError(f"the {name} dataset at data.datapath "
+                                 f"{dcfg.get('datapath')!r} holds no {mode} "
+                                 f"images")
+            ids = (PerPersonSampler(ds) if getattr(ds, "person_ids", None)
+                   else RandomSampler(ds))
+            loader = Loader(ds, SequenceSampler(ds, ids, bs),
+                            num_workers=int(dcfg.get("n_data_workers", 8)))
+            part = ds.spatial_size // 2 ** ds.box_factor
+            out = (_DeviceBatches(loader, self.device, part), ds)
+        self._datasets[mode] = out
+        return out
+
+    def _regressor_outputs(self, ds) -> int:
+        """Twice the probe targets' keypoints: 36 for the synthetic
+        dataset (18 keypoints, the JAX driver's fixed width)."""
+        if isinstance(ds, SyntheticImageDataset):
+            return 36
+        return int(np.prod(ds._get_kps_for_rendering(0).shape))
 
     def _latent_widths(self) -> List[int]:
         arch, data = self.config.get("architecture", {}), self.config.get(
@@ -141,7 +216,7 @@ class ShapePoseExperiment(Experiment):
             n_linear=int(arch.get("n_linear", 2)), device=self.device)
         return init_like_jax_(regressor, generator)
 
-    def _build_models(self, generator):
+    def _build_models(self, generator, n_reg_out: int = 36):
         vunet = vunet_from_config(self.config, self.variant,
                                   n_channels_x=30 if self.inplane else 3,
                                   spatial_size=int(self.config.get(
@@ -150,7 +225,7 @@ class ShapePoseExperiment(Experiment):
         init_like_jax_(vunet, generator)
         regressor = None
         if bool(self.config["training"].get("train_regressor", False)):
-            regressor = self._new_regressor(36, generator)
+            regressor = self._new_regressor(n_reg_out, generator)
         return vunet, regressor
 
     def _make_step(self, vunet, regressor, perceptual, optimizers):
@@ -173,10 +248,11 @@ class ShapePoseExperiment(Experiment):
         gens = [torch.Generator(device=self.device).manual_seed(
             self.seed + i) for i in range(3)]
         self.generator = gens[1]
-        loader, _ = self._build_data("train")
+        loader, ds = self._build_data("train")
         if len(loader) == 0:
             raise ValueError("the dataset holds fewer items than one batch")
-        vunet, regressor = self._build_models(gens[0])
+        vunet, regressor = self._build_models(gens[0],
+                                              self._regressor_outputs(ds))
         vunet.train()
         perceptual = perceptual_from_config(cfg, self.device, gens[0])
         optimizers = make_vunet_optimizers(vunet, regressor, tr)
@@ -294,26 +370,82 @@ class ShapePoseExperiment(Experiment):
                                               f"grid_{step:07d}.png"))
 
     # -- evaluation ---------------------------------------------------------
-    @staticmethod
-    def _batch_keypoints(batch, ds) -> torch.Tensor:
-        """Normalized 2D keypoints of a batch: its own, or the dataset's
-        at its ``sample_ids``."""
+    def _batch_keypoints(self, batch, ds) -> torch.Tensor:
+        """Normalized 2D keypoints (B, K, 2) of a batch: its own, or the
+        dataset's ``norm_keypoints`` at each item's ``sample_ids`` (a file
+        dataset's item holds its frame's id as a sequence of one; the JAX
+        driver's crop fails on the (B, 1, K, 2) that indexing with those
+        gives, ROADMAP C9)."""
         if "keypoints" in batch:
             return batch["keypoints"].float()
-        return ds.keypoints[batch["sample_ids"]]
+        kps = getattr(ds, "norm_keypoints", None)
+        if kps is None:
+            kps = ds.datadict["norm_keypoints"]
+        ids = batch["sample_ids"].reshape(len(batch["pose_img"]), -1)[:, 0]
+        return torch.as_tensor(np.asarray(kps[ids.cpu().numpy()],
+                                          np.float32), device=self.device)
 
-    @torch.no_grad()
+    # -- the Inception metrics -----------------------------------------------
+    def _inception(self) -> InceptionV3Features:
+        """InceptionV3 with logits, f32, from
+        ``metrics.inception_weights_path`` or randomly initialized."""
+        model = InceptionV3Features(with_logits=True, device=self.device)
+        path = self.config.get("metrics", {}).get("inception_weights_path")
+        if path:
+            load_inception_weights(model, str(path))
+        else:
+            print("metrics: InceptionV3 with RANDOM init (no pretrained "
+                  "weights in this environment) — IS/FID values are "
+                  "relative only, NOT literature-comparable; see "
+                  "WEIGHTS.md")
+            init_like_jax_(model, torch.Generator(
+                device=self.device).manual_seed(0))
+        return model.eval().requires_grad_(False)
+
+    # -- evaluation ---------------------------------------------------------
     def _eval_ssim(self, vunet, step: int,
                    max_samples: Optional[int] = None) -> float:
+        """The SSIM of :meth:`_eval_metrics`."""
+        return self._eval_metrics(vunet, step, max_samples)["ssim"]
+
+    @torch.no_grad()
+    def _eval_metrics(self, vunet, step: int,
+                      max_samples: Optional[int] = None) -> Dict[str, float]:
         """Mean SSIM of transfers (the posterior means of the appearance,
         the target's stickman) against the targets on the test split,
-        clipped to [0, 1]; over at most ``max_samples`` images
-        (``metrics.max_n_samples``, 8000, if None).  Logged under
-        ``eval/`` with the count."""
+        clipped to [0, 1], over at most ``max_samples`` images
+        (``metrics.max_n_samples``, 8000, if None); with
+        ``metrics.compute_is`` the Inception Scores of the transfers
+        (``is_recon``) and of prior samples of the stickmen
+        (``is_transfer``), with ``metrics.compute_fid`` the transfers' FID
+        against the targets.  Logged under ``eval/`` with the count."""
+        mcfg = self.config.get("metrics", {})
         if max_samples is None:
-            max_samples = int(self.config.get("metrics", {}).get(
-                "max_n_samples", 8000))
-        loader, _ = self._build_data("test")
+            max_samples = int(mcfg.get("max_n_samples", 8000))
+        compute_is = bool(mcfg.get("compute_is", False))
+        compute_fid = bool(mcfg.get("compute_fid", False))
+        is_on_crops = bool(mcfg.get("is_on_crops", True))
+        spatial = int(self.config.get("data", {}).get("spatial_size", 64))
+        loader, ds = self._build_data("test")
+        feats = {"recon": [], "gt": [], "recon_logits": [],
+                 "transfer_logits": []}
+        fid_cache = have_gt_cache = None
+        if compute_is or compute_fid:
+            incep = self._inception()
+            dataset = self.config.get("data", {}).get("dataset", "data")
+            fid_cache = os.path.join(self.dirs["ckpt"],
+                                     f"{dataset}-fid-features.npy")
+            have_gt_cache = compute_fid and os.path.exists(fid_cache)
+            if have_gt_cache:
+                feats["gt"] = [torch.from_numpy(np.load(fid_cache))]
+
+        def inception(img, batch):
+            if is_on_crops:
+                img = bounding_box_batch(
+                    self._batch_keypoints(batch, ds) * spatial, img.float(),
+                    spatial)
+            return inception_features(incep, img)
+
         vals, n_seen = [], 0
         for batch in loader:
             target = batch["pose_img"]
@@ -322,16 +454,39 @@ class ShapePoseExperiment(Experiment):
             vals.append(ssim(torch.clamp((out.float() + 1) / 2, 0, 1),
                              (target + 1) / 2))
             n_seen += int(target.shape[0])
+            if compute_is or compute_fid:
+                f, logits = inception(out, batch)
+                if compute_fid:
+                    feats["recon"].append(f)
+                    if not have_gt_cache:
+                        feats["gt"].append(inception(target, batch)[0])
+                if compute_is:
+                    feats["recon_logits"].append(logits)
+                    prior = vunet.test_forward(batch["stickman"],
+                                               self._eps(len(target)),
+                                               self.generator)
+                    feats["transfer_logits"].append(
+                        inception(prior, batch)[1])
             if n_seen >= max_samples:
                 break
-        val = float(torch.cat(vals).mean())
-        self.log(step, prefix="eval/", extra={"ssim": val, "ssim_n": n_seen},
-                 collected=False)
-        return val
+        metrics = {"ssim": float(torch.cat(vals).mean()), "ssim_n": n_seen}
+        if compute_is:
+            for key, logits in (("is_recon", "recon_logits"),
+                                ("is_transfer", "transfer_logits")):
+                metrics[key] = inception_score_from_logits(
+                    torch.cat(feats[logits]))[0]
+        if compute_fid:
+            gt = torch.cat([g.to(self.device) for g in feats["gt"]])
+            if not have_gt_cache:
+                np.save(fid_cache, gt.cpu().numpy())
+            metrics["fid"] = fid_from_features(torch.cat(feats["recon"]), gt)
+        self.log(step, prefix="eval/", extra=metrics, collected=False)
+        return metrics
 
     def run_inference(self) -> Dict[str, float]:
-        """SSIM and the post-hoc latent regressor on the newest save;
-        returns the summary it logs under ``infer/``."""
+        """SSIM (with IS and FID where asked for) and the post-hoc latent
+        regressor on the newest save; returns the summary it logs under
+        ``infer/``."""
         posthoc = bool(self.config.get("metrics", {}).get(
             "posthoc_regressor", True))
         if posthoc and self.inplane:
@@ -353,9 +508,9 @@ class ShapePoseExperiment(Experiment):
         self._load(out[0], {"vunet": vunet})
         print(f"Restored reg_ckpt checkpoint at step {out[1]}")
         vunet.eval().requires_grad_(False)
-        val = self._eval_ssim(vunet, 0)
-        print(f"inference SSIM: {val:.4f}")
-        summary = {"ssim": val}
+        summary = {k: v for k, v in self._eval_metrics(vunet, 0).items()
+                   if k != "ssim_n"}
+        print(f"inference SSIM: {summary['ssim']:.4f}")
         if posthoc:
             summary.update(self._posthoc_latent_regressor(vunet))
         self.log(0, prefix="infer/", extra=summary, collected=False)

@@ -468,3 +468,40 @@ def mtvae_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
 
 def mtvae_to_flax(state_dict: Mapping) -> Dict[str, Any]:
     return to_flax(state_dict, mtvae_plan())
+
+
+# -- InceptionV3 (models/inception.py) ----------------------------------------
+def inception_plan(with_logits: bool = True) -> Plan:
+    """torchvision's key names <-> the JAX package's {"params",
+    "batch_stats"} trees of ``InceptionV3Features``."""
+    from .inception import basic_conv_names
+
+    plan: Plan = []
+    for name in basic_conv_names():
+        path = tuple(name.split("."))
+        plan += [(f"{name}.conv.weight", ("params", *path, "conv", "kernel"),
+                  "hwio"),
+                 (f"{name}.bn.weight", ("params", *path, "bn", "scale"), "id"),
+                 (f"{name}.bn.bias", ("params", *path, "bn", "bias"), "id"),
+                 (f"{name}.bn.running_mean",
+                  ("batch_stats", *path, "bn", "mean"), "id"),
+                 (f"{name}.bn.running_var",
+                  ("batch_stats", *path, "bn", "var"), "id")]
+    if with_logits:
+        plan += [("fc.weight", ("params", "fc", "kernel"), "T"),
+                 ("fc.bias", ("params", "fc", "bias"), "id")]
+    return plan
+
+
+def inception_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's Inception variables -> a state dict of
+    ``InceptionV3Features`` (with ``fc`` where the tree has it)."""
+    sd = from_flax(variables, inception_plan("fc" in variables["params"]))
+    for key in [k for k in sd if k.endswith(".bn.running_mean")]:
+        sd[key[:-len("running_mean")] + "num_batches_tracked"] = \
+            torch.zeros((), dtype=torch.int64)
+    return sd
+
+
+def inception_to_flax(state_dict: Mapping) -> Dict[str, Any]:
+    return to_flax(state_dict, inception_plan("fc.weight" in state_dict))

@@ -123,7 +123,41 @@ CUDA toolkit (nvcc) and PyTorch.  It imports no JAX.  Phases:
     ``tests/golden/torch_port_mtvae_small.npz`` (two JAX steps; weights,
     batch and draws rebuilt from its numpy seed), in f32 with TF32 off:
     the metrics at rtol 1e-4 and every leaf's update within 5 % of the
-    JAX update.
+    JAX update;
+18. the VUNet experiments on image files at full width, trees written
+    here from numpy seeds: cvbae through ``main`` on a Human3.6M tree (2
+    subjects x 2 actions x 2 cameras x 40 frames of 1000 x 1000 JPEG, an
+    ``annot_export.h5`` written by ``data/h5lite.py``) with
+    ``configs/shape_and_pose_net.yaml`` as published (256 px, B=12, nf
+    32->128, ``keypoints_3d_world`` stickmen from 3D, the regressor on its
+    probe images, dropout 0.05 with ``dropout_impl: pallas``, bf16), 6
+    steps, each of which must launch each ELU+dropout kernel once per
+    dropout site and report a loss that is its terms recomposed, with the
+    likelihood and the KL each ending below their first step's value and
+    never reaching 10x it, then ``-r`` to step 8 and ``-m infer`` twice with
+    ``metrics.compute_is`` and ``compute_fid`` (``general.debug``): every
+    summary value finite, and the second must read the targets' Inception
+    features from the FID cache; the same for org-VUNet on a DeepFashion
+    ``index.p`` tree (192 images of 256 px) with ``configs/vunet.yaml`` as
+    published (B=8, in-plane part stacks made on the device).  Printed:
+    the JPEG decoder route (libjpeg through ``data/native.py`` where it
+    builds, which it must wherever libjpeg's headers exist; else cv2), the
+    median step, the host data time a step (the stall between steps, and
+    an item's fetch time), the last batch's step replayed with the loader
+    stopped and while as many threads as the loader's fetch items, a
+    profiled step's busy share beside phase [7]'s,
+    peak memory and ``-m infer``'s wall time by stage with the Inception
+    forward alone;
+19. the port's image datasets (DeepFashion, its part stacks made on the
+    device, and Human3.6M with stickmen from 3D), Inception (seeded
+    weights, 2 x 256 px resized to 128), IS, FID and the keypoint crop
+    against ``tests/golden/torch_port_image_data_small.npz`` (the JAX
+    package's, with the JPEGs it decoded): every image within 1 uint8
+    level (the card's libjpeg or cv2 may differ from the golden's), the
+    augmented pose image within 4 (OpenCV 4.13's and 5.0's warpAffine
+    differ by that much on one input), the network's outputs within rtol
+    1e-4 (atol 1e-4 of their largest magnitude), IS 1e-4 and FID 1e-5
+    relative, the crop within 1e-5.
 
 The last two lines are a JSON object of kernel results and
 ``{"ok": true, "device": {...}}``; any failure exits non-zero before them.
@@ -140,6 +174,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -1815,7 +1850,7 @@ class StageTimer:
     times by stage."""
 
     def __init__(self):
-        self.ms = {}
+        self.ms, self.calls = {}, {}
         self._orig = []
 
     def wrap(self, owner, name, stage, static=False):
@@ -1829,6 +1864,7 @@ class StageTimer:
             torch.cuda.synchronize()
             self.ms[stage] = self.ms.get(stage, 0.0) + (
                 time.perf_counter() - t0) * 1e3
+            self.calls[stage] = self.calls.get(stage, 0) + 1
             return out
         setattr(owner, name, staticmethod(timed) if static else timed)
 
@@ -2114,13 +2150,18 @@ def recorded_main(argv, make_name, stop_after=None):
 
 
 def timed_vunet_inference(path):
-    """``main -m infer`` on a VUNet run, its stages timed; returns
-    (summary, wall s, stage ms, peak bytes)."""
+    """``main -m infer`` on a VUNet run, its stages timed (with IS and FID
+    on, the Inception forward and the FID's statistics alone, inside the
+    evaluation); returns (summary, wall s, stage ms, stage calls, peak
+    bytes)."""
     timer = StageTimer()
     exp = shape_and_pose_net.ShapePoseExperiment
     timer.wrap(shape_and_pose_net.CheckpointManager, "restore_latest",
                "restore")
-    timer.wrap(exp, "_eval_ssim", "SSIM")
+    timer.wrap(exp, "_build_data", "data set-up")
+    timer.wrap(exp, "_eval_metrics", "evaluation")
+    timer.wrap(shape_and_pose_net, "inception_features", "Inception forward")
+    timer.wrap(shape_and_pose_net, "fid_from_features", "FID statistics")
     timer.wrap(exp, "_posthoc_latent_regressor", "post-hoc regressor")
     gc.collect()
     torch.cuda.empty_cache()
@@ -2132,7 +2173,7 @@ def timed_vunet_inference(path):
         torch.cuda.synchronize()
     finally:
         timer.uninstall()
-    return (summary, time.perf_counter() - t0, timer.ms,
+    return (summary, time.perf_counter() - t0, timer.ms, timer.calls,
             torch.cuda.max_memory_allocated())
 
 
@@ -2318,7 +2359,7 @@ def _phase_vunet(base, cvbae_base, cvbae_path):
     del out, rec
     infer_cfg = load_config(run_cfg)
     infer_cfg["general"]["debug"] = True      # 2 post-hoc epochs
-    summary, wall, ms, peak = timed_vunet_inference(
+    summary, wall, ms, _, peak = timed_vunet_inference(
         write_config(base, "cvbae_infer.yaml", infer_cfg))
     check(set(summary) == {"ssim", "loss_regressor_posthoc"},
           f"cvbae -m infer summary {sorted(summary)}")
@@ -2329,7 +2370,7 @@ def _phase_vunet(base, cvbae_base, cvbae_path):
     # (d) the org run evaluated, without the post-hoc regressor (C6)
     org_infer = deep_merge(cfg, {"general": {"debug": True},
                                  "metrics": {"posthoc_regressor": False}})
-    summary, wall, ms, peak = timed_vunet_inference(
+    summary, wall, ms, _, peak = timed_vunet_inference(
         write_config(base, "vunet_infer.yaml", org_infer))
     check(set(summary) == {"ssim"}, f"org -m infer summary {summary}")
     log_vunet_inference("org -m infer (debug, posthoc_regressor off)",
@@ -2613,6 +2654,338 @@ def phase_mtvae_golden():
           "golden mtvae training step out of tolerance")
 
 
+# -- 18. the VUNet experiments on image files at full width -------------------
+IMAGE_GOLDEN = os.path.join(ROOT, "tests", "golden",
+                            "torch_port_image_data_small.npz")
+# Human3.6M: 2 subjects x 2 actions x 2 cameras x 40 frames of 1000 x 1000;
+# the published action split trains on both actions (320 frames, 26
+# batches of 12) and tests on action 8 (160 frames, 13 batches)
+H36M_SHAPE = dict(subjects=(1, 9), actions=(2, 8),
+                  cameras=(54138969, 55011271), n_frames=40, image_hw=1000)
+# DeepFashion: 192 images of 256 px, 3 in 4 train (18 batches of 8)
+DF_IMAGES, DF_SIZE = 192, 256
+IMAGE_STEPS, IMAGE_RESUMED_TO = 6, 8
+
+
+def write_image_trees(base):
+    """The Human3.6M tree (JPEG frames and annot_export.h5) and the
+    DeepFashion index.p tree from numpy seeds, the JPEGs encoded on a
+    thread pool; returns (h36m root, deepfashion root)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_port_image_data as TI
+
+    cols = TI.h36m_columns(**H36M_SHAPE)
+    with ThreadPoolExecutor(8) as pool:
+        h36m = TI.h36m_frames(cols, image_hw=H36M_SHAPE["image_hw"],
+                              encode=lambda img: pool.submit(
+                                  TI.encode_jpeg, img))
+        h36m = [f.result() for f in h36m]
+    df_jpegs, index = TI.index_data(DF_IMAGES, DF_SIZE, seed=31)
+    return (TI.write_h36m_tree(os.path.join(base, "h36m"), cols, h36m),
+            TI.write_index_tree(os.path.join(base, "deepfashion"), df_jpegs,
+                                index),
+            sum(map(len, h36m)) + sum(map(len, df_jpegs)))
+
+
+def recomposed_loss(r, prev, cfg):
+    """The loss a recorded step should report, from its own terms: cvbae
+    adds gamma * KL once its step count passes ``n_init_batches`` (with
+    the gamma of the step before, which the step updates after its loss)
+    and subtracts the regressor's clipped loss; org adds its KL weight *
+    KL."""
+    if "kl_weight" in r:
+        return r["likelihood_loss"] + r["kl_weight"] * r["kl_loss"]
+    tr = cfg["training"]
+    loss = r["likelihood_loss"]
+    if r["step"] > int(tr.get("n_init_batches", 4)):
+        loss += r["kl_loss"] * (1.0 if cfg["architecture"].get("cvae")
+                                else (prev["gamma"] if prev else 0.0))
+    return loss - min(r.get("loss_reg", 0.0), 1.2) * float(
+        tr.get("weight_regressor", 4.0))
+
+
+def check_loss_terms(what, steps, cfg):
+    """Each step's loss is its terms recomposed (within 1e-2 relative), and
+    the likelihood and the KL each end below their first step's value
+    without ever reaching 10x it: a term that blows up fails, while the
+    loss's jump where the KL joins it (gamma ~1e5 times a KL of ~1e9 from
+    a random init) does not."""
+    worst = max(abs(r["loss"] - recomposed_loss(r, prev, cfg))
+                / max(abs(r["loss"]), 1.0)
+                for r, prev in zip(steps, [None] + steps[:-1]))
+    terms = {k: [r[k] for r in steps] for k in ("likelihood_loss",
+                                                  "kl_loss")}
+    log(f"    {what}: loss recomposed from its terms within {worst:.2e} "
+        f"(relative); " + "; ".join(
+            f"{k} {v[0]:.4g} -> {v[-1]:.4g} (most {max(v):.4g})"
+            for k, v in terms.items()))
+    check(worst <= 1e-2, f"{what}: the loss is not its terms recomposed "
+                         f"({worst:.3g} relative)")
+    for k, v in terms.items():
+        check(v[-1] < v[0] and max(v) < 10 * v[0],
+              f"{what}: {k} grew over the run: {v}")
+    return dict(recomposed_rel_err=worst, **terms)
+
+
+def replay_ms(fn, n=3):
+    """Median ms of n calls of fn, each between two synchronizations."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def while_fetching(dataset, workers, fn):
+    """fn() while ``workers`` threads fetch random items of ``dataset``
+    without pause (the training loader's threads stop two batches
+    ahead)."""
+    stop = threading.Event()
+
+    def fetch(seed):
+        rng = np.random.RandomState(seed)
+        while not stop.is_set():
+            dataset[int(rng.randint(len(dataset)))]
+    threads = [threading.Thread(target=fetch, args=(i,), daemon=True)
+               for i in range(workers)]
+    for t in threads:
+        t.start()
+    try:
+        return fn()
+    finally:
+        stop.set()
+        for t in threads:
+            t.join()
+
+
+def image_run(what, cfg, base, make_name, sites=None):
+    """Train ``cfg`` IMAGE_STEPS steps through main, resume to
+    IMAGE_RESUMED_TO, run ``-m infer`` twice (the second must read the FID
+    cache); check and log it all.  ``sites``: the (forward, backward)
+    ELU+dropout launches each step must make.  Returns the results, with
+    the ELU+dropout launches of the training steps (not of the profiled
+    one) under "launches"."""
+    from behavior_driven_video_synthesis_tpu_torch.data import base as dbase
+
+    path = write_config(base, f"{what}.yaml", cfg)
+    dbase.DECODES.clear()
+    fetches = []                    # seconds of every item fetched
+    train_set = []                  # the dataset the training run reads
+    getitem = dbase.BaseDataset.__getitem__
+
+    def timed_getitem(self, idx):
+        t = time.perf_counter()
+        item = getitem(self, idx)
+        fetches.append(time.perf_counter() - t)
+        if self.mode == "train" and not train_set:
+            train_set.append(self)
+        return item
+    dbase.BaseDataset.__getitem__ = timed_getitem
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        out, rec = recorded_main(["-c", path, "--device", "cuda"], make_name)
+    finally:
+        dbase.BaseDataset.__getitem__ = getitem
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    steps = rec.steps
+    B = int(cfg["training"]["batch_size"])
+    check(len(steps) == IMAGE_STEPS and out["state"].step == IMAGE_STEPS,
+          f"{what}: training ran {len(steps)} steps")
+    check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+              for r in steps), f"{what}: a training step is not finite")
+    if sites is not None:
+        check(all((r["fwd_launches"], r["bwd_launches"]) == sites
+                  for r in steps),
+              f"{what}: a step did not launch the ELU+dropout kernels "
+              f"{sites} times: " + str([(r["fwd_launches"],
+                                         r["bwd_launches"]) for r in steps]))
+    terms = check_loss_terms(what, steps, cfg)
+    step_ms = float(np.median([r["ms"] for r in steps[1:]]))
+    data_ms = float(np.median([r["data_ms"] for r in steps[1:]]))
+    launches = [sum(r[k] for r in steps) for k in ("fwd_launches",
+                                                     "bwd_launches")]
+    step, state, batch, kw = rec.last
+    # the last batch's step again, with the loader stopped, then while as
+    # many threads as the loader's fetch items: what the fetching costs
+    # the step's launch loop
+    workers = int(cfg["data"].get("n_data_workers", 8))
+    replay = lambda: step(state, batch, **kw)     # noqa: E731
+    alone_ms = replay_ms(replay)
+    fetching_ms = while_fetching(train_set[0], workers,
+                                 lambda: replay_ms(replay))
+    if "reg_targets" in batch:
+        t = batch["reg_targets"].float()
+        outside = float(((t < 0) | (t > 1)).float().mean())
+        log(f"    the last batch's reg_targets span [{float(t.min()):.4f}, "
+            f"{float(t.max()):.4f}], {outside:.4f} of them outside [0, 1]")
+    log(f"    the last batch's step replayed: {alone_ms:.2f} ms with the "
+        f"loader stopped, {fetching_ms:.2f} ms while {workers} threads "
+        f"fetch items (median of 3 each; the run's median step "
+        f"{step_ms:.2f} ms)")
+    prof = profile_call(replay, step_ms)
+    decodes = dict(dbase.DECODES)
+    log(f"    {what}: {IMAGE_STEPS} steps through main in {wall:.1f} s (the "
+        f"datasets' set-up included); B={B}; images decoded {decodes}")
+    for r in steps:
+        log(f"      step {r['step']}: loss {r['loss']:.6g}, grad_norm "
+            f"{r['grad_norm']:.4g}; {r['ms']:.2f} ms; host data "
+            + ("-" if r["data_ms"] is None else f"{r['data_ms']:.2f}")
+            + f" ms; ELU+dropout launches {r['fwd_launches']} / "
+            f"{r['bwd_launches']}")
+    busy = "not measured" if prof is None else (
+        f"{prof['busy_share']:.3f} of the profiled step, "
+        f"{prof['device_busy_ms'] / (step_ms + data_ms):.3f} of a step with "
+        f"its host data time; device {prof['device_busy_ms']:.2f} ms in "
+        f"{prof['launches']} launches")
+    item_ms = float(np.median(fetches)) * 1e3
+    log(f"    median step after the first {step_ms:.2f} ms "
+        f"({B * 1e3 / step_ms:.1f} img/s), median host data time "
+        f"{data_ms:.2f} ms a step ({B * 1e3 / (step_ms + data_ms):.1f} img/s "
+        f"with it; the loader runs ahead); an item takes {item_ms:.2f} ms "
+        f"of host time (median of {len(fetches)}), {item_ms * B:.1f} ms a "
+        f"batch on one thread of {workers}; peak {peak / 2**30:.2f} GiB; "
+        f"busy share {busy}")
+    rec.last = None
+    del out, step, state, batch, kw
+
+    # -r to IMAGE_RESUMED_TO
+    run_cfg = os.path.join(cfg["general"]["base_dir"],
+                           cfg["general"]["experiment"], "config",
+                           cfg["general"]["project_name"], "config.yaml")
+    dumped = load_config(run_cfg)
+    dumped["training"]["end_iteration"] = IMAGE_RESUMED_TO
+    with open(run_cfg, "w") as f:
+        yaml.safe_dump(dumped, f)
+    out, rec = recorded_main(["-c", path, "--device", "cuda", "-r"],
+                             make_name)
+    check([r["step"] for r in rec.steps] == list(range(
+        IMAGE_STEPS + 1, IMAGE_RESUMED_TO + 1))
+        and out["state"].step == IMAGE_RESUMED_TO,
+        f"{what}: -r took steps {[r['step'] for r in rec.steps]}")
+    log(f"    -r: restored step {IMAGE_STEPS}, ran to {IMAGE_RESUMED_TO}: "
+        f"losses " + ", ".join(f"{r['loss']:.6g}" for r in rec.steps))
+    launches = [n + sum(r[k] for r in rec.steps) for n, k in zip(
+        launches, ("fwd_launches", "bwd_launches"))]
+    del out, rec
+
+    # -m infer, twice: the second reads the targets' Inception features
+    infer_cfg = deep_merge(dumped, {"general": {"debug": True}})
+    infer_path = write_config(base, f"{what}_infer.yaml", infer_cfg)
+    runs = [timed_vunet_inference(infer_path) for _ in range(2)]
+    want = {"ssim", "is_recon", "is_transfer", "fid"} | (
+        {"loss_regressor_posthoc"} if cfg["metrics"].get(
+            "posthoc_regressor", True) else set())
+    for i, (summary, iwall, ms, calls, ipeak) in enumerate(runs):
+        check(set(summary) == want, f"{what} -m infer summary "
+                                    f"{sorted(summary)}")
+        log_vunet_inference(f"-m infer {i + 1}", summary, iwall, ms, ipeak)
+        log(f"      Inception forwards {calls.get('Inception forward')}")
+    per_batch = [c.get("Inception forward", 0) for _, _, _, c, _ in runs]
+    check(per_batch[0] * 2 == per_batch[1] * 3,
+          f"{what}: the second -m infer did not read the FID cache "
+          f"(Inception forwards {per_batch})")
+    return dict(steps=steps, step_ms_median=step_ms, data_ms_median=data_ms,
+                item_ms_median=item_ms, items_fetched=len(fetches),
+                replay_alone_ms=alone_ms, replay_fetching_ms=fetching_ms,
+                loss_terms=terms, launches=launches,
+                img_per_s=B * 1e3 / step_ms,
+                img_per_s_with_data=B * 1e3 / (step_ms + data_ms),
+                peak_gib=peak / 2**30, wall_s=wall, decodes=decodes,
+                profile=prof, infer=[dict(summary=r[0], wall_s=r[1],
+                                          stages_ms=r[2], calls=r[3],
+                                          peak_gib=r[4] / 2**30)
+                                     for r in runs])
+
+
+def phase_image_files():
+    """cvbae on a Human3.6M tree and org-VUNet on a DeepFashion tree, as
+    configs/shape_and_pose_net.yaml and configs/vunet.yaml publish them;
+    returns the ELU+dropout launches of the cvbae run."""
+    from behavior_driven_video_synthesis_tpu_torch.data import native
+
+    base = tempfile.mkdtemp(prefix="chip_smoke_images_")
+    try:
+        t0 = time.perf_counter()
+        h36m, deepfashion, nbytes = write_image_trees(base)
+        log(f"[18] image trees written in {time.perf_counter() - t0:.1f} s: "
+            f"Human3.6M {H36M_SHAPE}, DeepFashion {DF_IMAGES} x {DF_SIZE} "
+            f"px; {nbytes / 2**20:.0f} MiB of JPEG")
+        if native.decode_available():
+            route = "native (libjpeg through data/native.py)"
+        else:
+            err = native.build_error() or ""
+            line = next((ln for ln in err.splitlines() if "error" in ln),
+                        err[:200])
+            route = f"cv2 (the native library does not build: {line})"
+            check("jpeglib.h" in err, "the JPEG decode library does not "
+                  "build, and not for want of libjpeg's headers: " + err)
+        log(f"    decoder route: {route}")
+        metrics = {"compute_is": True, "compute_fid": True}
+        cfg = deep_merge(train_config(os.path.join(base, "cvbae_run")), {
+            "training": {"end_iteration": IMAGE_STEPS},
+            "data": {"dataset": "human3.6m", "datapath": h36m},
+            "metrics": metrics})
+        elu_dropout.elu_dropout_fwd_launches = 0   # counts start here: the
+        elu_dropout.elu_dropout_bwd_launches = 0   # cvbae run on files
+        per_step = (DROPOUT_SITES, DROPOUT_SITES - DEAD_BACKWARD_SITES)
+        cvbae = image_run("cvbae on Human3.6M files", cfg, base,
+                          "make_cvbae_train_step", sites=per_step)
+        launches = tuple(cvbae["launches"])
+        check(launches == tuple(n * IMAGE_RESUMED_TO for n in per_step),
+              f"ELU+dropout launches of the cvbae run's steps {launches}")
+        org_cfg = deep_merge(org_train_config(
+            os.path.join(base, "org_run"), end_iteration=IMAGE_STEPS), {
+                "data": {"dataset": "deepfashion", "datapath": deepfashion},
+                "metrics": {**metrics, "posthoc_regressor": False}})
+        org = image_run("org VUNet on DeepFashion files", org_cfg, base,
+                        "make_org_vunet_train_step")
+        for what, r in (("cvbae", cvbae), ("org", org)):
+            if native.decode_available():
+                check(r["decodes"].get("cv2", 0) == 0
+                      and r["decodes"].get("native", 0) > 0,
+                      f"{what}: decoded {r['decodes']}, not all native")
+        train = RESULTS.get("train", {})
+        synthetic = train.get("profile") or {}
+        nan = float("nan")
+        log(f"    beside phase [7]'s synthetic cvbae step: "
+            f"{train.get('step_ms_median', nan):.2f} ms, idle share "
+            f"{synthetic.get('idle_share', nan):.3f} of the profiled step")
+        RESULTS["image_files"] = dict(route=route, cvbae=cvbae, org=org,
+                                      jpeg_mib=nbytes / 2**20)
+        return launches
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
+# -- 19. the image data and metrics against the JAX package's golden ----------
+def phase_image_golden():
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_port_image_data as TI
+
+    with np.load(IMAGE_GOLDEN) as data:
+        golden = {k: data[k] for k in data.files}
+    root = tempfile.mkdtemp(prefix="chip_smoke_image_golden_")
+    try:
+        worst = TI.check_against_golden(golden, DEV, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    equal = worst.pop("images_equal_share")
+    log(f"[19] golden image data (f32, TF32 off): worst error / tolerance "
+        + ", ".join(f"{k} {v:.3f}" for k, v in worst.items())
+        + f" (each <= 1; images within 1 uint8 level, the augmented pose "
+        f"image 4; {equal:.5f} of their values equal)")
+    RESULTS["golden_image_data"] = dict(worst, images_equal_share=equal)
+    check(all(v <= 1.0 for v in worst.values()),
+          "the image data or metrics disagree with the golden")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch "
                                  "port on one NVIDIA GPU")
@@ -2649,6 +3022,9 @@ def main(argv=None):
     phase_org_train_golden()
     phase_mtvae()
     phase_mtvae_golden()
+    image_launches = phase_image_files()
+    elu_launches = tuple(a + b for a, b in zip(elu_launches, image_launches))
+    phase_image_golden()
     bound, bound_by = rollout_bound_ms(*ROLLOUT_SHAPES[0])
     source = "behavior_driven_video_synthesis_tpu_torch/csrc/"
     pallas = "behavior_driven_video_synthesis_tpu/ops/pallas/"

@@ -25,6 +25,7 @@ from behavior_driven_video_synthesis_tpu_torch import main
 from behavior_driven_video_synthesis_tpu_torch.core.config import (
     deep_merge, load_config)
 from behavior_driven_video_synthesis_tpu_torch.experiments import mt_vae
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = {

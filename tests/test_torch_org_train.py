@@ -26,6 +26,7 @@ from behavior_driven_video_synthesis_tpu_torch.flax_npz import (
 
 import make_torch_port_org_train_golden as golden_maker
 import torch_port_org_train as T
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -154,20 +154,43 @@ def test_human36m_from_a_tiny_annot_export_h5(tmp_path):
 
 
 def test_human36m_without_h5py_raises(tmp_path, monkeypatch):
-    (tmp_path / "annot_export.h5").write_bytes(b"")
+    """Without h5py, ``data/h5lite.py`` reads annot_export.h5: the same
+    dataset as through h5py; a file that is not HDF5 raises."""
+    pytest.importorskip("h5py")
+    write_annot_export(str(tmp_path))
+    kw = {"keypoint_type": "keypoints_3d_world", "data_seed": 5,
+          "datapath": str(tmp_path)}
+    with_h5py = human36m.Human36mDataset(None, KEYS, (8, 9), **kw)
     monkeypatch.setitem(__import__("sys").modules, "h5py", None)
-    with pytest.raises(ImportError, match="h5py"):
-        human36m.Human36mDataset(None, KEYS, (8, 9), datapath=str(tmp_path),
-                                 keypoint_type="keypoints_3d_world")
+    _same_dataset(human36m.Human36mDataset(None, KEYS, (8, 9), **kw),
+                  with_h5py)
+    (tmp_path / "annot_export.h5").write_bytes(b"")
+    with pytest.raises(ValueError, match="not an HDF5 file"):
+        human36m.Human36mDataset(None, KEYS, (8, 9), **kw)
 
 
-def test_image_fetchers_name_their_roadmap_items():
-    mine, _ = _datasets("train", keys=["keypoints", "stickman"])
+def test_image_fetchers_name_their_roadmap_items(tmp_path):
+    """The synthesis-weight fetcher still names A12; the image and
+    stickman fetchers (A10c, ported) give the JAX dataset's sequences."""
+    cv2 = pytest.importorskip("cv2")
+    mine, _ = _datasets("train", keys=["keypoints", "synth_weights"])
     with pytest.raises(NotImplementedError, match="A12"):
         mine[0]
-    mine, _ = _datasets("train", keys=["app_img"])
-    with pytest.raises(NotImplementedError, match="A10c"):
-        mine[0]
+    keys = ["keypoints", "stickman", "pose_img", "app_img"]
+    mine, ref = _datasets("train", keys=keys, spatial_size=32)
+    rng = np.random.RandomState(0)
+    files = []
+    for i in range(3):
+        files.append(str(tmp_path / f"frame_{i}.jpg"))
+        cv2.imwrite(files[-1], (rng.rand(40, 48, 3) * 255).astype(np.uint8))
+    paths = np.asarray([files[i % 3] for i in range(len(ref))])
+    for ds in (mine, ref):
+        ds.datadict["img_paths"] = paths
+    for idx in (0, [11, 8]):
+        a, b = mine[idx], ref[idx]
+        _equal(a, b, f"item {idx}")
+        assert a["pose_img"].shape[1:] == (32, 32, 3)
+        assert np.abs(a["stickman"]).max() > 0.3     # something was drawn
 
 
 SAMPLERS = {

@@ -35,6 +35,7 @@ from behavior_driven_video_synthesis_tpu_torch.models import convert
 from behavior_driven_video_synthesis_tpu_torch.models.behavior import (
     ResidualBehaviorNet)
 from behavior_driven_video_synthesis_tpu_torch.models.init import init_random_
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -4,15 +4,18 @@ package, on the CPU.
 
 At small width (32 px, nf 4->8, B=2, 8 images a split): each experiment
 trains 3 steps, resumes with ``-r`` to step 6, runs no step when resumed
-again, and is evaluated with ``-m infer``; it writes ``reg_ckpt/``,
+again, and is evaluated with ``-m infer`` (one run of each, shared by the
+tests through a module-scoped fixture); it writes ``reg_ckpt/``,
 ``synth.npz``, ``metric_ckpts.json`` and image grids, and the org run's
 ``synth.npz`` serves through ``bdvs-generate-torch``.  The SSIM summary
 equals JAX ``ssim`` on the same images to 1e-5; the post-hoc regressor's
 loss equals the JAX driver's on the same VUNet, regressor weights, noise
 and batches.  The org run refuses the post-hoc regressor with in-plane
-part stacks (ROADMAP C6), beside the JAX driver, which fails on it; IS and
-FID raise, naming A10b.
+part stacks (ROADMAP C6), beside the JAX driver, which fails on it; with
+``metrics.compute_is`` or ``compute_fid``, ``-m infer`` reports IS or FID.
 """
+import contextlib
+import io
 import json
 import os
 from types import SimpleNamespace
@@ -44,6 +47,7 @@ from behavior_driven_video_synthesis_tpu_torch.models.behavior import (
 from behavior_driven_video_synthesis_tpu_torch.models.init import init_random_
 
 from torch_port_slice import jax_noise
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 S, NF_MAX, B = 32, 8, 2
@@ -88,11 +92,13 @@ def _serve(tmp_path, synth_params):
         "--device", "cpu", "--out", str(tmp_path / "served")])
 
 
-@pytest.mark.parametrize("experiment", ["cvbae", "vunet"])
-def test_train_resume_infer(tmp_path, experiment, monkeypatch, capsys):
+def _train_resume_infer(tmp_path, experiment):
+    """Train 3 steps, resume to 6, resume again, infer; returns what each
+    stage left behind (checked by ``test_train_resume_infer``)."""
     steps = []
-    make = sp.ShapePoseExperiment._make_step if experiment == "cvbae" \
-        else sp.VunetExperiment._make_step
+    cls = sp.VunetExperiment if experiment == "vunet" \
+        else sp.ShapePoseExperiment
+    make = cls._make_step
 
     def counted(self, *a):
         step = make(self, *a)
@@ -101,64 +107,94 @@ def test_train_resume_infer(tmp_path, experiment, monkeypatch, capsys):
             steps.append(state.step)
             return step(state, batch, **kw)
         return run
-    monkeypatch.setattr(sp.VunetExperiment if experiment == "vunet"
-                        else sp.ShapePoseExperiment, "_make_step", counted)
-    path = _write(tmp_path, _cfg(tmp_path, experiment))
-    out = main.main(["-c", path, "--device", "cpu"])
-    assert out["state"].step == 3 and steps == [0, 1, 2]
-    run = tmp_path / "runs" / experiment
-    ckpt, gen = run / "ckpt" / "tiny", run / "generated" / "tiny"
-    assert sorted(os.listdir(ckpt / "reg_ckpt")) == ["step_3.pt"]
-    with open(ckpt / "metric_ckpts.json") as f:
-        records = json.load(f)
-    assert list(records) == ["3"] and 0 < records["3"]["ssim"] <= 1
-    assert any(n.startswith("grid_0000003.") for n in os.listdir(gen))
-    grid_path = [gen / n for n in os.listdir(gen) if n.startswith("grid")][0]
+    r = SimpleNamespace(tmp_path=tmp_path, steps=steps)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cls, "_make_step", counted)
+        r.path = _write(tmp_path, _cfg(tmp_path, experiment))
+        r.out = main.main(["-c", r.path, "--device", "cpu"])
+        r.steps_trained = list(steps)
+        r.run = tmp_path / "runs" / experiment
+        r.ckpt, r.gen = r.run / "ckpt" / "tiny", r.run / "generated" / "tiny"
+        r.saves_trained = sorted(os.listdir(r.ckpt / "reg_ckpt"))
+        with open(r.ckpt / "metric_ckpts.json") as f:
+            r.records = json.load(f)
+        r.grids = os.listdir(r.gen)
 
-    # -r goes on from step 3 to the end_iteration of the run's config
-    dumped = run / "config" / "tiny" / "config.yaml"
-    cfg = load_config(str(dumped))
-    assert cfg["general"]["tf32"] is False
-    cfg["training"]["end_iteration"] = 6
-    with open(dumped, "w") as f:
-        yaml.safe_dump(cfg, f)
-    capsys.readouterr()
-    out = main.main(["-c", path, "--device", "cpu", "-r"])
-    assert "Restored reg_ckpt checkpoint at step 3" in capsys.readouterr().out
-    assert out["state"].step == 6 and steps == list(range(6))
-    assert sorted(os.listdir(ckpt / "reg_ckpt")) == ["step_3.pt",
-                                                      "step_6.pt"]
-    with open(run / "log" / "tiny" / "metrics.jsonl") as f:
-        lines = [json.loads(line) for line in f]
-    train = [ln for ln in lines if "train/loss" in ln]
+        # -r goes on from step 3 to the end_iteration of the run's config
+        dumped = r.run / "config" / "tiny" / "config.yaml"
+        cfg = load_config(str(dumped))
+        r.tf32 = cfg["general"]["tf32"]
+        cfg["training"]["end_iteration"] = 6
+        with open(dumped, "w") as f:
+            yaml.safe_dump(cfg, f)
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            r.resumed = main.main(["-c", r.path, "--device", "cpu", "-r"])
+        r.resume_printed = printed.getvalue()
+        r.steps_resumed = list(steps)
+        r.saves_resumed = sorted(os.listdir(r.ckpt / "reg_ckpt"))
+        with open(r.run / "log" / "tiny" / "metrics.jsonl") as f:
+            r.lines = [json.loads(line) for line in f]
+        r.again = main.main(["-c", r.path, "--device", "cpu", "-r"])
+        r.steps_again = list(steps)
+    r.summary = main.main(["-c", r.path, "--device", "cpu", "-m", "infer"])
+    with open(r.run / "log" / "tiny" / "metrics.jsonl") as f:
+        r.last = json.loads(f.readlines()[-1])
+    return r
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """The trained, resumed and evaluated run of each experiment, made on
+    first use and shared by the tests of this file."""
+    runs = {}
+
+    def get(experiment):
+        if experiment not in runs:
+            runs[experiment] = _train_resume_infer(
+                tmp_path_factory.mktemp(experiment), experiment)
+        return runs[experiment]
+    return get
+
+
+@pytest.mark.parametrize("experiment", ["cvbae", "vunet"])
+def test_train_resume_infer(trained, experiment):
+    r = trained(experiment)
+    assert r.out["state"].step == 3 and r.steps_trained == [0, 1, 2]
+    assert r.saves_trained == ["step_3.pt"]
+    assert list(r.records) == ["3"] and 0 < r.records["3"]["ssim"] <= 1
+    assert any(n.startswith("grid_0000003.") for n in r.grids)
+    grid_path = [r.gen / n for n in r.grids if n.startswith("grid")][0]
+
+    assert r.tf32 is False
+    assert "Restored reg_ckpt checkpoint at step 3" in r.resume_printed
+    assert r.resumed["state"].step == 6 and r.steps_resumed == list(range(6))
+    assert r.saves_resumed == ["step_3.pt", "step_6.pt"]
+    train = [ln for ln in r.lines if "train/loss" in ln]
     assert [ln["step"] for ln in train] == [3, 6]
     if experiment == "vunet":   # the KL ramp (steps 3 to 4 of 6) went on
         assert train[1]["train/kl_weight"] == pytest.approx(  # from step 3
             (1e-6 + 2.0) / 3)
-    out = main.main(["-c", path, "--device", "cpu", "-r"])
-    assert out["state"].step == 6 and len(steps) == 6
+    assert r.again["state"].step == 6 and len(r.steps_again) == 6
 
-    summary = main.main(["-c", path, "--device", "cpu", "-m", "infer"])
     want = {"ssim"} | ({"loss_regressor_posthoc"} if experiment == "cvbae"
                        else set())
-    assert set(summary) == want
-    assert all(np.isfinite(v) for v in summary.values())
-    with open(run / "log" / "tiny" / "metrics.jsonl") as f:
-        last = json.loads(f.readlines()[-1])
-    assert last["infer/ssim"] == summary["ssim"]
+    assert set(r.summary) == want
+    assert all(np.isfinite(v) for v in r.summary.values())
+    assert r.last["infer/ssim"] == r.summary["ssim"]
     if experiment == "cvbae":
         pytest.importorskip("matplotlib")
-        assert (gen / "loss_course_eval.png").exists()
+        assert (r.gen / "loss_course_eval.png").exists()
     assert os.path.getsize(grid_path) > 0
 
-    tree = convert.load_flax_npz(str(ckpt / "synth.npz"))
+    tree = convert.load_flax_npz(str(r.ckpt / "synth.npz"))
     from_flax = (convert.vunet_org_from_flax if experiment == "vunet"
                  else convert.vunet_alter_from_flax)
     for k, v in from_flax(tree["vunet"]).items():
-        torch.testing.assert_close(v, out["vunet"].state_dict()[k],
+        torch.testing.assert_close(v, r.again["vunet"].state_dict()[k],
                                    rtol=0, atol=0)
     if experiment == "vunet":
-        man = _serve(tmp_path, str(ckpt / "synth.npz"))
+        man = _serve(r.tmp_path, str(r.ckpt / "synth.npz"))
         assert man["variant"] == "org" and len(man["videos"]) == 2
 
 
@@ -286,7 +322,15 @@ def test_posthoc_regressor_with_part_stacks_is_refused_as_jax_fails(
 
 
 @pytest.mark.parametrize("metric", ["compute_is", "compute_fid"])
-def test_is_and_fid_name_their_roadmap_item(tmp_path, metric):
-    path = _write(tmp_path, _cfg(tmp_path, "cvbae", **{metric: True}))
-    with pytest.raises(NotImplementedError, match="A10b"):
-        main.main(["-c", path, "--device", "cpu"])
+def test_is_and_fid_name_their_roadmap_item(trained, metric):
+    """IS and FID (ROADMAP A10b, ported): ``-m infer`` of the trained
+    cvbae run reports the metric, finite."""
+    r = trained("cvbae")
+    cfg = _cfg(r.tmp_path, "cvbae", **{metric: True})
+    path = _write(r.tmp_path, cfg, name=f"{metric}.yaml")
+    summary = main.main(["-c", path, "--device", "cpu", "-m", "infer"])
+    keys = {"compute_is": {"is_recon", "is_transfer"},
+            "compute_fid": {"fid"}}[metric]
+    assert set(summary) == {"ssim", "loss_regressor_posthoc"} | keys
+    assert all(np.isfinite(summary[k]) for k in keys)
+    assert summary["is_recon" if metric == "compute_is" else "fid"] > 0
