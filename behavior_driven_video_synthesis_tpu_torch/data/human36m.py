@@ -28,8 +28,9 @@ a frame's pixel keypoints (the world keypoints projected into the image,
 for ``keypoints_3d_world``), which the stickman, the part stacks and the
 probe targets read; with ``use_3d_for_stickman`` the stickman is drawn
 from the 3D keypoints through the frame's camera
-(``_get_stickman_from_3d``; from joint angles it would need forward
-kinematics, ROADMAP A3, and raises).  """
+(``_get_stickman_from_3d``), which for ``angle_world_expmap`` come from
+the joint angles through ``geometry/kinematics.py:forward_kinematics``.
+"""
 from __future__ import annotations
 
 from copy import deepcopy
@@ -39,6 +40,9 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+import torch
+
+from ..geometry.kinematics import forward_kinematics
 from ..geometry.normalization import (NormStats, normalization_stats,
                                       unnormalize)
 from ..geometry.stickman import JointModel, make_joint_img
@@ -407,16 +411,21 @@ class Human36mDataset(BaseDataset):
 
     def _get_stickman_from_3d(self, ids):
         """The stickman of each frame drawn from its 3D keypoints through
-        its camera, lines ``spatial_size // stickman_scale`` thick."""
-        if self.keypoint_key != "keypoints_3d_world":
-            raise NotImplementedError(
-                f"the stickman from {self.keypoint_key} needs forward "
-                "kinematics, which is not ported yet (ROADMAP A3)")
+        its camera, lines ``spatial_size // stickman_scale`` thick.  For
+        joint angles the keypoints are the forward kinematics' 32 joints
+        (float32, mm to m), whose numbering the angle keys' joint model
+        uses; the JAX dataset keeps 17 of them there and fails (ROADMAP
+        C14)."""
         size = (self.spatial_size, self.spatial_size, 3)
         out = []
         for i in np.asarray(ids):
-            kps3d_w = self._unnorm_world_kps(
-                self.datadict[self.keypoint_key][int(i)])
+            kps = self.datadict[self.keypoint_key][int(i)]
+            if self.keypoint_key == "keypoints_3d_world":
+                kps3d_w = self._unnorm_world_kps(kps)
+            else:
+                full = unnormalize(kps[None], self.norm_stats)
+                kps3d_w = forward_kinematics(torch.from_numpy(
+                    np.asarray(full, np.float32)))[0].numpy() / 1000.0
             img = make_joint_img(size, self._project_to_pixels(int(i),
                                                                kps3d_w),
                                  self.joint_model,

@@ -37,14 +37,16 @@ they exist and goes on from their steps, so a finished run runs no step.
 After each stage the model is written as ``<ckpt dir>/behavior.npz`` (flax
 trees ``net/...`` and, after the flow stage, ``flow/params/...`` and
 ``flow/buffers/...``) with ``behavior.json`` (the run's
-``architecture``, ``data`` and ``general`` config): the files
-``bdvs-generate-torch --behavior_params`` reads.
+``architecture``, ``data``, ``general`` and ``training`` config): the
+files ``bdvs-generate-torch --behavior_params`` (and ``--from_dataset``)
+reads.
 
 Every draw of inference (the posterior noise, the prior and flow codes,
 the post-hoc probes' initial weights and batches) comes from
 :class:`InferenceDraws`, seeded from ``general.seed`` on the run's device.
 Not ported: ``general.visualization`` (ROADMAP A12) and ``training.fsdp``
-(A14); ``mse_euler_per_action`` waits for the rotation geometry (A3).
+(A14).  ``metrics/sequence.py:mse_euler_per_action`` is ported; like the
+JAX experiment, this one does not call it.
 """
 from __future__ import annotations
 
@@ -506,6 +508,6 @@ class BehaviorNetExperiment(Experiment):
         os.replace(tmp, path)
         with open(os.path.join(self.dirs["ckpt"], "behavior.json"), "w") as f:
             json.dump({k: self.config.get(k, {}) for k in
-                       ("architecture", "data", "general")}, f, indent=1,
-                      default=list)
+                       ("architecture", "data", "general", "training")}, f,
+                      indent=1, default=list)
         return path

@@ -42,8 +42,8 @@ channels:
             images (Adam 1e-3, 20 epochs, 2 with ``--debug``); the summary
             logged under ``infer/``.
 
-The train state (the VUNet, the regressor, both optimizers and the lr
-schedule, gamma, the step and the noise and dropout generators) is saved
+The train state (the VUNet, the regressor, the discriminator, their
+optimizers and the lr schedule, gamma, the step and the noise and dropout generators) is saved
 in ``<ckpt dir>/reg_ckpt`` (``core/checkpoint.py``) and restored whenever
 a save exists, so the lr decay and the KL ramp go on from its step and a
 finished run runs no step.  The synthesis model is also written as
@@ -56,8 +56,13 @@ seed 1, with epochs numbered from 1001, as in the JAX driver.
 The cvbae regressor predicts the probe images' keypoints: 36 outputs (18
 keypoints) as in the JAX driver, or twice the dataset's keypoints
 (Human3.6M's 17 give 34, where the JAX driver's 36 outputs fail against
-34 targets, ROADMAP C8).  Not ported: the GAN branch (``training.use_gan``;
-A11).  With in-plane part stacks the JAX post-hoc regressor encodes the
+34 targets, ROADMAP C8).  With ``training.use_gan`` the cvbae run trains
+a PatchGAN discriminator beside the VUNet (``train/gan.py``; ``disc_ndf``,
+``disc_layers``, ``disc_lr``, ``gan_weight``, ``grad_pen``,
+``lambda_gp``): its parameters and Adam state join the ``reg_ckpt`` saves
+and its losses the metric log.  The org experiment refuses ``use_gan``:
+the JAX org step builds a discriminator and never trains it (ROADMAP
+C13).  With in-plane part stacks the JAX post-hoc regressor encodes the
 3-channel pose image with the 30-channel appearance encoder and fails
 (ROADMAP C6); this driver refuses that input up front.
 """
@@ -85,6 +90,7 @@ from ..models.inception import (InceptionV3Features, inception_features,
 from ..models.init import init_like_jax_
 from ..models.perceptual import perceptual_from_config
 from ..models.vunet import VunetRegressor, latent_widths, vunet_from_config
+from ..train.gan import build_discriminator, create_gan_state
 from ..train.state import make_vunet_optimizers
 from ..train.vunet_exp import (VunetTrainState, make_cvbae_train_step,
                                make_org_vunet_train_step)
@@ -228,9 +234,10 @@ class ShapePoseExperiment(Experiment):
             regressor = self._new_regressor(n_reg_out, generator)
         return vunet, regressor
 
-    def _make_step(self, vunet, regressor, perceptual, optimizers):
+    def _make_step(self, vunet, regressor, perceptual, optimizers,
+                   gan=None):
         return make_cvbae_train_step(vunet, regressor, perceptual,
-                                     optimizers, self.config)
+                                     optimizers, self.config, gan=gan)
 
     def _eps(self, batch_size: int):
         """Posterior noise of an evaluation's encoding of ``batch_size``
@@ -256,9 +263,15 @@ class ShapePoseExperiment(Experiment):
         vunet.train()
         perceptual = perceptual_from_config(cfg, self.device, gens[0])
         optimizers = make_vunet_optimizers(vunet, regressor, tr)
-        step_fn = self._make_step(vunet, regressor, perceptual, optimizers)
-        state = VunetTrainState(gamma=torch.zeros((), device=self.device))
         modules = {"vunet": vunet, "regressor": regressor}
+        gan = None
+        if bool(tr.get("use_gan", False)):
+            gan = create_gan_state(build_discriminator(cfg, self.device), tr,
+                                   gens[0])
+            modules["disc"], optimizers["disc"] = gan.disc, gan.opt
+        step_fn = self._make_step(vunet, regressor, perceptual, optimizers,
+                                  gan)
+        state = VunetTrainState(gamma=torch.zeros((), device=self.device))
         mgr, _ = self.restore("reg_ckpt", lambda p: self._load(
             p, modules, optimizers, state, gens[1:]))
 
@@ -297,7 +310,7 @@ class ShapePoseExperiment(Experiment):
         if mgr.latest_step() != state.step or path is None:
             path = save()
         return {"vunet": vunet, "regressor": regressor, "state": state,
-                "synth_params": path,
+                "gan": gan, "synth_params": path,
                 "n_params": sum(p.numel() for p in vunet.parameters())}
 
     def _payload(self, modules, optimizers, state, gens) -> dict:
@@ -571,7 +584,17 @@ class VunetExperiment(ShapePoseExperiment):
 
     variant = "org"
 
-    def _make_step(self, vunet, regressor, perceptual, optimizers):
+    def run_training(self):
+        if bool(self.config["training"].get("use_gan", False)):
+            raise ValueError(
+                "training.use_gan with experiment 'vunet': the JAX org "
+                "experiment builds a discriminator and its step never "
+                "trains it (ROADMAP C13); the GAN branch trains with "
+                "experiment 'cvbae'")
+        return super().run_training()
+
+    def _make_step(self, vunet, regressor, perceptual, optimizers,
+                   gan=None):
         total = int(self.config["training"].get("end_iteration", 1000))
         return make_org_vunet_train_step(vunet, perceptual, optimizers,
                                          self.config, total)

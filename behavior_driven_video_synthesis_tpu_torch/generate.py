@@ -34,6 +34,19 @@ source (B, T, K), app_img (B, S, S, 3) in [-1, 1] float or uint8,
 extrinsics (B, 3, 4), intrinsics (B, 4) as (fx, x0, fy, y0), image_size
 (B, 2), norm_mean / norm_std (K_full,) and dim_to_use (K,).
 
+``--from_dataset`` builds the request from the behavior run's own dataset
+(``behavior.json``'s ``data`` section, its test split): the first test
+batch's sequences (``source`` without their last frame, ``x_start`` their
+first), the norm statistics and the dataset's joint model and, where the
+dataset was read from ``data.datapath``, the appearances and cameras of
+its first ``--batch`` frames (``experiments/visualize.py:get_synth_input``;
+for an in-plane synthesis run the frames' part stacks, the JAX package's
+``normalize_parts``, through ``data/parts.py:warp_parts``).  A dataset
+without frame files (``h36m_synthetic``) keeps the synthetic appearance
+and camera.  A request file's arrays take precedence.  The request is
+written to ``<out>/request.npz`` (with the batch's ``sample_ids``), which
+``--request`` serves again.
+
 Videos are mp4 where OpenCV is installed and uint8 .npy otherwise; the
 manifest says which.  float32 products and convolutions run without TF32
 (``core/precision.py``); the manifest records ``"tf32": false``.
@@ -43,6 +56,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+from typing import Dict
 
 import numpy as np
 import torch
@@ -103,6 +117,79 @@ def _load_params(npz_path: str):
     return tree, config
 
 
+def synth_inputs(ds, n: int, spatial: int, inplane: bool,
+                 box_factor: int) -> Dict[str, np.ndarray]:
+    """``app_img``, ``extrinsics``, ``intrinsics`` and ``image_size`` of a
+    request from frames 0..n-1 of image dataset ``ds``: the frame through
+    ``experiments/visualize.py:get_synth_input``, or for an in-plane
+    synthesis run its part stack from the dataset's own datadict."""
+    from .experiments.visualize import get_synth_input
+
+    keys = ("app_img", "extrinsics", "intrinsics", "image_size")
+    if not inplane:
+        rows = [get_synth_input(ds, i, spatial) for i in range(n)]
+        return {k: np.stack(a) for k, a in zip(keys, zip(*rows))}
+    # the part stacks and their keypoints from the same frames of the
+    # dataset's own datadict (get_synth_input reads the larger complete
+    # one, whose index i is another frame)
+    if not getattr(ds.joint_model, "norm_T", None):
+        raise SystemExit(
+            "an in-plane synthesis run, but the behavior dataset's joint "
+            "model defines no part homographies (norm_T); supply app_img "
+            "with --request")
+    from .data.parts import part_stack_source, warp_parts
+
+    part = spatial // 2 ** box_factor
+    src = part_stack_source([ds._prep_image(i) for i in range(n)],
+                            [ds._get_kps_for_rendering(i) for i in range(n)],
+                            ds.joint_model, part)
+    stacks = warp_parts(torch.from_numpy(src.src), src.mats, src.valid, part)
+    dd = ds.datadict
+    return {"app_img": stacks.numpy().astype(np.float32) / 127.5 - 1.0,
+            **{k: np.asarray(dd[col][:n], np.float32) for k, col in zip(
+                keys[1:], ("extrinsics_univ", "intrinsics_univ",
+                           "image_size"))}}
+
+
+def request_from_dataset(bcfg: dict, n: int, spatial: int, inplane: bool,
+                         box_factor: int):
+    """(request arrays of up to ``n`` sequences, the dataset's joint model
+    or None, a description) from the behavior run's test data (see the
+    module docstring); the loader's batch is the run's, or ``n``."""
+    from .experiments.data_factory import build_sequence_data
+
+    if not bcfg.get("data"):
+        raise SystemExit("--from_dataset needs the behavior run's config "
+                         "(behavior.json with a data section) beside its "
+                         ".npz")
+    cfg = dict(bcfg)
+    cfg["training"] = {"batch_size": n, **bcfg.get("training", {})}
+    loader, meta = build_sequence_data(cfg, mode="test")
+    batches = iter(loader)
+    batch = next(batches)
+    batches.close()
+    kps = np.asarray(batch["keypoints"], np.float32)[:n]
+    req = {"source": kps[:, :-1], "x_start": kps[:, 0]}
+    if "sample_ids" in batch:
+        req["sample_ids"] = np.asarray(batch["sample_ids"])[:n]
+    stats = meta.get("norm_stats")
+    if stats is not None:
+        req.update(norm_mean=np.asarray(stats.mean),
+                   norm_std=np.asarray(stats.std),
+                   dim_to_use=np.asarray(stats.dim_to_use))
+    ds = meta.get("dataset")
+    # frames exist only where the dataset was read from data.datapath: an
+    # h36m_synthetic dataset names frames it never wrote, which the JAX CLI
+    # tries to read and fails (ROADMAP C15)
+    if (ds is not None and getattr(ds, "datapath", "")
+            and "img_paths" in getattr(ds, "datadict", {})):
+        req.update(synth_inputs(ds, len(kps), spatial, inplane, box_factor))
+    what = (f"request built from the run's dataset: {len(kps)} sequences"
+            + (", real appearance/cameras" if "app_img" in req
+               else ", synthetic appearance/camera fallback"))
+    return req, getattr(ds, "joint_model", None), what
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(
         description="Generate behavior-transfer videos from trained "
@@ -131,8 +218,11 @@ def parse_args(argv=None):
                     help="the VUNet's RNBs without auxiliary input: cuDNN "
                          "conv + eager elementwise ops, or the fused RNB "
                          "kernel")
+    ap.add_argument("--from_dataset", action="store_true",
+                    help="build the request from the behavior run's own "
+                         "dataset (test split): real source sequences, "
+                         "norm stats, appearance and cameras")
     # options of the JAX CLI that this port does not have yet
-    ap.add_argument("--from_dataset", action="store_true")
     ap.add_argument("--quant", choices=["none", "int8_static"],
                     default="none")
     ap.add_argument("--upsample", choices=["subpixel", "transpose"],
@@ -141,12 +231,12 @@ def parse_args(argv=None):
                     default="none")
     args = ap.parse_args(argv)
     unported = [flag for flag, on in (
-        ("--from_dataset", args.from_dataset),
         ("--quant", args.quant != "none"),
         ("--upsample transpose", args.upsample != "subpixel"),
         ("--preset", args.preset != "none")) if on]
     if unported:
-        ap.exit(2, f"{', '.join(unported)}: not ported yet\n")
+        ap.exit(2, f"{', '.join(unported)}: not ported yet (quantized and "
+                   f"TPU serving options, ROADMAP A14)\n")
     return args
 
 
@@ -182,6 +272,12 @@ def main(argv=None):
         with np.load(args.request) as data:
             req = {k: data[k] for k in data.files}
     rng = np.random.RandomState(args.seed)
+    jm_dataset = None
+    if args.from_dataset:
+        built, jm_dataset, what = request_from_dataset(
+            bcfg, args.batch, spatial, s_inplane, s_boxf)
+        req = {**built, **req}
+        print(what)
     if "x_start" in req:
         x_start = np.asarray(req["x_start"], np.float32)
     else:
@@ -231,8 +327,8 @@ def main(argv=None):
     imsize = np.asarray(req.get("image_size", imsize_d), np.float32)
 
     n_joints = int(len(dim_to_use)) // 3
-    jm = (detailed_joint_model(world_coords=True) if n_joints == 17
-          else chain_joint_model(n_joints))
+    jm = jm_dataset or (detailed_joint_model(world_coords=True)
+                        if n_joints == 17 else chain_joint_model(n_joints))
 
     # ---- models (serving config) ------------------------------------------
     behavior = ResidualBehaviorNet(
@@ -277,6 +373,10 @@ def main(argv=None):
                             length=args.length, generator=gen)
 
     os.makedirs(args.out, exist_ok=True)
+    request_path = None
+    if args.from_dataset:
+        request_path = os.path.join(args.out, "request.npz")
+        np.savez(request_path, **req)
     frames = frames_to_uint8(out["frames"].float().cpu().numpy())
     stick = frames_to_uint8(out["stickman"].float().cpu().numpy())
     paths = {}
@@ -289,6 +389,7 @@ def main(argv=None):
                 "spatial": spatial, "quant": args.quant,
                 "upsample": args.upsample, "flow": use_flow,
                 "variant": variant, "rnb_impl": args.rnb_impl,
+                "from_dataset": args.from_dataset, "request": request_path,
                 "tf32": tf32_enabled(),
                 "device": (torch.cuda.get_device_name(device)
                            if device.type == "cuda" else str(device)),

@@ -1,7 +1,7 @@
 """Sequence diversity and accuracy metrics of the behavior evaluation.
 
 Counterpart of ``behavior_driven_video_synthesis_tpu/metrics/sequence.py:
-24-92``, on torch tensors on any device:
+24-116``, on torch tensors on any device:
 
   * APD — mean over samples of the sum of pairwise full-sequence L2
           distances, divided by (n_samples - 1)
@@ -15,14 +15,17 @@ Counterpart of ``behavior_driven_video_synthesis_tpu/metrics/sequence.py:
 Shapes: samples (B, S, T, K, 3), S rollouts per sequence; gt (B, T, K, 3).
 Each metric is one batched op over all pairs, as in the JAX package: at
 B=64, S=50, T=50, 17x3 the (B, S, S, T, K, 3) difference is 1.6 GB of
-float32 on the device.  ``mse_euler_per_action`` waits for the rotation
-geometry (ROADMAP A3).
+float32 on the device.  ``mse_euler_per_action`` is the per-action MSE
+of expmap sequences after their conversion to Euler angles.
 """
 from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
+
+from ..geometry.rotations import expmap_to_rotmat, rotmat_to_euler
 
 
 def _frame_norm(x):
@@ -90,3 +93,20 @@ def sequence_sample_metrics(samples, gt) -> Dict[str, torch.Tensor]:
         "ADE": average_displacement_error(samples, gt),
         "FDE": final_displacement_error(samples, gt),
     }
+
+
+def mse_euler_per_action(pred_expmap, gt_expmap, actions) -> Dict[int, float]:
+    """{action label: MSE} of Euler angles: each of the 32 joints' expmaps
+    of ``pred_expmap`` and ``gt_expmap`` ((N, T, 99) channels, tensors or
+    arrays) converted to Euler angles, the squared error averaged over the
+    sequences of each label in ``actions`` (N,)."""
+    def to_euler(flat):
+        flat = torch.as_tensor(flat)
+        exps = flat[..., 3:99].reshape(flat.shape[:-1] + (32, 3))
+        return rotmat_to_euler(expmap_to_rotmat(exps))
+
+    sq = (to_euler(pred_expmap) - to_euler(gt_expmap)) ** 2
+    actions = np.asarray(torch.as_tensor(actions).cpu())
+    return {int(a): float(torch.mean(sq[torch.from_numpy(actions == a)
+                                        .to(sq.device)]))
+            for a in np.unique(actions)}

@@ -446,6 +446,49 @@ def sequence_disc_michael_to_flax(state_dict: Mapping) -> Dict[str, Any]:
     return to_flax(state_dict, sequence_disc_michael_plan(layers))
 
 
+# -- image-synthesis discriminators (models/synth_discriminators.py) --------
+
+def patchgan_plan(n_convs: int) -> Plan:
+    """``PatchGANDiscriminator`` with ``n_convs`` convs (n_layers + 2):
+    ``convs.{i}`` <-> flax ``Conv_{i}`` (OIHW <-> HWIO kernel, bias)."""
+    return [e for i in range(n_convs) for e in (
+        (f"convs.{i}.weight", (f"Conv_{i}", "kernel"), "hwio"),
+        (f"convs.{i}.bias", (f"Conv_{i}", "bias"), "id"))]
+
+
+def patchgan_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    p = _params(tree)
+    return from_flax(p, patchgan_plan(_count(p, "Conv_")))
+
+
+def patchgan_to_flax(state_dict: Mapping) -> Dict[str, Any]:
+    return to_flax(state_dict, patchgan_plan(sum(
+        1 for k in state_dict if k.endswith(".weight"))))
+
+
+def part_discriminator_plan(n_scales: int) -> Plan:
+    """``PartDiscriminator``: ``conv_in`` <-> ``NormConv2d_0``,
+    ``blocks.{i}`` <-> ``VunetRNB_{i}``, ``downs.{i}`` <->
+    ``Downsample_{i}``, ``dense`` <-> ``Dense_0``."""
+    plan = _norm_conv("conv_in", ("NormConv2d_0",))
+    for i in range(n_scales):
+        plan += _rnb(f"blocks.{i}", (f"VunetRNB_{i}",), False)
+        plan += _norm_conv(f"downs.{i}.down",
+                           (f"Downsample_{i}", "NormConv2d_0"))
+    return plan + _dense("dense", ("Dense_0",))
+
+
+def part_discriminator_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    p = _params(tree)
+    return from_flax(p, part_discriminator_plan(_count(p, "VunetRNB_")))
+
+
+def part_discriminator_to_flax(state_dict: Mapping) -> Dict[str, Any]:
+    return to_flax(state_dict, part_discriminator_plan(sum(
+        1 for k in state_dict
+        if k.startswith("blocks.") and k.endswith(".conv.conv.weight_v"))))
+
+
 # -- MT-VAE -------------------------------------------------------------------
 
 def mtvae_plan() -> Plan:

@@ -4,9 +4,11 @@ Counterpart of ``behavior_driven_video_synthesis_tpu/models/perceptual.py``:
 ``training.perceptual: laplacian``, the weight-free pyramid, and ``vgg``
 (the default), the VGG19 trunk up to relu5_2.  VGG19 weights come from a
 ``.npz`` of flax parameters (``training.vgg_weights_path``, the layout
-``load_npz_params`` reads) through :func:`vgg19_from_flax`, or, without
-one, from a seeded random init: no pretrained weights exist here and
-nothing is downloaded (WEIGHTS.md).
+``load_npz_params`` reads and ``save_npz_params`` writes, the JAX
+package's) through :func:`vgg19_from_flax`, or, without one, from a
+seeded random init: no pretrained weights exist here and nothing is
+downloaded (WEIGHTS.md).  ``load_torchvision_vgg19`` turns a torchvision
+``vgg19`` state dict into that flax tree, once and offline.
 """
 from __future__ import annotations
 
@@ -80,6 +82,8 @@ VGG19_CFG = [
 VGG19_TAPS = {"conv1_2": "relu1_2", "conv2_2": "relu2_2",
               "conv3_2": "relu3_2", "conv4_2": "relu4_2",
               "conv5_2": "relu5_2"}
+# torchvision's features.* indices of VGG19's conv layers, in order
+_TORCHVISION_CONV_IDX = [0, 2, 5, 7, 10, 12, 14, 16, 19, 21, 23, 25, 28, 30]
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
@@ -118,6 +122,28 @@ class PerceptualVGG19(nn.Module):
             if item[0] in VGG19_TAPS:
                 out[VGG19_TAPS[item[0]]] = h.permute(0, 2, 3, 1)
         return out
+
+
+def load_torchvision_vgg19(state_dict) -> Dict:
+    """A torchvision ``vgg19`` state dict (``features.N.weight/bias``,
+    tensors or arrays) -> the flax variables ``{"params": {layer: {kernel
+    (HWIO), bias}}}`` of the layers up to conv5_2, as numpy arrays."""
+    params = {}
+    conv_names = [item[0] for item in VGG19_CFG if item != "M"]
+    for name, idx in zip(conv_names, _TORCHVISION_CONV_IDX):
+        w = np.asarray(state_dict[f"features.{idx}.weight"])       # OIHW
+        params[name] = {"kernel": np.ascontiguousarray(
+                            w.transpose(2, 3, 1, 0)),
+                        "bias": np.asarray(state_dict[f"features.{idx}.bias"])}
+    return {"params": params}
+
+
+def save_npz_params(variables: Dict, path: str) -> None:
+    """Flax variables ``{"params": {layer: {name: array}}}`` -> a ``.npz``
+    with keys ``<layer>.<name>`` (what :func:`load_npz_params` reads)."""
+    np.savez(path, **{f"{lname}.{k}": np.asarray(v)
+                      for lname, p in variables["params"].items()
+                      for k, v in p.items()})
 
 
 def load_npz_params(path: str) -> Dict:

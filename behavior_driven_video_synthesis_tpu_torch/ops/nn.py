@@ -151,23 +151,31 @@ class Downsample(nn.Module):
 
 
 class Upsample(nn.Module):
-    """2x subpixel upsample: 3x3 NormConv2d to 4*features, depth_to_space."""
+    """2x upsample: subpixel (a 3x3 NormConv2d to 4*features, then
+    depth_to_space) or, with ``subpixel=False``, a 3x3 NormConv2d to
+    ``features`` and a bilinear resize with half-pixel centres, whose edge
+    rows repeat the border (``jax.image.resize(..., "bilinear")`` at 2x), in
+    the activation's dtype."""
 
     def __init__(self, in_channels: int, features: int,
                  subpixel: bool = True, transpose: bool = False,
                  dtype=torch.float32, device=None):
         super().__init__()
-        if not subpixel:
-            raise NotImplementedError(
-                "bilinear Upsample (subpixel=False) is not ported yet")
         if transpose:
             raise NotImplementedError(
                 "Upsample transpose=True is not ported yet")
-        self.up = NormConv2d(in_channels, 4 * features, 3, padding=1,
+        self.subpixel = subpixel
+        self.up = NormConv2d(in_channels,
+                             (4 if subpixel else 1) * features, 3, padding=1,
                              dtype=dtype, device=device)
 
     def forward(self, x):
-        return depth_to_space(self.up(x), 2)
+        y = self.up(x)
+        if self.subpixel:
+            return depth_to_space(y, 2)
+        y = F.interpolate(y.permute(0, 3, 1, 2), scale_factor=2,
+                          mode="bilinear", align_corners=False)
+        return y.permute(0, 2, 3, 1)
 
 
 DROPOUT_IMPLS = ("flax", "pallas")

@@ -5,8 +5,8 @@ Counterpart of ``behavior_driven_video_synthesis_tpu/train/losses.py:22-100``:
 ``compute_kl_loss`` (the original VUNet's KL between per-scale means),
 ``compute_kl_with_prior`` (cvbae), ``vgg_loss`` (weighted L1 over a
 feature pyramid), the behavior step's ``mse_loss``,
-``recon_loss_per_seq``, ``cross_entropy`` and ``accuracy``, and the MT-VAE
-step's ``l1_loss``.
+``recon_loss_per_seq``, ``cross_entropy`` and ``accuracy``, the MT-VAE
+step's ``l1_loss``, and the GAN branch's ``bce_logits``.
 """
 from __future__ import annotations
 
@@ -67,6 +67,13 @@ def l1_loss(pred, target):
 def recon_loss_per_seq(pred, target):
     """Per-sequence MSE (B,)."""
     return torch.mean((pred - target) ** 2, dim=tuple(range(1, pred.dim())))
+
+
+def bce_logits(pred, target):
+    """Mean binary cross-entropy of logits ``pred`` against ``target``, in
+    the logits' dtype, in the JAX package's stable form."""
+    return torch.mean(torch.clamp(pred, min=0) - pred * target
+                      + torch.log1p(torch.exp(-torch.abs(pred))))
 
 
 def cross_entropy(logits, labels):

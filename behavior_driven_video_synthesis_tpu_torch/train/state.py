@@ -2,6 +2,7 @@
 
 Counterpart of ``behavior_driven_video_synthesis_tpu/train/state.py``,
 ``experiments/shape_and_pose_net.py:138-156``,
+``experiments/shape_and_pose_net.py:171-175`` (the discriminator's),
 ``experiments/behavior_net.py:95-114, 205-213`` and
 ``experiments/mt_vae.py:33-40``.  ``torch.optim.Adam`` is
 optax's ``adam`` exactly (eps 1e-8 outside the square root, bias
@@ -9,7 +10,8 @@ correction from the first step) and, with ``weight_decay``, the JAX
 package's ``torch_adam``: the L2 term joins the gradient before the
 moments (not AdamW's decoupled decay).  The VUNet's learning rate decays
 linearly from lr0 at the first step to 0 at ``end_iteration``
-(``optax.linear_schedule``); the regressor's is a constant 1e-3.
+(``optax.linear_schedule``); the regressor's is a constant 1e-3; the
+GAN discriminator's Adam has ``disc_lr`` (2e-4) and betas (0.5, 0.9).
 """
 from __future__ import annotations
 
@@ -42,6 +44,14 @@ def make_vunet_optimizers(vunet: nn.Module, regressor: Optional[nn.Module],
         "regressor": (torch.optim.Adam(regressor.parameters(), lr=1e-3)
                       if regressor is not None else None),
     }
+
+
+def make_disc_optimizer(disc: nn.Module, training: dict
+                        ) -> torch.optim.Adam:
+    """The GAN discriminator's Adam: lr ``disc_lr``, betas (0.5, 0.9)."""
+    return torch.optim.Adam(disc.parameters(),
+                            lr=float(training.get("disc_lr", 2e-4)),
+                            betas=(0.5, 0.9), eps=1e-8)
 
 
 def make_behavior_optimizers(modules: Dict[str, nn.Module], training: dict,

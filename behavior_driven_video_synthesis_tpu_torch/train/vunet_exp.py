@@ -1,8 +1,8 @@
 """The VUNet training steps: cvbae and the original VUNet.
 
 Counterpart of ``behavior_driven_video_synthesis_tpu/train/vunet_exp.py:
-107-302`` (``make_cvbae_train_step``, ``make_org_vunet_train_step``).  One
-cvbae step:
+74-302`` (``_accum_grads``, ``make_cvbae_train_step``,
+``make_org_vunet_train_step``).  One cvbae step:
 
   loss = ll_weight * sum(vgg_loss levels)
          + gamma * compute_kl_with_prior     [from step n_init_batches on;
@@ -14,7 +14,14 @@ cvbae step:
   gradient (with the VUNet's parameters from before its update);
   the logged loss minus clip(loss_reg, max=1.2) * weight_regressor, a term
   without gradient, as in the JAX step;
-  the gamma controller after the step.
+  the gamma controller after the step;
+  with a discriminator (``gan``, a ``train/gan.py:GANState``) the VUNet's
+  loss also takes gan_weight * BCE(D(out), 1) through the discriminator
+  as it was before the step, and the discriminator then takes one Adam
+  step on the targets and the detached outputs of the whole batch (the
+  microbatches' outputs joined), its loss terms (``dloss``, ``dloss_r``,
+  ``dloss_f``, with ``grad_pen`` ``gp``) and ``gen_gan_loss`` joining the
+  metrics.
 
 One original-VUNet step: loss = ll_weight * sum(vgg_loss levels)
 + kl_ramp(step) * compute_kl_loss(prior means, posterior means), one Adam
@@ -52,7 +59,8 @@ def global_norm(tensors) -> torch.Tensor:
 def _accumulate(loss_fn, params, tensors, grad_accum: int, eps):
     """Gradients of ``loss_fn(*microbatch, eps_i)`` over ``grad_accum``
     sequential microbatches of ``tensors``, averaged into the parameters'
-    ``.grad``.  Returns (mean loss, mean aux, the gradients)."""
+    ``.grad``.  Returns (mean loss, aux, the gradients): each scalar aux
+    value the microbatches' mean, every other joined along the batch."""
     bsz = tensors[0].shape[0]
     if bsz % grad_accum:
         raise ValueError(f"batch {bsz} not divisible by "
@@ -69,23 +77,23 @@ def _accumulate(loss_fn, params, tensors, grad_accum: int, eps):
     if grad_accum > 1:
         for g in grads:
             g.div_(grad_accum)
-    aux = {k: torch.mean(torch.stack([a[k] for a in auxs]))
+    aux = {k: (torch.mean(torch.stack([a[k] for a in auxs]))
+               if auxs[0][k].dim() == 0 else torch.cat([a[k] for a in auxs]))
            for k in auxs[0]}
     return torch.mean(torch.stack(losses)), aux, grads
 
 
 def make_cvbae_train_step(vunet, regressor, perceptual, optimizers: dict,
-                          config: dict) -> Callable:
+                          config: dict, gan=None) -> Callable:
     """``train_step(state, batch, generator=None, dropout_generator=None,
     eps=None, reg_eps=None) -> metrics`` for a run config (a dict with
     "training" and "architecture" sections).  ``batch`` holds NHWC
     ``pose_img``, ``stickman``, optionally ``app_img`` (else the pose
     image), and ``reg_imgs`` (B, R, S, S, 3) and ``reg_targets``
-    (B, R, K, 2) when the regressor trains."""
+    (B, R, K, 2) when the regressor trains.  ``gan``, a ``GANState``,
+    turns the adversarial branch on (``training.gan_weight``,
+    ``lambda_gp``, ``grad_pen``)."""
     tr = config.get("training", {})
-    if bool(tr.get("use_gan", False)):
-        raise NotImplementedError("the cvbae GAN branch (use_gan) is not "
-                                  "ported yet (A11)")
     ll_weight = float(tr.get("ll_weight", 1.0))
     vgg_weights = list(tr.get("vgg_weights", [1.0] * 6))
     w_reg = float(tr.get("weight_regressor", 4.0))
@@ -100,6 +108,16 @@ def make_cvbae_train_step(vunet, regressor, perceptual, optimizers: dict,
     params = list(vunet.parameters())
     opt, lr_schedule = optimizers["vunet"], optimizers["vunet_lr"]
     opt_reg = optimizers.get("regressor")
+    if bool(tr.get("use_gan", False)) and gan is None:
+        raise ValueError("training.use_gan needs the discriminator's "
+                         "GANState (train/gan.py:create_gan_state)")
+    if gan is not None:
+        from .gan import make_gan_update
+
+        gan_update, gan_gen_loss = make_gan_update(
+            gan, lambda_gp=float(tr.get("lambda_gp", 10.0)),
+            use_gp=bool(tr.get("grad_pen", False)))
+        gan_weight = float(tr.get("gan_weight", 1.0))
 
     def loss_fn(state, generator, dropout_generator, app, shape, target,
                 eps):
@@ -114,6 +132,11 @@ def make_cvbae_train_step(vunet, regressor, perceptual, optimizers: dict,
         if state.step >= n_init_batches:
             loss = loss + (1.0 if is_cvae else state.gamma) * kl
         aux = {"likelihood_loss": likelihood, "kl_loss": kl}
+        if gan is not None:
+            g_loss = gan_gen_loss(out.to(target.dtype))
+            loss = loss + gan_weight * g_loss
+            aux["gen_gan_loss"] = g_loss
+            aux["out"] = out
         aux.update({f"ll_{k}": v for k, v in ll_dict.items()})
         return loss, aux
 
@@ -166,6 +189,9 @@ def make_cvbae_train_step(vunet, regressor, perceptual, optimizers: dict,
                    "kl_loss": aux["kl_loss"], "gamma": state.gamma,
                    "loss_reg": loss_reg}
         metrics.update({k: v for k, v in aux.items() if k.startswith("ll_")})
+        if gan is not None:
+            metrics.update(gan_update(target, aux["out"].to(target.dtype)))
+            metrics["gen_gan_loss"] = aux["gen_gan_loss"]
         return metrics
 
     return train_step

@@ -157,7 +157,32 @@ CUDA toolkit (nvcc) and PyTorch.  It imports no JAX.  Phases:
     augmented pose image within 4 (OpenCV 4.13's and 5.0's warpAffine
     differ by that much on one input), the network's outputs within rtol
     1e-4 (atol 1e-4 of their largest magnitude), IS 1e-4 and FID 1e-5
-    relative, the crop within 1e-5.
+    relative, the crop within 1e-5;
+20. cvbae training with the GAN branch at full width through ``main``:
+    phase [7]'s configuration with ``use_gan`` and ``grad_pen`` at the
+    JAX defaults (a PatchGAN of ndf 64 and 3 layers in bf16, gan_weight
+    1, lambda_gp 10, Adam 2e-4 with betas (0.5, 0.9)), 6 steps, each of
+    which must be finite, launch each ELU+dropout kernel at all 70 / 66
+    sites, move the discriminator and log a loss and a discriminator loss
+    that are their terms recomposed; ``-r`` to step 8 must start from the
+    saved discriminator and Adam moments, bit for bit; ``-m infer``.
+    Printed: the median step beside phase [7]'s (the same configuration
+    without the GAN), the discriminator's share of the step (its update
+    and the generator's pass through it, replayed alone), peak memory and
+    the bf16 PatchGAN's logits against f32;
+21. the port's cvbae GAN step at small width against
+    ``tests/golden/torch_port_gan_small.npz`` (two JAX steps with the R1
+    penalty), in f32 with TF32 off;
+22. serving the new paths: one B=20, T=50, 256 px alter request through a
+    VUNet with ``subpixel_upsampling: false`` behind phase [4]'s behavior
+    net and flow, timed beside the subpixel VUNet's request of the same
+    call; ``bdvs-generate-torch --from_dataset`` in-process behind phase
+    [20]'s synth.npz for a behavior run trained here on a Human3.6M tree
+    (phase [18]'s writer at 256 px; real appearances and cameras) and for
+    the same net under an ``h36m_synthetic`` data config (the synthetic
+    fallback).  Each request must launch the rollout kernel once, and a
+    ``--from_dataset`` request's arrays must equal the port's data path's
+    for the same items.
 
 The last two lines are a JSON object of kernel results and
 ``{"ok": true, "device": {...}}``; any failure exits non-zero before them.
@@ -2986,6 +3011,469 @@ def phase_image_golden():
           "the image data or metrics disagree with the golden")
 
 
+# -- 20. cvbae training with the GAN branch at full width ----------------------
+GAN_TRAINING = {"use_gan": True, "grad_pen": True, "gan_weight": 1.0,
+                "lambda_gp": 10.0, "disc_lr": 2e-4, "disc_ndf": 64,
+                "disc_layers": 3}
+GAN_STEPS, GAN_RESUMED_TO = 6, 8
+GAN_GOLDEN = os.path.join(ROOT, "tests", "golden",
+                          "torch_port_gan_small.npz")
+
+
+def gan_config(base_dir):
+    """configs/shape_and_pose_net.yaml as published (256 px, B=12, nf
+    32->128, bf16, regressor on) with dropout_impl pallas, 6 steps and the
+    GAN branch at the JAX defaults, R1 on."""
+    return deep_merge(train_config(base_dir), {
+        "training": dict(GAN_TRAINING, end_iteration=GAN_STEPS)})
+
+
+class GanRecorder(StepRecorder):
+    """A StepRecorder that also sees the discriminator (the ``gan`` the
+    step is made with): each step's change of its parameters, and on the
+    first step of a run the state it starts from."""
+
+    def __init__(self):
+        super().__init__()
+        self.gan, self.changed, self.first_state = None, [], None
+
+    def make(self, *args, **kwargs):
+        step = super().make(*args, **kwargs)
+        self.gan = kwargs.get("gan")
+
+        def watched(state, batch, **kw):
+            before = [p.detach().clone() for p in self.gan.disc.parameters()]
+            if self.first_state is None:
+                self.first_state = disc_state(self.gan)
+            metrics = step(state, batch, **kw)
+            self.changed.append([not torch.equal(b, p.detach()) for b, p in
+                                 zip(before, self.gan.disc.parameters())])
+            return metrics
+        return watched
+
+
+def disc_state(gan):
+    """The discriminator's parameters and Adam state, copied to the host."""
+    return ({k: v.detach().cpu().clone()
+             for k, v in gan.disc.state_dict().items()},
+            copy.deepcopy({i: {k: v.cpu() if torch.is_tensor(v) else v
+                               for k, v in s.items()}
+                           for i, s in gan.opt.state_dict()["state"].items()}))
+
+
+def same_disc_state(a, b):
+    (pa, sa), (pb, sb) = a, b
+    return (pa.keys() == pb.keys()
+            and all(torch.equal(v, pb[k]) for k, v in pa.items())
+            and sa.keys() == sb.keys()
+            and all(sa[i].keys() == sb[i].keys() and all(
+                torch.equal(v, sb[i][k]) if torch.is_tensor(v)
+                else v == sb[i][k] for k, v in sa[i].items()) for i in sa))
+
+
+def gan_recorded_main(argv):
+    recorder = GanRecorder()
+    made = shape_and_pose_net.make_cvbae_train_step
+    shape_and_pose_net.make_cvbae_train_step = recorder.make
+    try:
+        out = train_cli.main(argv)
+    finally:
+        shape_and_pose_net.make_cvbae_train_step = made
+    return out, recorder
+
+
+def gan_step_shares(recorder, step_ms):
+    """The discriminator's share of a step: its update (two forwards, the
+    R1 double backward, Adam) and the generator's pass through it, each
+    replayed alone on the last step's batch and timed with CUDA events."""
+    from behavior_driven_video_synthesis_tpu_torch.models.synth_discriminators \
+        import generator_gan_loss
+    from behavior_driven_video_synthesis_tpu_torch.train.gan import (
+        GANState, make_gan_update)
+    from behavior_driven_video_synthesis_tpu_torch.train.state import (
+        make_disc_optimizer)
+
+    _, _, batch, _ = recorder.last
+    # a copy, so that the replays leave the run's discriminator as it was
+    disc = copy.deepcopy(recorder.gan.disc)
+    update, _ = make_gan_update(GANState(disc, make_disc_optimizer(
+                                    disc, GAN_TRAINING)),
+                                lambda_gp=GAN_TRAINING["lambda_gp"],
+                                use_gp=True)
+    real = batch["pose_img"]
+    fake = (real.flip(0) * 0.5).detach()
+
+    def generator_pass():
+        x = fake.clone().requires_grad_(True)
+        generator_gan_loss(disc, x).backward()
+    update_ms = cuda_ms(lambda: update(real, fake), 5)
+    gen_ms = cuda_ms(generator_pass, 5)
+    return dict(disc_update_ms=update_ms, generator_pass_ms=gen_ms,
+                share=(update_ms + gen_ms) / step_ms)
+
+
+def instance_norm_bf16_gap():
+    """Relative L2 of the full-width PatchGAN's logits in bf16 against the
+    same weights in f32 (TF32 off) on seeded 256 px images: the gap of the
+    bf16 instance norm and convs."""
+    from behavior_driven_video_synthesis_tpu_torch.models.synth_discriminators \
+        import PatchGANDiscriminator
+
+    g = torch.Generator(device=DEV).manual_seed(3)
+    f32 = on_device(PatchGANDiscriminator(device="meta"), g)
+    bf16 = PatchGANDiscriminator(dtype=torch.bfloat16, device=DEV)
+    bf16.load_state_dict(f32.state_dict())
+    x = torch.rand(12, 256, 256, 3, generator=g, device=DEV) * 2 - 1
+    with torch.no_grad():
+        a, b = bf16(x), f32(x)
+    check(tuple(b.shape) == (12, 30, 30, 1), f"PatchGAN map {tuple(b.shape)}")
+    return rel_l2(a, b)
+
+
+def phase_gan():
+    """configs/shape_and_pose_net.yaml with the GAN branch: 6 steps, -r to
+    8, -m infer; returns (the ELU+dropout launches of its steps, the run's
+    directory, its synth.npz)."""
+    base = tempfile.mkdtemp(prefix="chip_smoke_gan_")
+    cfg = gan_config(base)
+    path = write_config(base, "gan.yaml", cfg)
+    tr = cfg["training"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    elu_dropout.elu_dropout_fwd_launches = 0   # counts start here: the
+    elu_dropout.elu_dropout_bwd_launches = 0   # GAN run's steps
+    t0 = time.perf_counter()
+    out, rec = gan_recorded_main(["-c", path, "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    steps = rec.steps
+    per_step = (DROPOUT_SITES, DROPOUT_SITES - DEAD_BACKWARD_SITES)
+    gan_keys = ("dloss", "dloss_r", "dloss_f", "gp", "gen_gan_loss")
+    check(len(steps) == GAN_STEPS and out["state"].step == GAN_STEPS,
+          f"GAN run: {len(steps)} steps")
+    check(all(np.isfinite(r[k]) for r in steps for k in (
+        "loss", "likelihood_loss", "kl_loss", "grad_norm") + gan_keys),
+        "GAN run: a step is not finite")
+    check(all((r["fwd_launches"], r["bwd_launches"]) == per_step
+              for r in steps),
+          f"GAN run: a step did not launch the ELU+dropout kernels "
+          f"{per_step} times: " + str([(r["fwd_launches"], r["bwd_launches"])
+                                       for r in steps]))
+    names = [n for n, _ in out["gan"].disc.named_parameters()]
+    weights = [i for i, n in enumerate(names) if n.endswith("weight")]
+    check(len(rec.changed) == GAN_STEPS and all(
+        any(c) and all(c[i] for i in weights) for c in rec.changed),
+        f"GAN run: the discriminator did not move every step "
+        f"{rec.changed}")
+    worst_loss = max(
+        abs(r["loss"] - recomposed_loss(r, prev, cfg)
+            - tr["gan_weight"] * r["gen_gan_loss"]) / max(abs(r["loss"]), 1)
+        for r, prev in zip(steps, [None] + steps[:-1]))
+    worst_dloss = max(abs(r["dloss"] - r["dloss_r"] - r["dloss_f"] - r["gp"])
+                      / max(abs(r["dloss"]), 1) for r in steps)
+    log(f"[20] cvbae with the GAN branch, {GAN_STEPS} steps at full width "
+        f"through main: {wall:.1f} s; discriminator "
+        f"{sum(p.numel() for p in out['gan'].disc.parameters()):,} "
+        f"parameters (ndf {tr['disc_ndf']}, {tr['disc_layers']} layers, "
+        f"bf16 compute), R1 with lambda {tr['lambda_gp']}")
+    for r in steps:
+        log(f"    step {r['step']}: loss {r['loss']:.6g} (likelihood "
+            f"{r['likelihood_loss']:.6g}, kl {r['kl_loss']:.6g}, gen_gan "
+            f"{r['gen_gan_loss']:.4g}); dloss {r['dloss']:.4g} = real "
+            f"{r['dloss_r']:.4g} + fake {r['dloss_f']:.4g} + gp "
+            f"{r['gp']:.4g}; {r['ms']:.2f} ms; launches "
+            f"{r['fwd_launches']} / {r['bwd_launches']}")
+    log(f"    loss = its terms + gan_weight * gen_gan_loss within "
+        f"{worst_loss:.2e}, dloss = dloss_r + dloss_f + gp within "
+        f"{worst_dloss:.2e} (relative)")
+    check(worst_loss <= 1e-2 and worst_dloss <= 1e-2,
+          "GAN run: a logged loss is not its terms recomposed")
+    run_dir = os.path.join(base, "cvbae")
+    with open(os.path.join(run_dir, "log", "chip_smoke",
+                           "metrics.jsonl")) as f:
+        lines = [json.loads(ln) for ln in f if '"train/loss"' in ln]
+    check(lines and all(np.isfinite(ln[f"train/{k}"]) for ln in lines
+                        for k in gan_keys),
+          f"GAN run: the metric log lacks the GAN losses: {lines[-1:]}")
+    step_ms = float(np.median([r["ms"] for r in steps[1:]]))
+    plain_ms = RESULTS["train"]["step_ms_median"]
+    shares = gan_step_shares(rec, step_ms)
+    gap = instance_norm_bf16_gap()
+    B = int(tr["batch_size"])
+    log(f"    on {RESULTS.get('card', 'the card')}: median step after the "
+        f"first {step_ms:.2f} ms "
+        f"({B * 1e3 / step_ms:.1f} img/s) against {plain_ms:.2f} ms with "
+        f"use_gan false (phase [7], same config, this call): "
+        f"{step_ms / plain_ms:.3f}x; the discriminator's update "
+        f"{shares['disc_update_ms']:.2f} ms + the generator's pass through "
+        f"it {shares['generator_pass_ms']:.2f} ms = {shares['share']:.3f} "
+        f"of the step (replayed alone); peak {peak / 2**30:.2f} GiB; "
+        f"bf16 PatchGAN logits within rel-L2 {gap:.2e} of f32")
+    check(gap <= 5e-2, f"bf16 PatchGAN logits rel-L2 {gap:.3g} off f32")
+    saved = disc_state(out["gan"])
+    launches = [sum(r[k] for r in steps) for k in ("fwd_launches",
+                                                     "bwd_launches")]
+    del out, rec
+
+    # -r to GAN_RESUMED_TO: the discriminator starts where it was saved
+    run_cfg = os.path.join(run_dir, "config", "chip_smoke", "config.yaml")
+    dumped = load_config(run_cfg)
+    dumped["training"]["end_iteration"] = GAN_RESUMED_TO
+    write_config(os.path.dirname(run_cfg), "config.yaml", dumped)
+    out, rec = gan_recorded_main(["-c", path, "--device", "cuda", "-r"])
+    check([r["step"] for r in rec.steps] == list(range(
+        GAN_STEPS + 1, GAN_RESUMED_TO + 1))
+        and out["state"].step == GAN_RESUMED_TO,
+        f"GAN -r took steps {[r['step'] for r in rec.steps]}")
+    check(rec.first_state is not None
+          and same_disc_state(rec.first_state, saved),
+          "GAN -r: the discriminator or its Adam state is not the saved one")
+    launches = [n + sum(r[k] for r in rec.steps) for n, k in zip(
+        launches, ("fwd_launches", "bwd_launches"))]
+    log(f"    -r: the discriminator's parameters and Adam moments at step "
+        f"{GAN_STEPS} equal those saved, bit for bit; ran to "
+        f"{GAN_RESUMED_TO}: losses "
+        + ", ".join(f"{r['loss']:.6g}" for r in rec.steps))
+    synth = out["synth_params"]
+    del out, rec
+
+    infer_cfg = deep_merge(dumped, {"general": {"debug": True}})
+    summary, iwall, ms, _, ipeak = timed_vunet_inference(
+        write_config(base, "gan_infer.yaml", infer_cfg))
+    log_vunet_inference("-m infer", summary, iwall, ms, ipeak)
+    check(set(summary) == {"ssim", "loss_regressor_posthoc"},
+          f"GAN -m infer summary {sorted(summary)}")
+    RESULTS["gan"] = dict(
+        steps=steps, step_ms_median=step_ms, plain_step_ms_median=plain_ms,
+        img_per_s=B * 1e3 / step_ms, peak_gib=peak / 2**30, wall_s=wall,
+        loss_recomposed_rel_err=worst_loss,
+        dloss_recomposed_rel_err=worst_dloss, bf16_logit_rel_l2=gap,
+        launches=launches, infer=dict(summary=summary, wall_s=iwall,
+                                      stages_ms=ms), **shares)
+    return tuple(launches), base, synth
+
+
+# -- 21. the GAN step against the JAX package's golden -------------------------
+def phase_gan_golden():
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_port_train as T
+    from behavior_driven_video_synthesis_tpu_torch.train.gan import (
+        GANState, build_discriminator)
+    from behavior_driven_video_synthesis_tpu_torch.train.state import (
+        make_disc_optimizer)
+
+    with np.load(GAN_GOLDEN) as data:
+        g = unflatten_tree({k: data[k] for k in data.files})
+    cfg = json.loads(bytes(g["config"]).decode())
+    tr, arch = cfg["training"], cfg["architecture"]
+    S = int(cfg["data"]["spatial_size"])
+    vunet = vunet_from_config(cfg, "alter", device=DEV)
+    vunet.load_state_dict(convert.vunet_alter_from_flax(
+        g["params"]["vunet"]))
+    reg = g["params"]["regressor"]
+    n_linear = sum(1 for k in reg if k.startswith("Dense_"))
+    regressor = VunetRegressor(
+        reg[f"Dense_{n_linear - 1}"]["bias"].shape[0],
+        latent_widths(S, n_latent_scales=int(arch["n_latent_scales"])),
+        nf_max=int(arch["nf_max"]), n_linear=n_linear, device=DEV)
+    regressor.load_state_dict(convert.vunet_regressor_from_flax(reg))
+    disc = build_discriminator(cfg, DEV)
+    disc.load_state_dict(convert.patchgan_from_flax(g["params"]["disc"]))
+    vunet.train()
+    step = make_cvbae_train_step(
+        vunet, regressor, LaplacianPyramidFeatures(),
+        make_vunet_optimizers(vunet, regressor, tr), cfg,
+        gan=GANState(disc, make_disc_optimizer(disc, tr)))
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in g["batch"].items()}
+    B, R = batch["pose_img"].shape[0], batch["reg_imgs"].shape[1]
+    noise = [torch.from_numpy(g["noise"][str(B)][str(i)]).to(DEV)
+             for i in range(len(g["noise"][str(B)]))]
+    state = VunetTrainState(gamma=torch.zeros((), device=DEV))
+    rtols = {**T.METRIC_RTOL, **T.GAN_METRIC_RTOL}
+    worst = {}
+    for i in sorted(g["metrics"]):
+        m = step(state, batch, eps=[noise], reg_eps=[noise] * R)
+        for k, rtol in rtols.items():
+            ref = float(g["metrics"][i][k])
+            tol = rtol * abs(ref) + (T.LOSS_ATOL if k == "loss" else 0.0)
+            err = abs(float(m[k]) - ref)
+            worst[k] = max(worst.get(k, 0.0), err / tol if tol else err)
+    after = flatten_tree({
+        "vunet": convert.vunet_alter_to_flax(vunet.state_dict()),
+        "regressor": convert.vunet_regressor_to_flax(regressor.state_dict()),
+        "disc": convert.patchgan_to_flax(disc.state_dict())})
+    ref_after = flatten_tree(g["after"])
+    normed = T.normed_bias_keys(int(tr["disc_layers"]))
+    d_params = max(float(np.abs(v - ref_after[k]).max())
+                   for k, v in after.items() if k not in normed)
+    d_normed = max(float(np.abs(after[k] - ref_after[k]).max())
+                   for k in normed)
+    logits = T.disc_logits(unflatten_tree(
+        {k[5:]: v for k, v in after.items() if k.startswith("disc/")}), DEV)
+    ref_logits = T.disc_logits(g["after"]["disc"], DEV)
+    d_logits = float(np.abs(logits - ref_logits).max())
+    log(f"[21] golden cvbae GAN step x{len(g['metrics'])} (f32, TF32 off, "
+        f"R1 on): worst metric error / tolerance " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(worst.items()))
+        + f"; max |param - JAX| after Adam {d_params:.2e} (<= "
+        f"{T.PARAM_ATOL:g}), the biases ahead of an instance norm "
+        f"{d_normed:.2e} (<= {T.normed_bias_atol():.2e}), the "
+        f"discriminator's logits {d_logits:.2e} (<= {T.DISC_LOGIT_ATOL:g})")
+    RESULTS["golden_gan"] = dict(err_over_tol=worst, params=d_params,
+                                 normed_biases=d_normed, logits=d_logits)
+    check(all(v <= 1.0 for v in worst.values())
+          and d_params <= T.PARAM_ATOL
+          and d_normed <= T.normed_bias_atol()
+          and d_logits <= T.DISC_LOGIT_ATOL,
+          "golden GAN step out of tolerance")
+
+
+# -- 22. serving the bilinear VUNet and --from_dataset -------------------------
+def phase_bilinear():
+    """One full-width B=20, T=50 request through an alter VUNet with
+    subpixel_upsampling false, timed beside the subpixel VUNet's request
+    behind the same behavior net and flow; returns the rollout launches."""
+    pipe, g, _ = full_width_slice()
+    x = request_inputs(SLICE["B"], g)
+    before = rollout.rollout_launches
+    subpixel = [serve(pipe, x)[1:] for _ in range(2)]
+    pipe.vunet = on_device(serving_vunet("alter", subpixel_upsampling=False),
+                           torch.Generator(device=DEV).manual_seed(5))
+    ups = [m for m in pipe.vunet.modules() if isinstance(m, ops_nn.Upsample)]
+    bilinear = []
+    for _ in range(2):
+        n = rollout.rollout_launches
+        out, ms, peak = serve(pipe, x)
+        check(rollout.rollout_launches == n + 1,
+              f"bilinear request: {rollout.rollout_launches - n} rollout "
+              f"launches")
+        frames = out["frames"]
+        check(tuple(frames.shape) == (SLICE["B"], SLICE["T"], SLICE["S"],
+                                      SLICE["S"], 3)
+              and bool(torch.isfinite(frames.float()).all()),
+              f"bilinear request: frames {tuple(frames.shape)}")
+        bilinear.append((ms, peak))
+    n_bilinear = sum(not m.subpixel for m in ups)
+    check(n_bilinear > 0, "the bilinear VUNet has no bilinear upsample")
+    log(f"[22] on {RESULTS.get('card', 'the card')}: bilinear VUNet "
+        f"(subpixel_upsampling false: {n_bilinear} of "
+        f"{len(ups)} upsamples bilinear) B={SLICE['B']}, T={SLICE['T']}: "
+        f"{bilinear[1][0]:.2f} ms (warm-up {bilinear[0][0]:.2f}), peak "
+        f"{bilinear[1][1] / 2**30:.2f} GiB; the subpixel VUNet's request "
+        f"in this call {subpixel[1][0]:.2f} ms (warm-up "
+        f"{subpixel[0][0]:.2f})")
+    RESULTS["bilinear"] = dict(ms=bilinear[1][0], warmup_ms=bilinear[0][0],
+                               peak_gib=bilinear[1][1] / 2**30,
+                               subpixel_ms=subpixel[1][0],
+                               subpixel_warmup_ms=subpixel[0][0],
+                               bilinear_upsamples=n_bilinear)
+    del pipe
+    return rollout.rollout_launches - before
+
+
+FROM_DATASET_H36M = dict(subjects=(1, 9), actions=(2, 8), n_frames=24,
+                         image_hw=256)
+FROM_DATASET_B = 4
+
+
+def phase_from_dataset(synth_params):
+    """``bdvs-generate-torch --from_dataset`` in-process behind the GAN
+    run's full-width synth.npz: a behavior run trained here on a Human3.6M
+    tree written by phase [18]'s writer (real appearances and cameras),
+    and the same net under an h36m_synthetic data config (the synthetic
+    fallback); returns the rollout launches."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_port_image_data as TI
+    from behavior_driven_video_synthesis_tpu_torch.experiments.visualize \
+        import get_synth_input
+
+    base = tempfile.mkdtemp(prefix="chip_smoke_from_dataset_")
+    try:
+        cols = TI.h36m_columns(**FROM_DATASET_H36M)
+        root = TI.write_h36m_tree(os.path.join(base, "h36m"), cols,
+                                  TI.h36m_frames(cols, image_hw=256))
+        cfg = deep_merge(load_config(BEHAVIOR_CONFIG), {
+            "general": {"base_dir": os.path.join(base, "runs"),
+                        "project_name": "chip_smoke"},
+            "data": {"dataset": "human3.6m", "datapath": root,
+                     "seq_length": [8, 9], "n_data_workers": 0},
+            "architecture": {"dim_hidden_b": 64, "n_flows": 2},
+            "training": {"batch_size": FROM_DATASET_B, "n_epochs": 1}})
+        t0 = time.perf_counter()
+        train_cli.main(["-c", write_config(base, "behavior.yaml", cfg),
+                        "--device", "cuda"])
+        train_s = time.perf_counter() - t0
+        run = os.path.join(base, "runs", "behavior_net", "ckpt",
+                           "chip_smoke")
+        synthetic = os.path.join(base, "synthetic")
+        os.makedirs(synthetic)
+        shutil.copy(os.path.join(run, "behavior.npz"), synthetic)
+        with open(os.path.join(run, "behavior.json")) as f:
+            bcfg = json.load(f)
+        bcfg["data"] = {"dataset": "h36m_synthetic", "seq_length": [8, 9],
+                        "n_frames_per_video": 24, "n_data_workers": 0}
+        with open(os.path.join(synthetic, "behavior.json"), "w") as f:
+            json.dump(bcfg, f)
+        launches = 0
+        for what, bdir, real in (("Human3.6M files", run, True),
+                                 ("h36m_synthetic", synthetic, False)):
+            n = rollout.rollout_launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            man = cli.main([
+                "--behavior_params", os.path.join(bdir, "behavior.npz"),
+                "--synth_params", synth_params, "--from_dataset",
+                "--batch", str(FROM_DATASET_B), "--length", "16",
+                "--device", "cuda", "--out", os.path.join(base, what)])
+            ms = (time.perf_counter() - t0) * 1e3
+            launches += rollout.rollout_launches - n
+            check(rollout.rollout_launches == n + 1,
+                  f"--from_dataset ({what}): "
+                  f"{rollout.rollout_launches - n} rollout launches")
+            check(len(man["videos"]) == FROM_DATASET_B,
+                  f"--from_dataset ({what}): videos {man['videos']}")
+            with np.load(man["request"]) as data:
+                req = {k: data[k] for k in data.files}
+            check(("app_img" in req) == real,
+                  f"--from_dataset ({what}): app_img in the request "
+                  f"{'app_img' in req}")
+            # the request's arrays are the port's data path's for the same
+            # items: the test split's sequences and the first frames
+            loader, meta = build_sequence_data(
+                {"data": bcfg["data"] if not real else cfg["data"],
+                 "training": {"batch_size": FROM_DATASET_B}}, mode="test")
+            ds = meta["dataset"]
+            kps = ds.datadict[ds.keypoint_key][req["sample_ids"]]
+            same = (np.array_equal(req["source"], kps[:, :-1])
+                    and np.array_equal(req["x_start"], kps[:, 0])
+                    and np.array_equal(req["norm_mean"],
+                                       meta["norm_stats"].mean))
+            if real:
+                want = [get_synth_input(ds, i, man["spatial"])
+                        for i in range(FROM_DATASET_B)]
+                same = same and all(
+                    np.array_equal(req[k], np.stack(a)) for k, a in zip(
+                        ("app_img", "extrinsics", "intrinsics",
+                         "image_size"), zip(*want)))
+            check(same, f"--from_dataset ({what}): the request is not the "
+                        f"data path's arrays for its items")
+            log(f"[22] --from_dataset, {what}: {FROM_DATASET_B} sequences "
+                f"(ids {req['sample_ids'][:, 0].tolist()}), "
+                + ("real appearances and cameras" if real else
+                   "the synthetic appearance and camera")
+                + f", equal to the data path's arrays; {ms:.0f} ms through "
+                f"the CLI in-process, 1 rollout launch")
+        RESULTS["from_dataset"] = dict(behavior_train_s=train_s,
+                                       launches=launches)
+        log(f"    the behavior run on the tree ({FROM_DATASET_H36M}) "
+            f"trained in {train_s:.1f} s")
+        return launches
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch "
                                  "port on one NVIDIA GPU")
@@ -3025,6 +3513,14 @@ def main(argv=None):
     image_launches = phase_image_files()
     elu_launches = tuple(a + b for a, b in zip(elu_launches, image_launches))
     phase_image_golden()
+    gan_launches, gan_base, gan_synth = phase_gan()
+    elu_launches = tuple(a + b for a, b in zip(elu_launches, gan_launches))
+    try:
+        phase_gan_golden()
+        launches += phase_bilinear()
+        launches += phase_from_dataset(gan_synth)
+    finally:
+        shutil.rmtree(gan_base, ignore_errors=True)
     bound, bound_by = rollout_bound_ms(*ROLLOUT_SHAPES[0])
     source = "behavior_driven_video_synthesis_tpu_torch/csrc/"
     pallas = "behavior_driven_video_synthesis_tpu/ops/pallas/"

@@ -207,15 +207,20 @@ def test_cli_serves_an_org_run_as_the_jax_pipeline_does(
     assert rel <= 2e-2, rel
 
 
-@pytest.mark.parametrize("flag", [["--from_dataset"],
+@pytest.mark.parametrize("flag", [["--quant", "int8_static",
+                                   "--upsample", "transpose"],
                                   ["--quant", "int8_static"],
                                   ["--upsample", "transpose"],
                                   ["--preset", "tpu-serving"]])
 def test_cli_unported_options_exit(param_files, tmp_path, flag, capsys):
+    """The quantized and TPU serving options exit 2 naming A14
+    (``--from_dataset``, once in this list, serves:
+    ``test_torch_from_dataset.py``)."""
     with pytest.raises(SystemExit) as e:
         _run(param_files, tmp_path, *flag)
     assert e.value.code == 2
-    assert "not ported yet" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "not ported yet" in err and "A14" in err
 
 
 def test_export_script_writes_what_the_port_loads(tmp_path):

@@ -20,7 +20,8 @@ same ``data_seed`` go through both packages:
   * ``data/h5lite.py`` reads what h5py writes and what the tests' writer
     (``torch_port_image_data.write_columns``, which h5py reads) writes;
     without h5py the dataset reads its ``annot_export.h5`` with it;
-  * the stickman from joint angles raises, naming A3.
+  * the stickman from joint angles, which used to raise naming A3, is
+    drawn (``test_torch_rotations.py`` holds it against the JAX calls).
 """
 import os
 import sys
@@ -260,11 +261,17 @@ def test_human36m_reads_its_h5_without_h5py(h36m_root, monkeypatch):
 
 
 def test_the_stickman_from_joint_angles_names_a3():
+    """A3, the rotation geometry, is ported: the stickman from joint angles
+    goes through forward kinematics and is drawn."""
+    from test_torch_rotations import _angle_columns
+
     ds = Human36mDataset(None, ["stickman"], (0, 0),
                          keypoint_type="angle_world_expmap",
-                         use_3d_for_stickman=True, train_synthesis=True)
-    with pytest.raises(NotImplementedError, match="A3"):
-        ds._output_dict["stickman"]([0])
+                         use_3d_for_stickman=True, train_synthesis=True,
+                         spatial_size=64, stickman_scale=16)
+    ds.populate_from_arrays(_angle_columns(np.random.RandomState(0)))
+    stick = ds._output_dict["stickman"]([0, 1])
+    assert stick.shape == (2, 64, 64, 3) and (stick > -1).any()
     with pytest.raises(ValueError, match="use_3d_for_stickman"):
         Human36mDataset(None, ["stickman"], (0, 0),
                         keypoint_type="keypoints_3d_world",

@@ -73,7 +73,7 @@ def test_norm_conv_unported_options_raise():
     with pytest.raises(NotImplementedError):
         pnn.NormConv2d(3, 4, d2s_transpose=True)
     with pytest.raises(NotImplementedError):
-        pnn.Upsample(3, 4, subpixel=False)
+        pnn.Upsample(3, 4, transpose=True)
 
 
 def test_norm_dense_matches_jax(rng):

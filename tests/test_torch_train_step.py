@@ -70,10 +70,12 @@ def test_golden_equals_a_live_jax_run(jax_run):
 
 
 def test_gan_branch_is_not_ported(inputs):
+    """The GAN branch (A11) is ported (``test_torch_gan.py``); a config
+    with ``use_gan`` and no discriminator's state is refused."""
     vunet, regressor = T.port_modules()
     cfg = T.config()
     cfg["training"]["use_gan"] = True
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="GANState"):
         make_cvbae_train_step(vunet, regressor, LaplacianPyramidFeatures(),
                               make_vunet_optimizers(vunet, regressor,
                                                     cfg["training"]), cfg)
