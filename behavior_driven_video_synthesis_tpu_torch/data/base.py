@@ -32,8 +32,9 @@ is the host cv2 raster (``geometry/stickman.py:make_joint_img``) of
 ``spatial_size``.  The part stacks are left to the device: an item holds
 what they are made from (``data/parts.py:PartStackSource``), which
 ``data/parts.py:finish_part_stacks`` turns into the stacks of a batch.
-The synthesis-weight
-fetcher raises ``NotImplementedError`` (ROADMAP A12).
+The synthesis-weight fetcher (JAX ``:329-345``) gives per-pixel loss
+weights: 10 inside the convex hull of a frame's rendering keypoints, 1
+elsewhere.
 """
 from __future__ import annotations
 
@@ -65,13 +66,6 @@ def _cv2():
 def _count(route: str) -> None:
     with _DECODES_LOCK:
         DECODES[route] += 1
-
-
-def _unported(what: str, item: str) -> Callable:
-    def fetch(ids):
-        raise NotImplementedError(f"the {what} fetcher is not ported yet "
-                                  f"(ROADMAP {item})")
-    return fetch
 
 
 class BaseDataset:
@@ -130,7 +124,7 @@ class BaseDataset:
             "stickman": self._get_stickman,
             "paired_stickman": lambda ids: self._get_paired(
                 self._get_stickman, ids),
-            "synth_weights": _unported("synthesis-weight", "A12"),
+            "synth_weights": self._get_synth_weights,
             "pose_img": self._get_pose_img,
             "app_img": self._get_app_img,
             "pose_img_inplane": self._get_pose_img_inplane,
@@ -358,6 +352,25 @@ class BaseDataset:
             line_colors=self.line_colors,
             scale_factor=self.stickman_scale_factor()))
             for i in np.asarray(ids)]
+        return self._squeeze_seq(np.stack(out))
+
+    def _get_synth_weights(self, ids, weight: float = 10.0):
+        """(S, S, 1) float32 loss-weight maps: ``weight`` inside the convex
+        hull of the frame's keypoints that are not negative (at least 3),
+        1 elsewhere."""
+        cv2 = _cv2()
+        S = self.spatial_size
+        out = []
+        for i in np.asarray(ids):
+            kps = self._get_kps_for_rendering(int(i))
+            valid = kps[np.all(kps >= 0, axis=1)]
+            wmap = np.ones((S, S, 1), np.float32)
+            if len(valid) >= 3:
+                mask = np.zeros((S, S), np.uint8)
+                cv2.fillConvexPoly(mask, cv2.convexHull(
+                    valid.astype(np.int32)), 1)
+                wmap[mask > 0] = weight
+            out.append(wmap)
         return self._squeeze_seq(np.stack(out))
 
     def stickman_scale_factor(self):

@@ -44,8 +44,24 @@ reads.
 Every draw of inference (the posterior noise, the prior and flow codes,
 the post-hoc probes' initial weights and batches) comes from
 :class:`InferenceDraws`, seeded from ``general.seed`` on the run's device.
-Not ported: ``general.visualization`` (ROADMAP A12) and ``training.fsdp``
-(A14).  ``metrics/sequence.py:mse_euler_per_action`` is ported; like the
+
+``general.visualization`` (``-v``) writes the figures of
+``experiments/visualize.py`` under the run's ``generated`` directory:
+after each eval, ``e<epoch>_seq<i>_{transfer,samples}.mp4``,
+``e<epoch>_latent_interp.mp4`` and ``e<epoch>_eval_grid.mp4`` of the
+first batch of a test loader of its own; after ``-m infer``'s protocol,
+``beta_embedding.png``, ``recon_error_hist.png`` and
+``beta_nearest_neighbours.png``.  With ``logging.synth_params`` (``-s``, a
+cvbae run of this package) and a dataset with cameras and norm
+statistics, both also render RGB videos through
+``BehaviorTransferPipeline`` (``<tag>rgb<i>.mp4``) and the paper figures
+under ``generated/figures``.  Unlike the JAX experiment, nothing catches
+an error of the render; a frame without an image file gets a zero
+appearance, as there.  Every draw of the figures comes from a generator
+of their own (seeded ``general.seed + 2``), so a run's training metrics
+are the same with and without ``-v`` (the JAX figures take their keys
+from the training key sequence).  Not ported: ``training.fsdp`` (ROADMAP
+A14).  ``metrics/sequence.py:mse_euler_per_action`` is ported; like the
 JAX experiment, this one does not call it.
 """
 from __future__ import annotations
@@ -74,6 +90,7 @@ from ..train.flow import FlowTrainState, make_flow_train_step
 from ..train.state import make_behavior_optimizers, make_flow_optimizer
 from .base import Experiment
 from .data_factory import build_sequence_data, normalize_action_labels
+from . import visualize
 from .eval_protocol import (PosthocDraws, action_transfer_scores,
                             cross_transfer_metrics, ks_test_flow_gaussianity,
                             mu_consistency_metrics, train_posthoc_classifiers)
@@ -81,7 +98,7 @@ from .eval_protocol import (PosthocDraws, action_transfer_scores,
 N_FLOW_EPOCHS = 5
 N_EVAL_BATCHES = 2
 DEBUG_POSTHOC_ITERS = 50
-_UNPORTED = (("general", "visualization", "A12"), ("training", "fsdp", "A14"))
+N_RGB_VIDEOS = 2
 
 
 class InferenceDraws:
@@ -106,12 +123,9 @@ class InferenceDraws:
 class BehaviorNetExperiment(Experiment):
     def __init__(self, config, dirs, device):
         super().__init__(config, dirs, device)
-        unported = [f"{sec}.{key} (ROADMAP {item})"
-                    for sec, key, item in _UNPORTED
-                    if config.get(sec, {}).get(key, False)]
-        if unported:
-            raise NotImplementedError(f"{', '.join(unported)}: not ported "
-                                      "yet")
+        if config.get("training", {}).get("fsdp", False):
+            raise NotImplementedError("training.fsdp (ROADMAP A14): not "
+                                      "ported yet")
         tr = config.get("training", {})
         self.only_flow = bool(tr.get("only_flow", False))
         self.dtype = (torch.bfloat16 if bool(tr.get("bf16", False))
@@ -122,6 +136,16 @@ class BehaviorNetExperiment(Experiment):
             self.seed)
         self.generator = torch.Generator(self.device).manual_seed(
             self.seed + 1)
+        self.visualization = bool(config.get("general", {}).get(
+            "visualization", False))
+        self.figure_generator = torch.Generator(self.device).manual_seed(
+            self.seed + 2)
+        # -s: the synthesis run's VUNet, loaded on first use; a run that
+        # cannot be rendered is refused here, before any step
+        self.synth_dir = config.get("logging", {}).get("synth_params")
+        if self.synth_dir:
+            visualize.synth_run_config(str(self.synth_dir))
+        self._synth = None
 
     # -- construction -------------------------------------------------------
     def _build_models(self, n_kps: int, n_actions: int, seq_len: int):
@@ -225,6 +249,10 @@ class BehaviorNetExperiment(Experiment):
         eval_fn = make_behavior_eval_step(state.modules["net"], seq_len)
         n_epoch_eval = int(self.config.get("logging", {}).get(
             "n_epoch_eval", 1))
+        # the figures' batches come from a test loader of their own, so the
+        # eval's batches are those of a run without them
+        figure_loader = (build_sequence_data(self.config, "test")[0]
+                         if self.visualization else None)
         for epoch in range(start_step // steps_per_epoch, n_epochs):
             enable = epoch < n_epochs - 10 or n_epochs <= 10
             for batch in prefetch_iter(iter(train_loader),
@@ -234,6 +262,11 @@ class BehaviorNetExperiment(Experiment):
             self.log(state.step, prefix="train/")
             if (epoch + 1) % n_epoch_eval == 0:
                 self._run_eval(eval_fn, test_loader, meta, state.step)
+                if figure_loader is not None:
+                    self._epoch_figures(
+                        state.modules["net"],
+                        self._prep_batch(next(iter(figure_loader)), meta),
+                        meta, tag=f"e{epoch:03d}_")
             mgr.save(state.step, self._payload(state))
         mgr.save(state.step, self._payload(state))   # no-op if saved
 
@@ -439,7 +472,128 @@ class BehaviorNetExperiment(Experiment):
             (torch.argmax(logits_p, -1) == labels).float()))
         out["CF_action_beta"] = float(torch.mean(
             (torch.argmax(beta_logits, -1) == labels).float()))
+        if self.visualization:
+            self._infer_figures(net, cat, labels, test_loader, meta)
         return out
+
+    # -- figures (-v, -s) ---------------------------------------------------
+    def _epoch_figures(self, net, batch, meta, tag: str) -> Dict[str, str]:
+        """The JAX experiment's per-eval figures of one test batch."""
+        out_dir = self.dirs["generated"]
+        seq_len, stats = meta["seq_len"], meta["norm_stats"]
+        n_vids = int(self.config.get("logging", {}).get(
+            "n_vid_to_generate", 2))
+        paths = visualize.visualize_transfer3d(
+            net, batch, out_dir, seq_len, norm_stats=stats, n_vids=n_vids,
+            tag=tag, generator=self.figure_generator)
+        paths["latent_interp"] = visualize.latent_interpolate_videos(
+            net, batch, out_dir, seq_len, norm_stats=stats, tag=tag)
+        paths["eval_grid"] = visualize.make_behavior_startpose_grid(
+            net, batch, out_dir, seq_len, norm_stats=stats, tag=tag)
+        paths.update(self._maybe_render_rgb(net, batch, meta, out_dir,
+                                            tag=tag) or {})
+        return paths
+
+    def _infer_figures(self, net, cat, labels, test_loader, meta):
+        """``-m infer``'s figures: the beta embedding by action, the
+        per-sequence recon-error histogram, the nearest-neighbour figure
+        and the RGB figures of the first test batch."""
+        from ..viz.embedding import make_hist, plot_embedding
+        from ..viz.figures import nearest_neighbour_figure
+
+        out_dir = self.dirs["generated"]
+        mu, labels = cat["mu"].cpu().numpy(), labels.cpu().numpy()
+        plot_embedding(mu, labels, os.path.join(out_dir,
+                                                "beta_embedding.png"))
+        err = torch.sqrt(((cat["self"] - cat["orig"]) ** 2).sum(-1))
+        make_hist(err.mean(-1).cpu().numpy(),
+                  os.path.join(out_dir, "recon_error_hist.png"))
+        nearest_neighbour_figure(
+            mu, cat["orig"].cpu().numpy(), labels,
+            os.path.join(out_dir, "beta_nearest_neighbours.png"))
+        self._maybe_render_rgb(net, self._prep_batch(next(iter(
+            test_loader)), meta), meta, out_dir, tag="infer_")
+
+    def synth_vunet(self):
+        """The ``-s`` run's VUNet and config (loaded once)."""
+        if self._synth is None:
+            self._synth = visualize.load_synth_params(str(self.synth_dir),
+                                                      self.device)
+        return self._synth
+
+    def _maybe_render_rgb(self, net, batch, meta, out_dir: str,
+                          tag: str = "") -> Optional[Dict[str, str]]:
+        """With ``-s`` and a dataset with cameras and norm statistics, the
+        first two sequences' behaviors as RGB videos from their own start
+        poses, then the paper figures; None otherwise."""
+        ds, stats = meta.get("dataset"), meta.get("norm_stats")
+        if (not self.synth_dir or stats is None
+                or "extrinsics_univ" not in getattr(ds, "datadict", {})):
+            return None
+        from ..pipeline import BehaviorTransferPipeline
+
+        vunet, synth_cfg = self.synth_vunet()
+        spatial = int((synth_cfg or {}).get("data", {}).get("spatial_size",
+                                                            64))
+        pipe = BehaviorTransferPipeline(
+            net, vunet, ds.joint_model, stats.mean, stats.std,
+            stats.dim_to_use, spatial_size=spatial,
+            stickman_thickness=max(2.0, spatial / 64.0))
+        n = min(N_RGB_VIDEOS, batch["keypoints"].shape[0])
+        kps = batch["keypoints"].float()[:n]
+        with torch.no_grad():
+            mu = visualize._mu(net, kps[:, :-1])
+        rows = []
+        for i in range(n):
+            try:
+                rows.append(visualize.get_synth_input(ds, i, spatial))
+            except (KeyError, FileNotFoundError) as e:
+                print(f"synth input of frame {i} unavailable ({e!r}): a "
+                      f"zero appearance")
+                dd = ds.datadict
+                rows.append((np.zeros((spatial, spatial, 3), np.float32),
+                             *(np.asarray(dd[k][i], np.float32) for k in (
+                                 "extrinsics_univ", "intrinsics_univ",
+                                 "image_size"))))
+        apps, extrs, intrs, sizes = (np.stack(a) for a in zip(*rows))
+        paths = visualize.render_rgb_videos(
+            pipe, mu, kps[:, 0], apps, extrs, intrs, sizes, out_dir,
+            length=meta["seq_len"], tag=tag + "rgb",
+            generator=self.figure_generator)
+        paths.update(self._render_paper_figures(
+            pipe, net, kps.cpu().numpy(), apps, extrs, intrs, sizes, meta,
+            out_dir))
+        return paths
+
+    def _render_paper_figures(self, pipe, net, kps, apps, extrs, intrs,
+                              sizes, meta, out_dir) -> Dict[str, str]:
+        """Multi-camera enrollment, latent interpolation and diverse
+        futures under ``<out_dir>/figures``."""
+        fig_dir = os.path.join(out_dir, "figures")
+        seq_len, g = meta["seq_len"], self.figure_generator
+        try:
+            cams = visualize.get_synth_input_all_cameras(
+                meta.get("dataset"), spatial_size=apps.shape[1])
+        except (KeyError, FileNotFoundError) as e:
+            print(f"all-camera synth input unavailable ({e!r}); the "
+                  f"enrollment figure falls back to the sampled inputs")
+            cams = (apps, extrs, intrs, sizes)
+        paths = {f"enroll_{k}": v for k, v in
+                 visualize.make_enrollment_figures(
+                     pipe, kps[0, :-1], kps[min(1, len(kps) - 1), 0], *cams,
+                     fig_dir, length=seq_len, generator=g).items()}
+        if len(kps) > 1:
+            paths.update({f"interp_{k}": v for k, v in
+                          visualize.latent_interpolate_eval_figures(
+                              pipe, net, kps[0], kps[1], apps, extrs, intrs,
+                              sizes, fig_dir, length=seq_len,
+                              generator=g).items()})
+            paths.update({f"samples_{k}": v for k, v in
+                          visualize.sample_examples_single_figures(
+                              pipe, net, kps[0], kps[1], apps[0], extrs[0],
+                              intrs[0], sizes[0], fig_dir, length=seq_len,
+                              use_flow=False, generator=g).items()})
+        return paths
 
     # -- helpers ------------------------------------------------------------
     def _payload(self, state) -> dict:

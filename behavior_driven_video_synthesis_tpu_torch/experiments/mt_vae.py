@@ -27,8 +27,14 @@ Adam state.  The width is the reference's (dim 1024, z 512): like the JAX
 experiment, this one reads no ``architecture.dim_hidden_b``.  Every draw of
 training comes from one generator (checkpointed with the state), every
 draw of inference from :class:`InferenceDraws`, seeded from
-``general.seed`` on the run's device.  Not ported: ``general.visualization``
-(the eval filmstrips and per-epoch videos, ROADMAP A12).
+``general.seed`` on the run's device.  ``general.visualization`` (``-v``)
+writes, after each epoch, ``e<epoch>_mtvae_seq<i>.mp4`` of the epoch's
+last batch (``experiments/visualize.py:visualize_mtvae``) and, in ``-m
+infer``, ``mtvae_eval_<i>.png`` of the first test batch (filmstrips of a
+prior sample, the reconstruction, the transfer and the ground truth)
+under the run's ``generated`` directory.  The figures draw from a
+generator of their own (seeded ``general.seed + 2``), so training's
+metrics are the same with and without ``-v``.
 """
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ from ..models.init import init_like_jax_
 from ..models.mtvae import MTVAE
 from ..train.mtvae_exp import MTVAETrainState, make_mtvae_train_step
 from ..train.state import make_mtvae_optimizer
+from . import visualize
 from .base import Experiment
 from .data_factory import build_sequence_data
 from .eval_protocol import (PosthocDraws, cross_transfer_metrics,
@@ -76,10 +83,6 @@ def _3d(x):
 class MTVAEExperiment(Experiment):
     def __init__(self, config, dirs, device):
         super().__init__(config, dirs, device)
-        if config.get("general", {}).get("visualization", False):
-            raise NotImplementedError(
-                "general.visualization of mtvae (ROADMAP A12): not ported "
-                "yet")
         tr = config.get("training", {})
         self.dtype = (torch.bfloat16 if bool(tr.get("bf16", False))
                       else torch.float32)
@@ -88,6 +91,10 @@ class MTVAEExperiment(Experiment):
             self.seed)
         self.generator = torch.Generator(self.device).manual_seed(
             self.seed + 1)
+        self.visualization = bool(config.get("general", {}).get(
+            "visualization", False))
+        self.figure_generator = torch.Generator(self.device).manual_seed(
+            self.seed + 2)
 
     def _build_model(self, n_kps: int) -> MTVAE:
         model = MTVAE(n_kps, int(self.config["training"].get("n_cond", 10)),
@@ -117,6 +124,11 @@ class MTVAEExperiment(Experiment):
                 self.collect(step_fn(state, batch, enable,
                                      generator=self.generator))
             self.log(state.step, prefix="train/")
+            if self.visualization:
+                visualize.visualize_mtvae(
+                    model, batch, self.dirs["generated"],
+                    norm_stats=meta.get("norm_stats"),
+                    tag=f"e{epoch:03d}_", generator=self.figure_generator)
             mgr.save(state.step, self._payload(state))
         return {"model": model, "state": state,
                 "n_params": sum(p.numel() for p in model.parameters())}
@@ -172,6 +184,9 @@ class MTVAEExperiment(Experiment):
                 caches["prior"].append(samples[:, 0])
                 caches["self"].append(self_out)
                 caches["cross"].append(cross_out)
+                if i == 0 and self.visualization:
+                    self._write_eval_strips(samples, self_out, cross_out, gt,
+                                            meta)
                 if i + 1 >= max_batches or (self.debug and i >= 1):
                     print(f"mtvae inference: capped at {i + 1} batches "
                           f"(max_batches={max_batches}, debug={self.debug})")
@@ -204,6 +219,23 @@ class MTVAEExperiment(Experiment):
                                           kps.device))[0]
             outs.append(out.float().reshape((n, B) + out.shape[1:]))
         return torch.cat(outs).transpose(0, 1)
+
+    def _write_eval_strips(self, samples, self_out, cross_out, gt, meta,
+                           n_vids: int = 2) -> None:
+        """Per sequence ``mtvae_eval_<b>.png``: 3-D skeleton filmstrips of
+        the first prior sample, the reconstruction, the transfer and the
+        ground truth, one row each."""
+        from ..viz.figures import sample_examples_grid
+        from ..viz.videos import create_video_3d, save_png
+
+        stats = meta.get("norm_stats")
+        for b in range(min(n_vids, gt.shape[0])):
+            grid = np.concatenate([sample_examples_grid(create_video_3d(
+                visualize.to_world(seq, stats))[None], n_frames=6)
+                for seq in (samples[b, 0], self_out[b], cross_out[b],
+                            gt[b])], axis=0)
+            save_png(grid, os.path.join(self.dirs["generated"],
+                                        f"mtvae_eval_{b}.png"))
 
     # -- helpers ------------------------------------------------------------
     def _payload(self, state) -> dict:

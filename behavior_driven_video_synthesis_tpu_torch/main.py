@@ -34,8 +34,13 @@ its checkpoint roles are copied into this run (with ``--debug``, into the
 "debug" project), which then trains or evaluates from them.  ``-f``
 (behavior_net only) sets ``training.only_flow`` (train the flow alone, over
 this run's or a sibling run's cVAE).  ``--gpu`` is accepted and has no
-effect (``--device`` picks the device).  ``-v`` and ``-s``, which render
-figures, exit with status 2 (ROADMAP A12).
+effect (``--device`` picks the device).  ``-v`` sets
+``general.visualization`` (the figures and videos of behavior_net and
+mtvae; cvbae and vunet have none) and ``-s RUN`` sets
+``logging.synth_params``: a cvbae run directory of this package (its
+experiment directory, its ``ckpt/<project>`` directory or a ``reg_ckpt``
+directory) whose VUNet renders behavior_net's RGB figures.  Neither is
+dumped with the config.
 ``training.dropout_rng`` is accepted and has no effect (the TPU's rng-bit
 generator has no counterpart here).
 """
@@ -181,17 +186,12 @@ def parse_args(argv=None):
     ap.add_argument("--gpu", type=int, nargs="*", default=None,
                     help="accepted for CLI parity; --device picks the "
                          "device")
-    # options of the JAX CLI that this port does not have yet
-    ap.add_argument("-v", "--visualization", action="store_true")
-    ap.add_argument("-s", "--synth_model", default=None)
-    args = ap.parse_args(argv)
-    unported = [flag for flag, on in (
-        ("-v", args.visualization),
-        ("-s", args.synth_model is not None)) if on]
-    if unported:
-        ap.exit(2, f"{', '.join(unported)}: not ported yet (the figures, "
-                   f"ROADMAP A12)\n")
-    return args
+    ap.add_argument("-v", "--visualization", action="store_true",
+                    help="write the experiment's figures and videos")
+    ap.add_argument("-s", "--synth_model", default=None,
+                    help="a trained cvbae run directory whose VUNet "
+                         "renders RGB figures")
+    return ap.parse_args(argv)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -226,6 +226,10 @@ def main(argv=None):
                                    args.pretrained_model)
     if args.flow:   # also over a config reloaded from a run
         config.setdefault("training", {})["only_flow"] = True
+    if args.visualization:
+        config["general"]["visualization"] = True
+    if args.synth_model:
+        config.setdefault("logging", {})["synth_params"] = args.synth_model
     exp = select_experiment(config, dirs, device, args.restart)
     return exp.run_inference() if args.mode == "infer" else exp.run_training()
 

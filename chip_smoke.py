@@ -182,7 +182,24 @@ CUDA toolkit (nvcc) and PyTorch.  It imports no JAX.  Phases:
     the same net under an ``h36m_synthetic`` data config (the synthetic
     fallback).  Each request must launch the rollout kernel once, and a
     ``--from_dataset`` request's arrays must equal the port's data path's
-    for the same items.
+    for the same items;
+23. the figures and videos at full width: ``bdvs-train-torch`` for
+    behavior_net (``configs/behavior_net.yaml``: B=64, T=50,
+    ``dim_hidden_b`` 1024, 15 flows of mid width 2048, f32) with ``--debug
+    -v -s`` and phase [20]'s run as the synthesis run (its 256 px alter
+    VUNet), on a Human3.6M tree written here (2 subjects x 2 actions x 100
+    frames of 256 px JPEG, 2 cameras), then ``-m infer --debug -v -s``
+    (the post-hoc probes 5 iterations); the MT-VAE
+    (``configs/mt_vae.yaml``, one debug epoch) with ``-v``, then ``-m infer
+    -v``; ``bdvs-data-smoke-torch`` in its three modes on the Human3.6M
+    tree and once on phase [18]'s DeepFashion tree.  Every file the JAX
+    hooks name for these calls must exist and decode, the RGB videos must
+    hold 50 frames of the synthesis run's size (stickman beside frame) that
+    are finite and not constant, the rollout kernel must launch once per
+    pipeline call, and the first call's rollout must agree with its plain
+    version on the kernel's bf16 operands (phase [3]'s tolerance; the gap
+    to the decoder's f32 loop is reported).  Printed: each hook's wall
+    time, split into its device work and the host's drawing and encoding.
 
 The last two lines are a JSON object of kernel results and
 ``{"ok": true, "device": {...}}``; any failure exits non-zero before them.
@@ -3474,6 +3491,374 @@ def phase_from_dataset(synth_params):
         shutil.rmtree(base, ignore_errors=True)
 
 
+# -- 23. the figures and videos at full width ---------------------------------
+# a Human3.6M tree whose 2 subjects are each filmed doing action 2 by one
+# camera and action 8 by the other, 100 frames a video: the debug subset
+# (the first 100 frames of each subject and action) keeps every video
+# whole, so B=64 windows of 51 frames fill (6 training batches of the 400
+# frames; the test split, action 8, 3 batches)
+FIGURE_H36M = dict(subjects=(1, 9), actions=(2, 8),
+                   cameras=(54138969, 55011271), n_frames=100, image_hw=256)
+# the files the JAX hooks name for these calls
+FIGURE_RGB = ("rgb0.mp4", "rgb1.mp4")
+FIGURE_PAPER = tuple(f"figures/{n}" for n in (
+    "enrollment-bid0-sid0.png", "enrollment-rgb-bid0-sid0.png",
+    "enrollment-overlay-bid0-sid0.png", "enrollment_vid-bid0-sid0.mp4",
+    "sid_sid0/samples-sid0.png", "sid_sid0/samples-sid0.mp4",
+    *(f"interp-{p}-cam{c}.{e}" for p in ("slerp", "linear")
+      for c in range(2) for e in ("png", "mp4"))))
+FIGURE_EPOCH = ("seq0_transfer.mp4", "seq0_samples.mp4",
+                "seq1_transfer.mp4", "seq1_samples.mp4", "latent_interp.mp4",
+                "eval_grid.mp4")
+FIGURE_INFER = ("beta_embedding.png", "recon_error_hist.png",
+                "beta_nearest_neighbours.png")
+FIGURE_POSTHOC_ITERS = 5     # -m infer's probes (50 under --debug; [12])
+
+
+class HookClock:
+    """The wall time of each figure hook between two synchronizations,
+    split into its device work (the rollouts and pipeline calls inside it,
+    each between two synchronizations) and the rest (host drawing and
+    encoding); counts the pipeline calls and keeps the first one's inputs
+    and every call's outputs' finiteness."""
+
+    def __init__(self):
+        self.rows, self.device_s = [], 0.0
+        self.pipeline_calls, self.compared, self.finite = 0, None, True
+        self._patches = []
+
+    def _sync_timed(self, fn, on_device):
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            if on_device:
+                self.device_s += time.perf_counter() - t0
+            return out
+        return timed
+
+    def device(self, owner, name):
+        self._patch(owner, name, self._sync_timed(getattr(owner, name),
+                                                  True))
+
+    def pipeline(self, compare):
+        """Times BehaviorTransferPipeline.generate; ``compare(generate,
+        pipe, args, kwargs, out)`` runs once, on the first call, outside
+        the timing."""
+        generate = BehaviorTransferPipeline.generate
+        timed = self._sync_timed(generate, True)
+
+        def counted(pipe, *a, **kw):
+            out = timed(pipe, *a, **kw)
+            self.pipeline_calls += 1
+            self.finite &= bool(torch.isfinite(out["frames"].float()).all())
+            if self.compared is None:
+                self.compared = compare(generate, pipe, a, kw, out)
+            return out
+        self._patch(BehaviorTransferPipeline, "generate", counted)
+
+    def hook(self, owner, name, what):
+        fn = getattr(owner, name)
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            d0, t0 = self.device_s, time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.rows.append((what, time.perf_counter() - t0,
+                              self.device_s - d0))
+            return out
+        self._patch(owner, name, timed)
+
+    def _patch(self, owner, name, fn):
+        self._patches.append((owner, name, owner.__dict__[name]))
+        setattr(owner, name, fn)
+
+    def uninstall(self):
+        for owner, name, orig in reversed(self._patches):
+            setattr(owner, name, orig)
+        self._patches = []
+
+
+def decoded(path, with_std=False):
+    """(frames, height, width, the pixels' std with ``with_std``) of a
+    video, or (None, height, width, std) of an image, as cv2 reads it;
+    None if it does not decode."""
+    import cv2
+
+    if path.endswith(".png"):
+        img = cv2.imread(path)
+        return None if img is None else (None, *img.shape[:2],
+                                         float(img.std()))
+    cap = cv2.VideoCapture(path)
+    n, shape, frames = 0, None, []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        n, shape = n + 1, frame.shape
+        if with_std:
+            frames.append(frame)
+    cap.release()
+    if not n:
+        return None
+    return (n, *shape[:2],
+            float(np.std(np.stack(frames))) if with_std else None)
+
+
+def check_files(what, root, names, with_std=()):
+    """Every named file under root exists and decodes; returns how each
+    decodes (the pixels' std of the videos named in ``with_std``)."""
+    out = {}
+    for n in names:
+        p = os.path.join(root, n)
+        out[n] = decoded(p, n in with_std) if os.path.isfile(p) else None
+        check(out[n] is not None, f"{what}: {n} is missing or does not "
+                                  f"decode")
+    return out
+
+
+def figure_h36m_tree(base):
+    """FIGURE_H36M's tree: each subject's action 2 filmed by the first
+    camera, action 8 by the second; returns (root, frames)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_port_image_data as TI
+
+    cols = TI.h36m_columns(**FIGURE_H36M)
+    cam_a, cam_b = FIGURE_H36M["cameras"]
+    keep = (((cols["camera"] == cam_a) & (cols["action"] == 2))
+            | ((cols["camera"] == cam_b) & (cols["action"] == 8)))
+    cols = {k: v[keep] for k, v in cols.items()}
+    with ThreadPoolExecutor(8) as pool:
+        jpegs = [f.result() for f in TI.h36m_frames(
+            cols, image_hw=FIGURE_H36M["image_hw"],
+            encode=lambda img: pool.submit(TI.encode_jpeg, img))]
+    return (TI.write_h36m_tree(os.path.join(base, "h36m"), cols, jpegs),
+            len(jpegs))
+
+
+def first_call_rollout(generate, pipe, a, kw, out):
+    """(kernel vs its plain version on the kernel's bf16 operands, kernel
+    vs the pipeline without the kernel: the decoder's f32 loop) max abs
+    errors of one pipeline call's rollout, in the rollout's normalized
+    units (the poses unnormalized by the data's statistics)."""
+    z, x_start = (pipe._tensor(v) for v in a[:2])
+    T = kw["length"]
+    d = pipe.behavior_model.decoder
+
+    def normalized(world):
+        flat = world.reshape(world.shape[0], T, -1)
+        return ((flat - pipe.norm_mean) / pipe.norm_std)[..., pipe.dim_to_use]
+
+    with torch.inference_mode():
+        r = d.rnn
+        ref = rollout.residual_lstm_rollout_plain(
+            z, x_start, r.weight_ih, r.weight_hh, r.bias_ih, r.bias_hh,
+            d.n_out.weight, d.n_out.bias, T,
+            operand_dtype=torch.bfloat16).float()
+    pipe.use_rollout_kernel = False
+    try:
+        plain = generate(pipe, *a, **kw)
+    finally:
+        pipe.use_rollout_kernel = True
+    mine = normalized(out["poses_3d"])
+    return (float((mine - ref).abs().max()),
+            float((mine - normalized(plain["poses_3d"])).abs().max()))
+
+
+def phase_figures(gan_base):
+    """behavior_net with -v -s (phase [20]'s GAN run as the synthesis
+    run) on a Human3.6M tree, then -m infer -v -s; the MT-VAE with -v,
+    then -m infer -v; bdvs-data-smoke-torch in its three modes; returns
+    the rollout launches."""
+    from behavior_driven_video_synthesis_tpu_torch.data import smoke
+    from behavior_driven_video_synthesis_tpu_torch.experiments import (
+        visualize)
+
+    base = tempfile.mkdtemp(prefix="chip_smoke_figures_")
+    clock = HookClock()
+    t_phase = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        root, n_frames = figure_h36m_tree(base)
+        tree_s = time.perf_counter() - t0
+        synth = os.path.join(gan_base, "cvbae")
+        spatial = int(load_config(os.path.join(
+            synth, "config", "chip_smoke", "config.yaml"))["data"][
+                "spatial_size"])
+        exp = behavior_net.BehaviorNetExperiment
+        for name in ("transfer3d_rollouts", "interpolation_rollouts",
+                     "startpose_grid_rollouts", "mtvae_rollouts"):
+            clock.device(visualize, name)
+        clock.pipeline(first_call_rollout)
+        clock.hook(exp, "_epoch_figures", "behavior -v hook (an eval)")
+        clock.hook(exp, "_infer_figures", "behavior -m infer -v hook")
+        clock.hook(visualize, "load_synth_params", "-s VUNet load")
+        clock.hook(visualize, "visualize_mtvae", "mtvae -v hook (an epoch)")
+        clock.hook(mt_vae.MTVAEExperiment, "_write_eval_strips",
+                   "mtvae -m infer -v strips")
+        clock.device(smoke, "project_windows")
+        clock.hook(smoke, "main", "bdvs-data-smoke-torch")
+
+        # (a) behavior_net under -v -s, then -m infer -v -s
+        cfg = deep_merge(behavior_config(os.path.join(base, "runs")), {
+            "data": {"dataset": "human3.6m", "datapath": root}})
+        path = write_config(base, "behavior.yaml", cfg)
+        zero_kernel_launches()
+        rollout.rollout_launches = 0    # counts start here: (a)'s runs
+        t0 = time.perf_counter()
+        run = train_cli.main(["-c", path, "--device", "cuda", "--debug",
+                              "-v", "-s", synth])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        del run
+        gc.collect()
+        saved_iters = behavior_net.DEBUG_POSTHOC_ITERS
+        behavior_net.DEBUG_POSTHOC_ITERS = FIGURE_POSTHOC_ITERS
+        t0 = time.perf_counter()
+        try:
+            summary = train_cli.main(["-c", path, "--device", "cuda",
+                                      "--debug", "-m", "infer", "-v", "-s",
+                                      os.path.join(synth, "ckpt",
+                                                   "chip_smoke")])
+        finally:
+            behavior_net.DEBUG_POSTHOC_ITERS = saved_iters
+        torch.cuda.synchronize()
+        infer_s = time.perf_counter() - t0
+        launches = rollout.rollout_launches
+        other = kernel_launches()
+        check(all(np.isfinite(v) for v in summary.values()),
+              "figures: a -m infer summary value is not finite")
+        check(launches == clock.pipeline_calls == 3 * 5,
+              f"figures: {launches} rollout kernel launches for "
+              f"{clock.pipeline_calls} pipeline calls (3 RGB hooks x 5)")
+        check(clock.finite, "figures: a pipeline call's frames are not "
+                            "finite")
+        gen = os.path.join(base, "runs", "behavior_net", "generated",
+                           "debug")
+        names = ([f"e{e:03d}_{n}" for e in range(2)
+                  for n in FIGURE_EPOCH + FIGURE_RGB]
+                 + [f"infer_{n}" for n in FIGURE_RGB]
+                 + list(FIGURE_INFER) + list(FIGURE_PAPER))
+        rgb = [n for n in names if n.endswith(tuple(FIGURE_RGB))]
+        files = check_files("behavior figures", gen, names, with_std=rgb)
+        for n in rgb:
+            t, h, w, std = files[n]
+            check((t, h, w) == (50, spatial, 2 * spatial) and std > 1.0,
+                  f"figures: {n} is {t} frames of {h} x {w}, std "
+                  f"{std:.3g}")
+        pose_err, pose_err_f32 = clock.compared
+        check(pose_err_f32 == pose_err_f32 and pose_err <= 1e-2,
+              f"figures: the first call's rollout through the kernel "
+              f"{pose_err:.3g} off its plain version (normalized)")
+        arch = cfg["architecture"]
+        log(f"[23] on {RESULTS.get('card', 'the card')}: behavior_net "
+            f"(configs/behavior_net.yaml: B={cfg['training']['batch_size']}"
+            f", T={cfg['data']['seq_length'][0]}, dim_hidden_b "
+            f"{arch['dim_hidden_b']}, {arch.get('n_flows', 15)} flows, "
+            f"f32) --debug -v -s <phase [20]'s GAN run, an alter VUNet at "
+            f"{spatial} px> on a Human3.6M tree of "
+            f"{n_frames} JPEG frames of {FIGURE_H36M['image_hw']} px "
+            f"(2 subjects x 2 actions x 100 frames, 2 cameras; written in "
+            f"{tree_s:.1f} s): trained in {train_s:.1f} s, -m infer "
+            f"--debug -v -s in {infer_s:.1f} s (post-hoc probes "
+            f"{FIGURE_POSTHOC_ITERS} iterations); {len(names)} files, all "
+            f"decode; the RGB videos 50 frames of {spatial} x "
+            f"{2 * spatial} (stickman | frame); {launches} rollout launches = {clock.pipeline_calls} "
+            f"pipeline calls, frames finite; the first call's rollout within "
+            f"{pose_err:.2e} of its plain version on bf16 operands (atol "
+            f"1e-2, rtol 1e-2, as in [3]), {pose_err_f32:.2e} of the "
+            f"decoder's f32 loop (use_rollout_kernel false, reported; "
+            f"normalized units); other kernels' launches "
+            f"{other} (the VUNet in eval)")
+
+        # (b) the MT-VAE under -v, then -m infer -v
+        mcfg = mtvae_config(os.path.join(base, "runs"),
+                            training={"n_epochs": 1})
+        mpath = write_config(base, "mt_vae.yaml", mcfg)
+        t0 = time.perf_counter()
+        train_cli.main(["-c", mpath, "--device", "cuda", "-v"])
+        saved_iters = mt_vae.DEBUG_POSTHOC_ITERS
+        mt_vae.DEBUG_POSTHOC_ITERS = FIGURE_POSTHOC_ITERS
+        try:
+            train_cli.main(["-c", mpath, "--device", "cuda", "-m", "infer",
+                            "-v"])
+        finally:
+            mt_vae.DEBUG_POSTHOC_ITERS = saved_iters
+        torch.cuda.synchronize()
+        mtvae_s = time.perf_counter() - t0
+        mgen = os.path.join(base, "runs", "mtvae", "generated",
+                            mcfg["general"]["project_name"])
+        mnames = ["e000_mtvae_seq0.mp4", "e000_mtvae_seq1.mp4",
+                  "mtvae_eval_0.png", "mtvae_eval_1.png"]
+        mfiles = check_files("mtvae figures", mgen, mnames)
+        check(mfiles["e000_mtvae_seq0.mp4"][0]
+              == mcfg["data"]["seq_length"][0] + 1 - mcfg["training"].get(
+                  "n_cond", 10),
+              f"figures: the MT-VAE video has {mfiles['e000_mtvae_seq0.mp4']}")
+        log(f"    mtvae (configs/mt_vae.yaml, B="
+            f"{mcfg['training']['batch_size']}, 1 debug epoch) -v, then -m "
+            f"infer -v: {mtvae_s:.1f} s; {len(mnames)} files, all decode")
+
+        # (c) the smoke CLI: three modes on the Human3.6M tree, one on
+        # phase [18]'s DeepFashion tree
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+        import torch_port_image_data as TI
+
+        df_jpegs, index = TI.index_data(DF_IMAGES, DF_SIZE, seed=31)
+        df_root = TI.write_index_tree(os.path.join(base, "deepfashion"),
+                                      df_jpegs, index)
+        smoke_out = {}
+        for what, data, mode in (
+                ("h36m", {"dataset": "human3.6m", "datapath": root,
+                          "spatial_size": 256}, "visualize_projection"),
+                ("h36m", {"dataset": "human3.6m", "datapath": root,
+                          "spatial_size": 256}, "test_synth"),
+                ("h36m", {"dataset": "human3.6m", "datapath": root,
+                          "spatial_size": 256}, "default"),
+                ("deepfashion", {"dataset": "deepfashion",
+                                 "datapath": df_root, "spatial_size": 256},
+                 "test_synth")):
+            spath = write_config(base, "smoke.yaml", {
+                "general": {"mode": mode}, "data": data})
+            out = smoke.main(["--config", spath, "--out",
+                              os.path.join(base, "smoke", what),
+                              "--device", "cuda"])
+            check(len(out) > 0, f"smoke {what} {mode}: no output")
+            check_files(f"smoke {what} {mode}", "", out)
+            smoke_out[f"{what} {mode}"] = [os.path.basename(p) for p in out]
+        log("    bdvs-data-smoke-torch: " + "; ".join(
+            f"{k}: {len(v)} files" for k, v in smoke_out.items())
+            + ", all decode")
+    finally:
+        clock.uninstall()
+        shutil.rmtree(base, ignore_errors=True)
+    by_hook = {}
+    for what, wall, dev in clock.rows:
+        t = by_hook.setdefault(what, [0, 0.0, 0.0])
+        t[0] += 1
+        t[1] += wall
+        t[2] += dev
+    phase_s = time.perf_counter() - t_phase
+    log(f"    phase [23] {phase_s:.1f} s; figure hooks on "
+        f"{RESULTS.get('card', 'the card')}: calls, wall s (device s + "
+        f"host drawing and encoding s)")
+    for what, (n, wall, dev) in by_hook.items():
+        log(f"      {what}: {n} x, {wall:.3f} s ({dev:.3f} + "
+            f"{wall - dev:.3f})")
+    RESULTS["figures"] = dict(
+        phase_s=phase_s, tree_frames=n_frames, train_s=train_s,
+        infer_s=infer_s,
+        mtvae_s=mtvae_s, rollout_launches=launches,
+        pipeline_calls=clock.pipeline_calls, pose_err=pose_err,
+        pose_err_f32=pose_err_f32,
+        smoke=smoke_out, hooks={k: dict(calls=n, wall_s=w, device_s=d,
+                                        host_s=w - d)
+                                for k, (n, w, d) in by_hook.items()})
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch "
                                  "port on one NVIDIA GPU")
@@ -3519,6 +3904,7 @@ def main(argv=None):
         phase_gan_golden()
         launches += phase_bilinear()
         launches += phase_from_dataset(gan_synth)
+        launches += phase_figures(gan_base)
     finally:
         shutil.rmtree(gan_base, ignore_errors=True)
     bound, bound_by = rollout_bound_ms(*ROLLOUT_SHAPES[0])

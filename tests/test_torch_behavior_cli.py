@@ -12,8 +12,9 @@ and the flow stage.  A tiny run without ``--debug`` (its inference capped
 through ``metrics``) is evaluated with ``-m infer``, and ``-f`` in a
 sibling project trains the flow alone over its cVAE; a ``training.bf16``
 run, an ``h36m_synthetic`` run and a ``human3.6m`` run on a tiny
-``annot_export.h5`` train and infer through the CLI too.  What is not
-ported raises.
+``annot_export.h5`` train and infer through the CLI too.  ``-v`` writes
+the figures without changing the training metrics, ``-v -s`` with a tiny
+cvbae run also the RGB figures.  What is not ported raises.
 """
 import io
 import json
@@ -374,11 +375,110 @@ def test_human36m_trains_and_infers(tmp_path, dataset):
 
 @pytest.mark.parametrize("sections,error,match", [
     ({"training": {"fsdp": True}}, NotImplementedError, "A14"),
-    ({"general": {"visualization": True}}, NotImplementedError, "A12")])
+    ({"general": {"visualization": True}}, None, "e001_eval_grid")])
 def test_unported_config_raises(tmp_path, sections, error, match):
+    """training.fsdp (ROADMAP A14) raises; general.visualization, ported
+    (A12), writes the figures of each eval (synthetic data has no cameras
+    or norm statistics, so no RGB video)."""
     path = _config(tmp_path, **sections)
-    with pytest.raises(error, match=match):
-        main.main(["-c", path, "--device", "cpu", "--debug"])
+    if error is not None:
+        with pytest.raises(error, match=match):
+            main.main(["-c", path, "--device", "cpu", "--debug"])
+        return
+    main.main(["-c", path, "--device", "cpu", "--debug"])
+    generated = _run_dir(tmp_path) / "generated" / "debug"
+    assert sorted(os.listdir(generated)) == sorted(
+        f"e{e:03d}_{name}.mp4" for e in range(2) for name in (
+            "seq0_transfer", "seq0_samples", "seq1_transfer", "seq1_samples",
+            "latent_interp", "eval_grid"))
+    assert match + ".mp4" in os.listdir(generated)
+
+
+def _metric_lines(run_dir, project):
+    with open(run_dir / "log" / project / "metrics.jsonl") as f:
+        return [{k: v for k, v in json.loads(line).items() if k != "time"}
+                for line in f]
+
+
+def test_visualization_leaves_training_metrics_unchanged(tmp_path):
+    """The figures draw from a generator of their own and read a test
+    loader of their own: a -v run logs the metrics of a run without it."""
+    lines = {}
+    for flags in ((), ("-v",)):
+        tmp = tmp_path / ("v" if flags else "plain")
+        tmp.mkdir()
+        main.main(["-c", _config(tmp), "--device", "cpu", "--debug",
+                   *flags])
+        lines[flags] = _metric_lines(_run_dir(tmp), "debug")
+        assert bool(os.listdir(_run_dir(tmp) / "generated" / "debug")) \
+            == bool(flags)
+    assert lines[()] == lines[("-v",)]
+    assert {k.split("/")[0] for r in lines[()] for k in r if "/" in k} == {
+        "train", "eval", "flow"}
+
+
+def _tiny_cvbae_run(tmp_path) -> str:
+    """A cvbae run of 3 steps at 32 px, nf 4->8 (its experiment dir)."""
+    cfg = deep_merge(load_config(os.path.join(REPO, "configs",
+                                              "shape_and_pose_net.yaml")), {
+        "general": {"base_dir": str(tmp_path / "synth"),
+                    "project_name": "tiny"},
+        "data": {"spatial_size": 32, "n_persons": 2, "frames_per_person": 4},
+        "architecture": {"nf_start": 4, "nf_max": 8},
+        "training": {"batch_size": 2, "end_iteration": 3, "bf16": False,
+                     "n_init_batches": 1}})
+    path = tmp_path / "cvbae.yaml"
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    main.main(["-c", str(path), "--device", "cpu"])
+    return str(tmp_path / "synth" / "cvbae")
+
+
+# the files the JAX hooks name: per eval (tag e<epoch>_) and in -m infer
+# (tag infer_); the paper figures under figures/ are rewritten by each
+RGB_FILES = {f"{{tag}}rgb{i}.mp4" for i in range(2)} | {
+    f"figures/{name}" for name in (
+        "enrollment-bid0-sid0.png", "enrollment-rgb-bid0-sid0.png",
+        "enrollment-overlay-bid0-sid0.png", "enrollment_vid-bid0-sid0.mp4",
+        "sid_sid0/samples-sid0.png", "sid_sid0/samples-sid0.mp4",
+        *(f"interp-{p}-cam{c}.{ext}" for p in ("slerp", "linear")
+          for c in range(2) for ext in ("png", "mp4")))}
+
+
+def test_cli_renders_rgb_figures_with_a_synthesis_run(tmp_path, capsys):
+    """-v -s on h36m_synthetic (cameras and norm statistics, no image
+    files: zero appearances, as in JAX) with a tiny cvbae run: the epoch's
+    skeleton videos and RGB videos, the paper figures (both cameras), then
+    -m infer's embedding, histogram, neighbour figure and RGB videos; every
+    image and video decodes."""
+    cv2 = pytest.importorskip("cv2")
+    synth = _tiny_cvbae_run(tmp_path)
+    path = _config(tmp_path, data={"dataset": "h36m_synthetic",
+                                   "n_frames_per_video": 24,
+                                   "n_data_workers": 0}, **INFER)
+    main.main(["-c", path, "--device", "cpu", "-v", "-s", synth])
+    main.main(["-c", path, "--device", "cpu", "-m", "infer", "-v", "-s",
+               os.path.join(synth, "ckpt", "tiny")])
+    assert "a zero appearance" in capsys.readouterr().out
+    root = _run_dir(tmp_path) / "generated" / "tiny"
+    written = {os.path.relpath(os.path.join(d, f), root)
+               for d, _, files in os.walk(root) for f in files}
+    epoch = {f"e000_{n}.mp4" for n in (
+        "seq0_transfer", "seq0_samples", "seq1_transfer", "seq1_samples",
+        "latent_interp", "eval_grid")}
+    infer = {"beta_embedding.png", "recon_error_hist.png",
+             "beta_nearest_neighbours.png"}
+    assert written == (epoch | infer | {f.format(tag="e000_")
+                                        for f in RGB_FILES}
+                       | {f.format(tag="infer_") for f in RGB_FILES})
+    for f in written:
+        p = str(root / f)
+        if f.endswith(".png"):
+            assert cv2.imread(p) is not None, f
+        else:
+            cap = cv2.VideoCapture(p)
+            assert cap.get(cv2.CAP_PROP_FRAME_COUNT) > 0, f
+            cap.release()
 
 
 def test_missing_human36m_dataset_raises(tmp_path):

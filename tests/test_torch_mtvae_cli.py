@@ -7,8 +7,9 @@ synthetic sequences: 2 epochs of 4 steps; the width stays the reference's
 ``reg_ckpt`` save per epoch; ``-r`` after it runs no step; ``-m infer -d``
 (2 post-hoc iterations instead of 50, for time) logs a summary under
 ``infer/`` whose keys are the JAX experiment's on the same data;
-``general.visualization`` raises naming ROADMAP A12; and the modules
-import no JAX.
+``general.visualization`` writes the JAX experiment's videos and
+filmstrips without changing the training metrics; and the modules import
+no JAX.
 """
 import functools
 import json
@@ -130,10 +131,31 @@ def test_infer_without_a_checkpoint_raises(tmp_path):
         main.main(["-c", path, "--device", "cpu", "-m", "infer"])
 
 
-def test_visualization_is_not_ported(tmp_path):
+def _train_lines(tmp_path):
+    return [{k: v for k, v in r.items() if k != "time"}
+            for r in _lines(tmp_path) if any(k.startswith("train/")
+                                             for k in r)]
+
+
+def test_visualization_is_not_ported(run, tmp_path, monkeypatch):
+    """general.visualization (ported, ROADMAP A12): a skeleton video of
+    the epoch's last batch after each epoch, with training's metrics those
+    of the run without it, and -m infer's filmstrips of the first test
+    batch."""
+    cv2 = pytest.importorskip("cv2")
+    monkeypatch.setattr(mt_vae, "DEBUG_POSTHOC_ITERS", 2)   # for time
     path = _config(tmp_path, general={"visualization": True})
-    with pytest.raises(NotImplementedError, match="A12"):
-        main.main(["-c", path, "--device", "cpu", "-d"])
+    main.main(["-c", path, "--device", "cpu", "-d"])
+    generated = tmp_path / "runs" / "mtvae" / "generated" / "debug"
+    videos = {f"e{e:03d}_mtvae_seq{i}.mp4" for e in range(2)
+              for i in range(2)}
+    assert set(os.listdir(generated)) == videos
+    assert _train_lines(tmp_path) == _train_lines(run[0])
+    main.main(["-c", path, "--device", "cpu", "-m", "infer", "-d", "-v"])
+    assert set(os.listdir(generated)) == videos | {"mtvae_eval_0.png",
+                                                   "mtvae_eval_1.png"}
+    strips = cv2.imread(str(generated / "mtvae_eval_0.png"))
+    assert strips.shape == (4 * 400, 6 * 402 - 2, 3)
 
 
 def test_mtvae_modules_import_no_jax():

@@ -170,13 +170,10 @@ def test_human36m_without_h5py_raises(tmp_path, monkeypatch):
 
 
 def test_image_fetchers_name_their_roadmap_items(tmp_path):
-    """The synthesis-weight fetcher still names A12; the image and
-    stickman fetchers (A10c, ported) give the JAX dataset's sequences."""
+    """The synthesis-weight fetcher (A12) and the image and stickman
+    fetchers (A10c), all ported, give the JAX dataset's sequences."""
     cv2 = pytest.importorskip("cv2")
-    mine, _ = _datasets("train", keys=["keypoints", "synth_weights"])
-    with pytest.raises(NotImplementedError, match="A12"):
-        mine[0]
-    keys = ["keypoints", "stickman", "pose_img", "app_img"]
+    keys = ["keypoints", "synth_weights", "stickman", "pose_img", "app_img"]
     mine, ref = _datasets("train", keys=keys, spatial_size=32)
     rng = np.random.RandomState(0)
     files = []
@@ -191,6 +188,7 @@ def test_image_fetchers_name_their_roadmap_items(tmp_path):
         _equal(a, b, f"item {idx}")
         assert a["pose_img"].shape[1:] == (32, 32, 3)
         assert np.abs(a["stickman"]).max() > 0.3     # something was drawn
+        assert {1.0, 10.0} <= set(np.unique(a["synth_weights"]))
 
 
 SAMPLERS = {

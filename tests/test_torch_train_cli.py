@@ -127,11 +127,23 @@ def test_both_clis_pin_tf32_off(tmp_path, monkeypatch, cli):
 @pytest.mark.parametrize("flags", [["-m", "infer"], ["-r"], ["-f"], ["-v"],
                                    ["-s", "x"]])
 def test_train_cli_unported_options_exit(tmp_path, flags, capsys):
-    """-v and -s (the figures) are not ported and -f belongs to
-    behavior_net: each exits 2 for a cvbae run.  -m infer and -r are
-    ported for cvbae: on a trained run they evaluate it and resume it (a
-    finished run runs no step); -p has its own tests below."""
+    """-f belongs to behavior_net: it exits 2 for a cvbae run.  -m infer
+    and -r are ported for cvbae: on a trained run they evaluate it and
+    resume it (a finished run runs no step); -p has its own tests below.
+    -v and -s (the figures, ported) are accepted: the cvbae experiment has
+    no figure hook, as in JAX, and trains as without them, and neither
+    flag is dumped with the run's config."""
     path = _config(tmp_path)
+    if flags[0] in ("-v", "-s"):
+        out = main.main(["-c", path, "--device", "cpu", *flags])
+        assert out["state"].step == 3
+        generated = tmp_path / "runs" / "cvbae" / "generated" / "tiny"
+        assert all(f.startswith("grid_") for f in os.listdir(generated))
+        dumped = load_config(tmp_path / "runs" / "cvbae" / "config" / "tiny"
+                             / "config.yaml")
+        assert "visualization" not in dumped["general"]
+        assert "synth_params" not in dumped.get("logging", {})
+        return
     if flags[0] in ("-m", "-r"):
         main.main(["-c", path, "--device", "cpu"])
         out = main.main(["-c", path, "--device", "cpu", *flags])
@@ -147,8 +159,7 @@ def test_train_cli_unported_options_exit(tmp_path, flags, capsys):
         main.main(["-c", path, "--device", "cpu", *flags])
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert ("behavior_net" if flags[0] == "-f"
-            else "not ported yet (the figures, ROADMAP A12)") in err
+    assert "behavior_net" in err
 
 
 def test_train_cli_unported_experiment_exits(tmp_path, capsys):
