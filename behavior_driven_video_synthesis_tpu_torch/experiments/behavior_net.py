@@ -61,7 +61,7 @@ appearance, as there.  Every draw of the figures comes from a generator
 of their own (seeded ``general.seed + 2``), so a run's training metrics
 are the same with and without ``-v`` (the JAX figures take their keys
 from the training key sequence).  Not ported: ``training.fsdp`` (ROADMAP
-A14).  ``metrics/sequence.py:mse_euler_per_action`` is ported; like the
+A14b).  ``metrics/sequence.py:mse_euler_per_action`` is ported; like the
 JAX experiment, this one does not call it.
 """
 from __future__ import annotations
@@ -124,7 +124,7 @@ class BehaviorNetExperiment(Experiment):
     def __init__(self, config, dirs, device):
         super().__init__(config, dirs, device)
         if config.get("training", {}).get("fsdp", False):
-            raise NotImplementedError("training.fsdp (ROADMAP A14): not "
+            raise NotImplementedError("training.fsdp (ROADMAP A14b): not "
                                       "ported yet")
         tr = config.get("training", {})
         self.only_flow = bool(tr.get("only_flow", False))

@@ -9,6 +9,7 @@ this CLI reads the same parameter trees from ``.npz`` files instead
     bdvs-generate-torch --behavior_params behavior.npz \\
                         --synth_params synth.npz \\
                         [--mode sample|transfer] [--request req.npz] \\
+                        [--quant int8_static] [--upsample transpose] \\
                         [--out ./served] [--length 50] [--batch 4]
 
 ``behavior.npz`` holds ``net/...`` (the ResidualBehaviorNet params) and,
@@ -22,6 +23,16 @@ any other experiment the cvbae VUNet (variant "alter").
 ``--rnb_impl fused`` runs the VUNet's RNBs without auxiliary input through
 the fused RNB kernel (``ops/cuda/fused_rnb.py``); the default ``cudnn``
 runs them as cuDNN convs with eager elementwise ops.
+
+Serving options, on any trained weights without a conversion step:
+``--quant int8_static`` runs the per-frame path's 3x3 convs as int8 (the
+int8 conv kernel, ``ops/cuda/conv_int8.py``) with activation scales from
+one calibration pass on the request itself; ``--quant_max_hw N`` leaves the
+convs whose input is higher than N in bf16; ``--upsample transpose``
+computes the subpixel upsamples as transposed convs of the same
+parameters; ``--preset tpu-serving`` is ``--quant int8_static
+--quant_max_hw 128`` (explicit ``--quant`` and ``--quant_max_hw`` win).
+The manifest records ``quant``, ``quant_max_hw`` and ``upsample``.
 
 Modes
   sample    z ~ N(0,1) -> flow inverse (when the behavior file has a flow)
@@ -222,21 +233,31 @@ def parse_args(argv=None):
                     help="build the request from the behavior run's own "
                          "dataset (test split): real source sequences, "
                          "norm stats, appearance and cameras")
-    # options of the JAX CLI that this port does not have yet
+    # sentinel defaults (None), so the preset can tell a flag the user
+    # gave (also abbreviated, e.g. --qua none) from a default
     ap.add_argument("--quant", choices=["none", "int8_static"],
-                    default="none")
+                    default=None,
+                    help="int8_static: the per-frame 3x3 convs in int8, "
+                         "calibrated on the request")
+    ap.add_argument("--quant_max_hw", type=int, default=None,
+                    help="leave convs with input height above this in bf16")
     ap.add_argument("--upsample", choices=["subpixel", "transpose"],
                     default="subpixel")
     ap.add_argument("--preset", choices=["none", "tpu-serving"],
-                    default="none")
+                    default="none",
+                    help="tpu-serving = --quant int8_static --quant_max_hw "
+                         "128, the JAX package's serving preset; explicit "
+                         "--quant/--quant_max_hw flags win")
     args = ap.parse_args(argv)
-    unported = [flag for flag, on in (
-        ("--quant", args.quant != "none"),
-        ("--upsample transpose", args.upsample != "subpixel"),
-        ("--preset", args.preset != "none")) if on]
-    if unported:
-        ap.exit(2, f"{', '.join(unported)}: not ported yet (quantized and "
-                   f"TPU serving options, ROADMAP A14)\n")
+    if args.preset == "tpu-serving":
+        if args.quant is None:
+            args.quant = "int8_static"
+        if args.quant_max_hw is None:
+            args.quant_max_hw = 128
+    if args.quant is None:
+        args.quant = "none"
+    if args.quant_max_hw is None:
+        args.quant_max_hw = 0
     return args
 
 
@@ -350,6 +371,9 @@ def main(argv=None):
     # remat only changes a backward pass, so serving ignores it
     vunet = vunet_from_config(scfg, variant, dtype=torch.bfloat16,
                               remat=False, rnb_impl=args.rnb_impl,
+                              quant=args.quant,
+                              quant_max_hw=args.quant_max_hw,
+                              upsample_transpose=args.upsample == "transpose",
                               device=device)
     from_flax = (vunet_org_from_flax if variant == "org"
                  else vunet_alter_from_flax)
@@ -369,8 +393,19 @@ def main(argv=None):
                 torch.as_tensor(source, device=device), generator=gen)
         else:
             z = torch.randn(B, hid, generator=gen, device=device)
-        out = pipe.generate(z, x_start, app, extr, intr, imsize,
-                            length=args.length, generator=gen)
+        request = (z, x_start, app, extr, intr, imsize)
+        if args.quant == "int8_static":
+            # the request's own front stages, with the appearance noise
+            # that generate draws next, as the JAX CLI passes one key to
+            # both
+            at = gen.get_state()
+            pipe.calibrate(*request, length=args.length, use_flow=use_flow,
+                           generator=gen)
+            gen.set_state(at)
+            print("int8_static: calibrated activation scales on the "
+                  "request")
+        out = pipe.generate(*request, length=args.length, use_flow=use_flow,
+                            generator=gen)
 
     os.makedirs(args.out, exist_ok=True)
     request_path = None
@@ -387,6 +422,7 @@ def main(argv=None):
             os.path.join(args.out, f"{tag}.{VIDEO_FORMAT}"), fps=args.fps)
     manifest = {"mode": args.mode, "batch": B, "length": args.length,
                 "spatial": spatial, "quant": args.quant,
+                "quant_max_hw": args.quant_max_hw,
                 "upsample": args.upsample, "flow": use_flow,
                 "variant": variant, "rnb_impl": args.rnb_impl,
                 "from_dataset": args.from_dataset, "request": request_path,

@@ -176,51 +176,79 @@ def latent_flow_to_flax(state_dict: Mapping) -> Dict[str, Any]:
 
 # -- VUNet (alter and org) ---------------------------------------------------
 
-def _rnb(key: str, path: Tuple[str, ...], residual: bool) -> Plan:
+# flax names a VUNet's conv by the class of its conv_layer_type
+_CONV_CLASS = {"l1": "NormConv2d", "l2": "L2NormConv2d",
+               "ln": "LayerNormConv2d"}
+# each conv layer's first state-dict entry, which marks its type
+_CONV_FIRST = {"l1": "conv.weight_v", "l2": "weight", "ln": "conv.weight"}
+
+
+def _vunet_conv(key: str, parent: Tuple[str, ...], index: int,
+                conv: str) -> Plan:
+    """Conv ``index`` of its flax parent in layer type ``conv``: ``l1``
+    NormConv2d (v, g, bias, gamma, beta), ``l2`` L2NormConv2d (w, bias,
+    gamma, beta -> ``weight``, ``bias``, ``gamma``, ``beta``), ``ln``
+    LayerNormConv2d (its ``Conv_0`` -> ``conv.weight``, ``conv.bias``)."""
+    path = parent + (f"{_CONV_CLASS[conv]}_{index}",)
+    if conv == "l1":
+        return _norm_conv(key, path)
+    if conv == "l2":
+        return [(f"{key}.weight", path + ("w",), "hwio"),
+                (f"{key}.bias", path + ("bias",), "id"),
+                (f"{key}.gamma", path + ("gamma",), "c4"),
+                (f"{key}.beta", path + ("beta",), "c4")]
+    return [(f"{key}.conv.weight", path + ("Conv_0", "kernel"), "hwio"),
+            (f"{key}.conv.bias", path + ("Conv_0", "bias"), "id")]
+
+
+def _rnb(key: str, path: Tuple[str, ...], residual: bool,
+         conv: str = "l1") -> Plan:
     if residual:
-        return (_norm_conv(f"{key}.nin", path + ("NormConv2d_0",))
-                + _norm_conv(f"{key}.conv", path + ("NormConv2d_1",)))
-    return _norm_conv(f"{key}.conv", path + ("NormConv2d_0",))
+        return (_vunet_conv(f"{key}.nin", path, 0, conv)
+                + _vunet_conv(f"{key}.conv", path, 1, conv))
+    return _vunet_conv(f"{key}.conv", path, 0, conv)
 
 
 def _vunet_plan(n_scales: int, n_scales_x: int, n_latent_scales: int,
-                org: bool) -> Plan:
+                org: bool, conv: str = "l1") -> Plan:
     plan: Plan = []
     for net, ns in (("eu", n_scales_x), ("du", n_scales)):
-        plan += _norm_conv(f"{net}.nin", (net, "NormConv2d_0"))
+        plan += _vunet_conv(f"{net}.nin", (net,), 0, conv)
         for k in range(2 * ns):
-            plan += _rnb(f"{net}.blocks.{k}", (net, f"VunetRNB_{k}"), False)
+            plan += _rnb(f"{net}.blocks.{k}", (net, f"VunetRNB_{k}"), False,
+                         conv)
         for i in range(ns - 1):
-            plan += _norm_conv(f"{net}.downs.{i}.down",
-                               (net, f"Downsample_{i}", "NormConv2d_0"))
-    plan += _norm_conv("ed.nin", ("ed", "NormConv2d_0"))
-    # ed's NormConv2d: the latent means (and, alter, logstds) in order
+            plan += _vunet_conv(f"{net}.downs.{i}.down",
+                                (net, f"Downsample_{i}"), 0, conv)
+    plan += _vunet_conv("ed.nin", ("ed",), 0, conv)
+    # ed's convs: the latent means (and, alter, logstds) in order
     per_scale = 1 if org else 2
     for i in range(n_latent_scales):
-        plan += _rnb(f"ed.blocks.{2 * i}", ("ed", f"VunetRNB_{2 * i}"), True)
-        plan += _norm_conv(f"ed.make_latent_params.{i}",
-                           ("ed", f"NormConv2d_{1 + per_scale * i}"))
+        plan += _rnb(f"ed.blocks.{2 * i}", ("ed", f"VunetRNB_{2 * i}"), True,
+                     conv)
+        plan += _vunet_conv(f"ed.make_latent_params.{i}", ("ed",),
+                            1 + per_scale * i, conv)
         if not org:
-            plan += _norm_conv(f"ed.make_logstds.{i}",
-                               ("ed", f"NormConv2d_{2 + 2 * i}"))
+            plan += _vunet_conv(f"ed.make_logstds.{i}", ("ed",), 2 + 2 * i,
+                                conv)
         plan += _rnb(f"ed.blocks.{2 * i + 1}",
-                     ("ed", f"VunetRNB_{2 * i + 1}"), True)
-        plan += _norm_conv(f"ed.ups.{i}.up",
-                           ("ed", f"Upsample_{i}", "NormConv2d_0"))
+                     ("ed", f"VunetRNB_{2 * i + 1}"), True, conv)
+        plan += _vunet_conv(f"ed.ups.{i}.up", ("ed", f"Upsample_{i}"), 0,
+                            conv)
     plan += _rnb("ed.fin_block", ("ed", f"VunetRNB_{2 * n_latent_scales}"),
-                 True)
-    plan += _norm_conv("dd.nin", ("dd", "NormConv2d_0"))
-    rnb, conv = 0, 1       # flax numbers dd's VunetRNB and NormConv2d apart
+                 True, conv)
+    plan += _vunet_conv("dd.nin", ("dd",), 0, conv)
+    rnb, n_conv = 0, 1     # flax numbers dd's VunetRNB and convs apart
 
     def dd_rnb(key, residual=True):
         nonlocal rnb
         rnb += 1
-        return _rnb(key, ("dd", f"VunetRNB_{rnb - 1}"), residual)
+        return _rnb(key, ("dd", f"VunetRNB_{rnb - 1}"), residual, conv)
 
     def dd_conv(key):
-        nonlocal conv
-        conv += 1
-        return _norm_conv(key, ("dd", f"NormConv2d_{conv - 1}"))
+        nonlocal n_conv
+        n_conv += 1
+        return _vunet_conv(key, ("dd",), n_conv - 1, conv)
 
     for i in range(n_scales):
         plan += dd_rnb(f"dd.blocks.{2 * i}")
@@ -236,46 +264,72 @@ def _vunet_plan(n_scales: int, n_scales_x: int, n_latent_scales: int,
             plan += dd_conv(f"dd.latent_nins.l_{i}")
         plan += dd_rnb(f"dd.blocks.{2 * i + 1}")
         if i + 1 < n_scales:
-            plan += _norm_conv(f"dd.ups.{i}.up",
-                               ("dd", f"Upsample_{i}", "NormConv2d_0"))
+            plan += _vunet_conv(f"dd.ups.{i}.up", ("dd", f"Upsample_{i}"),
+                                0, conv)
     plan += dd_conv("dd.out_conv")
     return plan
 
 
 def vunet_alter_plan(n_scales: int, n_scales_x: int,
-                     n_latent_scales: int = 2) -> Plan:
-    """The mapping of ``convert_vunet_alter`` in the JAX package."""
-    return _vunet_plan(n_scales, n_scales_x, n_latent_scales, org=False)
+                     n_latent_scales: int = 2, conv: str = "l1") -> Plan:
+    """The mapping of ``convert_vunet_alter`` in the JAX package (for
+    ``conv`` ``l1``; ``l2`` and ``ln`` map the other conv layers' trees,
+    which the JAX package does not convert)."""
+    return _vunet_plan(n_scales, n_scales_x, n_latent_scales, org=False,
+                       conv=conv)
 
 
 def vunet_org_plan(n_scales: int, n_scales_x: int,
-                   n_latent_scales: int = 2) -> Plan:
+                   n_latent_scales: int = 2, conv: str = "l1") -> Plan:
     """The mapping of ``convert_vunet_org`` in the JAX package: the
     autoregressive prior's ``dd.auto_blocks.l_{i}.{0..3}``,
     ``dd.auto_lp.l_{i}.{0..3}`` and ``dd.latent_nins.l_{i}``."""
-    return _vunet_plan(n_scales, n_scales_x, n_latent_scales, org=True)
+    return _vunet_plan(n_scales, n_scales_x, n_latent_scales, org=True,
+                       conv=conv)
+
+
+def _tree_conv(p: Mapping) -> str:
+    """The conv layer type of a VUNet tree, read off its du."""
+    for conv, cls in _CONV_CLASS.items():
+        if f"{cls}_0" in p["du"]:
+            return conv
+    raise KeyError("the VUNet tree's du holds no known conv layer")
+
+
+def _state_dict_conv(state_dict: Mapping) -> str:
+    for conv, first in _CONV_FIRST.items():
+        if f"du.nin.{first}" in state_dict:
+            return conv
+    raise KeyError("the VUNet state dict's du.nin is no known conv layer")
 
 
 def _vunet_from_flax(tree: Mapping, plan_fn) -> Dict[str, torch.Tensor]:
     p = _params(tree)
     return from_flax(p, plan_fn(
         _count(p["du"], "VunetRNB_") // 2, _count(p["eu"], "VunetRNB_") // 2,
-        _count(p["ed"], "Upsample_")))
+        _count(p["ed"], "Upsample_"), _tree_conv(p)))
+
+
+def _state_dict_plan(state_dict: Mapping, plan_fn) -> Plan:
+    conv = _state_dict_conv(state_dict)
+    first = _CONV_FIRST[conv]
+
+    def n_blocks(net):
+        return sum(1 for k in state_dict if k.startswith(f"{net}.blocks.")
+                   and k.endswith(f".conv.{first}"))
+    n_latent = sum(1 for k in state_dict if k.startswith("ed.ups.")
+                   and k.endswith(f".up.{first}"))
+    return plan_fn(n_blocks("du") // 2, n_blocks("eu") // 2, n_latent, conv)
 
 
 def _vunet_to_flax(state_dict: Mapping, plan_fn) -> Dict[str, Any]:
-    def n_blocks(net):
-        return sum(1 for k in state_dict if k.startswith(f"{net}.blocks.")
-                   and k.endswith(".conv.conv.weight_v"))
-    n_latent = sum(1 for k in state_dict if k.startswith("ed.ups.")
-                   and k.endswith(".conv.weight_v"))
-    return to_flax(state_dict, plan_fn(
-        n_blocks("du") // 2, n_blocks("eu") // 2, n_latent))
+    return to_flax(state_dict, _state_dict_plan(state_dict, plan_fn))
 
 
 def vunet_alter_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """VUNet(variant="alter") params ({"params": ...} or bare) -> state
-    dict; the scale counts are read off the tree."""
+    dict; the scale counts and the conv layer type are read off the
+    tree."""
     return _vunet_from_flax(tree, vunet_alter_plan)
 
 
@@ -285,12 +339,57 @@ def vunet_alter_to_flax(state_dict: Mapping) -> Dict[str, Any]:
 
 def vunet_org_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """VUNet(variant="org") params ({"params": ...} or bare) -> state dict;
-    the scale counts are read off the tree."""
+    the scale counts and the conv layer type are read off the tree."""
     return _vunet_from_flax(tree, vunet_org_plan)
 
 
 def vunet_org_to_flax(state_dict: Mapping) -> Dict[str, Any]:
     return _vunet_to_flax(state_dict, vunet_org_plan)
+
+
+def _quant_paths(vunet) -> Dict[str, Tuple[str, ...]]:
+    """Each NormConv2d of ``vunet`` (by module name) -> its flax path."""
+    plan_fn = vunet_org_plan if vunet.variant == "org" else vunet_alter_plan
+    suffix = ".conv.weight_v"
+    return {key[:-len(suffix)]: path[:-1]
+            for key, path, _ in _state_dict_plan(vunet.state_dict(), plan_fn)
+            if key.endswith(suffix)}
+
+
+def quant_to_flax(vunet, scales: Mapping) -> Dict[str, Any]:
+    """int8 activation scales of ``vunet`` (``ops.nn.quant_scales``'s keys,
+    ``<module>.ax`` / ``.ax_aux``) -> the JAX package's ``quant``
+    collection (a nested dict of f32 scalars at each conv's path)."""
+    paths = _quant_paths(vunet)
+    tree: Dict[str, Any] = {}
+    for key, v in scales.items():
+        name, leaf = key.rsplit(".", 1)
+        node = tree
+        for p in paths[name]:
+            node = node.setdefault(p, {})
+        node[leaf] = np.asarray(torch.as_tensor(v).detach().cpu(),
+                                np.float32)
+    return tree
+
+
+def quant_from_flax(vunet, tree: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``quant`` collection -> ``vunet``'s scales, for
+    ``ops.nn.load_quant_scales`` or ``BehaviorTransferPipeline.generate``;
+    the inverse of :func:`quant_to_flax`."""
+    tree = tree.get("quant", tree)
+    scales = {}
+    for name, path in _quant_paths(vunet).items():
+        node = tree
+        for p in path:
+            node = node.get(p) if isinstance(node, Mapping) else None
+            if node is None:
+                break
+        if isinstance(node, Mapping):
+            for leaf in ("ax", "ax_aux"):
+                if leaf in node:
+                    scales[f"{name}.{leaf}"] = torch.from_numpy(
+                        np.array(node[leaf], np.float32))
+    return scales
 
 
 # -- VUNet latent regressor ---------------------------------------------------

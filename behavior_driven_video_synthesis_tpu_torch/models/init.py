@@ -16,7 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.nn import NormConv2d, NormDense
+from ..ops.nn import L2NormConv2d, NormConv2d, NormDense
 from ..ops.recurrent import GRU, LSTM
 from .behavior import ResidualDecoder
 from .flows.blocks import Shuffle
@@ -73,6 +73,8 @@ def init_like_jax_(module: nn.Module, generator=None) -> nn.Module:
     """The JAX package's initializers, in place: a NormConv2d or NormDense
     draws v from he_normal over its fan-in (kh, kw, cin) and sets g = |v|
     per output channel, bias and beta 0, gamma 1 (``ops/nn.py:225-241``);
+    an L2NormConv2d draws w from N(0, 0.05^2), with bias and beta 0 and
+    gamma 1 (``ops/nn.py:297-313``);
     an LSTM or a GRU, and a ResidualDecoder's cell and output layer, draw
     every weight and bias from U(-1/sqrt(H), 1/sqrt(H)), its optional input
     layer from U(-1/sqrt(K), 1/sqrt(K)) (``ops/recurrent.py:_uniform_init``);
@@ -90,6 +92,12 @@ def init_like_jax_(module: nn.Module, generator=None) -> nn.Module:
             m.conv.weight_g.copy_(
                 torch.sqrt(torch.sum(v * v, dim=(1, 2, 3), keepdim=True)))
             m.conv.bias.zero_()
+            m.gamma.fill_(1.0)
+            m.beta.zero_()
+        elif isinstance(m, L2NormConv2d):
+            m.weight.normal_(0.0, 0.05, generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
             m.gamma.fill_(1.0)
             m.beta.zero_()
         elif isinstance(m, (LSTM, GRU)):

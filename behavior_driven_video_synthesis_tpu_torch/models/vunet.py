@@ -33,15 +33,17 @@ under every setting, so remat can be flipped on any checkpoint.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..ops.nn import (Downsample, NormConv2d, Upsample, VunetRNB,
-                      checkpoint_with_generators, conv2d_nhwc,
-                      depth_to_space, space_to_depth)
+from ..ops.nn import (CONV_LAYERS, Downsample, NormConv2d, Upsample,
+                      VunetRNB, checkpoint_with_generators, conv2d_nhwc,
+                      depth_to_space, quant_calibration, quant_scales,
+                      space_to_depth)
 
 VARIANTS = ("alter", "org")
 REMAT = (False, True, "rnb", "subnet")
@@ -68,14 +70,14 @@ class EncUp(nn.Module):
     def __init__(self, in_channels: int, n_scales: int, nf_start: int,
                  nf_max: int, dropout_prob: float = 0.0,
                  dropout_impl: str = "flax", rnb_impl: str = "cudnn",
-                 dtype=torch.float32, device=None):
+                 conv_layer=NormConv2d, dtype=torch.float32, device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         rnb_kw = dict(dropout_prob=dropout_prob, dropout_impl=dropout_impl,
-                      rnb_impl=rnb_impl, **kw)
+                      rnb_impl=rnb_impl, conv_layer=conv_layer, **kw)
         nf = nf_start
         self.out_channels: List[int] = []
-        self.nin = NormConv2d(in_channels, nf, 1, **kw)
+        self.nin = conv_layer(in_channels, nf, 1, **kw)
         blocks, downs = [], []
         for i in range(n_scales):
             for _ in range(2):
@@ -83,7 +85,7 @@ class EncUp(nn.Module):
                 self.out_channels.append(nf)
             if i + 1 < n_scales:
                 nf_next = min(2 * nf, nf_max)
-                downs.append(Downsample(nf, nf_next, **kw))
+                downs.append(Downsample(nf, nf_next, conv_layer, **kw))
                 nf = nf_next
         self.blocks = nn.ModuleList(blocks)
         self.downs = nn.ModuleList(downs)
@@ -108,22 +110,25 @@ class EncDown(nn.Module):
     def __init__(self, skip_channels: Sequence[int], nf: int,
                  n_latent_scales: int = 2, variant: str = "alter",
                  dropout_prob: float = 0.0, dropout_impl: str = "flax",
-                 rnb_impl: str = "cudnn", dtype=torch.float32, device=None):
+                 rnb_impl: str = "cudnn", conv_layer=NormConv2d,
+                 upsample_transpose: bool = False, dtype=torch.float32,
+                 device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         rnb_kw = dict(dropout_prob=dropout_prob, dropout_impl=dropout_impl,
-                      rnb_impl=rnb_impl, **kw)
+                      rnb_impl=rnb_impl, conv_layer=conv_layer, **kw)
         self.variant = variant
         skips = list(skip_channels)
-        self.nin = NormConv2d(skips[-1], nf, 1, **kw)
+        self.nin = conv_layer(skips[-1], nf, 1, **kw)
         blocks, mus, logstds, ups = [], [], [], []
         for _ in range(n_latent_scales):
             blocks.append(VunetRNB(nf, True, skips.pop(), **rnb_kw))
-            mus.append(NormConv2d(nf, nf, 3, padding=1, **kw))
+            mus.append(conv_layer(nf, nf, 3, padding=1, **kw))
             if variant == "alter":
-                logstds.append(NormConv2d(nf, nf, 3, padding=1, **kw))
+                logstds.append(conv_layer(nf, nf, 3, padding=1, **kw))
             blocks.append(VunetRNB(nf, True, skips.pop() + nf, **rnb_kw))
-            ups.append(Upsample(nf, nf, **kw))
+            ups.append(Upsample(nf, nf, transpose=upsample_transpose,
+                                conv_layer=conv_layer, **kw))
         self.blocks = nn.ModuleList(blocks)
         self.make_latent_params = nn.ModuleList(mus)
         if variant == "alter":
@@ -171,15 +176,16 @@ class DecDown(nn.Module):
                  n_latent_scales: int = 2, subpixel_upsampling: bool = True,
                  variant: str = "alter", dropout_prob: float = 0.0,
                  dropout_impl: str = "flax", rnb_impl: str = "cudnn",
+                 conv_layer=NormConv2d, upsample_transpose: bool = False,
                  dtype=torch.float32, device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         rnb_kw = dict(dropout_prob=dropout_prob, dropout_impl=dropout_impl,
-                      rnb_impl=rnb_impl, **kw)
+                      rnb_impl=rnb_impl, conv_layer=conv_layer, **kw)
         skips = list(skip_channels)
         self.n_latent_scales, self.variant = n_latent_scales, variant
         nf = nf_in
-        self.nin = NormConv2d(skips[-1], nf, 1, **kw)
+        self.nin = conv_layer(skips[-1], nf, 1, **kw)
         blocks, ups = [], []
         autos, auto_lp, latent_nins = [], {}, {}
         for i in range(n_scales):
@@ -194,14 +200,16 @@ class DecDown(nn.Module):
                     + [VunetRNB(4 * nf, True, nf, **rnb_kw)
                        for _ in range(3)])))
                 auto_lp[f"l_{i}"] = nn.ModuleList(
-                    NormConv2d(4 * nf, nf, 3, padding=1, **kw)
+                    conv_layer(4 * nf, nf, 3, padding=1, **kw)
                     for _ in range(4))
-                latent_nins[f"l_{i}"] = NormConv2d(2 * nf, nf, 1, **kw)
+                latent_nins[f"l_{i}"] = conv_layer(2 * nf, nf, 1, **kw)
             blocks.append(VunetRNB(nf, True, skips.pop(), **rnb_kw))
             if i + 1 < n_scales:
                 out_c = min(nf_in, nf_last * 2 ** (n_scales - (i + 2)))
                 ups.append(Upsample(nf, out_c, subpixel=(
-                    subpixel_upsampling or i < n_latent_scales), **kw))
+                    subpixel_upsampling or i < n_latent_scales),
+                    transpose=upsample_transpose, conv_layer=conv_layer,
+                    **kw))
                 nf = out_c
         self.blocks = nn.ModuleList(blocks)
         if variant == "alter":
@@ -211,7 +219,7 @@ class DecDown(nn.Module):
             self.auto_lp = nn.ModuleDict(auto_lp)
             self.latent_nins = nn.ModuleDict(latent_nins)
         self.ups = nn.ModuleList(ups)
-        self.out_conv = NormConv2d(nf, nf_out, 3, padding=1, **kw)
+        self.out_conv = conv_layer(nf, nf_out, 3, padding=1, **kw)
 
     def forward(self, gs, zs_posterior=None, eps=None, generator=None,
                 train: bool = False, dropout_generator=None,
@@ -280,8 +288,18 @@ class DecDown(nn.Module):
 class VUNet(nn.Module):
     """VUNet in the "alter" (cvbae) or "org" (original) variant.
 
-    Every method takes and returns NHWC tensors.  Options of the JAX
-    package that this package does not port raise NotImplementedError.
+    Every method takes and returns NHWC tensors.
+
+    ``conv_layer_type`` picks every sub-network's conv layer
+    (``ops.nn.CONV_LAYERS``: ``l1``, ``l2``, ``ln``).  ``quant`` (``int8``
+    or ``int8_static``) and ``quant_max_hw`` make the per-frame path's
+    (du and dd) 3x3 convs int8 (``ops.nn.NormConv2d``); eu and ed, which
+    run once a video, stay in full precision.  ``int8_static`` serves the
+    scales of a calibration pass (:func:`calibrate_quant`).
+    ``upsample_transpose`` computes every subpixel upsample as one
+    transposed conv.  Quant and the transposed upsample need ``l1``
+    (ValueError otherwise, the JAX package's assertions), as does
+    ``rnb_impl="fused"``.
     """
 
     def __init__(self, spatial_size: int = 256, n_channels_x: int = 3,
@@ -292,21 +310,26 @@ class VUNet(nn.Module):
                  conv_layer_type: str = "l1", variant: str = "alter",
                  dropout_prob: float = 0.0, dropout_impl: str = "flax",
                  rnb_impl: str = "cudnn", quant: str = "none",
-                 upsample_transpose: bool = False, remat=False,
-                 dtype=torch.float32, device=None):
+                 quant_max_hw: int = 0, upsample_transpose: bool = False,
+                 remat=False, dtype=torch.float32, device=None):
         super().__init__()
         if variant not in VARIANTS:
             raise ValueError(f"unknown VUNet variant {variant!r}; expected "
                              f"one of {VARIANTS}")
-        unported = {
-            "conv_layer_type": (conv_layer_type, "l1"),
-            "quant": (quant, "none"),
-            "upsample_transpose": (upsample_transpose, False),
-        }
-        for name, (value, supported) in unported.items():
-            if value != supported:
-                raise NotImplementedError(
-                    f"VUNet {name}={value!r} is not ported yet")
+        if conv_layer_type not in CONV_LAYERS:
+            raise ValueError(f"unknown conv_layer_type {conv_layer_type!r}; "
+                             f"expected one of {tuple(CONV_LAYERS)}")
+        conv_layer = CONV_LAYERS[conv_layer_type]
+        conv_layer_pf = conv_layer
+        if quant != "none":
+            if conv_layer is not NormConv2d:
+                raise ValueError("quantized serving requires the l1 "
+                                 "(NormConv2d) conv layer")
+            conv_layer_pf = partial(NormConv2d, quant=quant,
+                                    quant_max_hw=quant_max_hw)
+        if upsample_transpose and conv_layer is not NormConv2d:
+            raise ValueError("upsample_transpose requires the l1 "
+                             "(NormConv2d) conv layer")
         if remat not in REMAT:
             raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
         self.spatial_size, self.dtype = spatial_size, dtype
@@ -316,13 +339,17 @@ class VUNet(nn.Module):
         n_scales_x = n_scales - box_factor if n_channels_x > 3 else n_scales
         kw = dict(dropout_prob=dropout_prob, dropout_impl=dropout_impl,
                   rnb_impl=rnb_impl, dtype=dtype, device=device)
-        self.eu = EncUp(n_channels_x, n_scales_x, nf_start, nf_max, **kw)
+        self.eu = EncUp(n_channels_x, n_scales_x, nf_start, nf_max,
+                        conv_layer=conv_layer, **kw)
         self.ed = EncDown(self.eu.out_channels, nf_max, n_latent_scales,
-                          variant, **kw)
-        self.du = EncUp(3, n_scales, nf_start, nf_max, **kw)
+                          variant, conv_layer=conv_layer,
+                          upsample_transpose=upsample_transpose, **kw)
+        self.du = EncUp(3, n_scales, nf_start, nf_max,
+                        conv_layer=conv_layer_pf, **kw)
         self.dd = DecDown(self.du.out_channels, n_scales, nf_max, nf_start,
                           3, n_latent_scales, subpixel_upsampling, variant,
-                          **kw)
+                          conv_layer=conv_layer_pf,
+                          upsample_transpose=upsample_transpose, **kw)
         if remat is True or remat == "rnb":
             for m in self.modules():
                 if isinstance(m, VunetRNB):
@@ -375,11 +402,26 @@ class VUNet(nn.Module):
         return self.dd(self.du(c), None, eps, generator)[0]
 
 
+def calibrate_quant(vunet: VUNet, means, stickman) -> dict:
+    """One calibration pass of an ``int8_static`` VUNet (JAX
+    ``models/vunet.py:512-525``): ``transfer_cached`` on (means, stickman)
+    with every int8 conv folding its input's max|x| + 1e-12 into its
+    stored running max.  As in the JAX package's ``transfer_cached``, the
+    org prior runs too (fed the posterior means), so its convs are
+    calibrated though serving skips them.  Returns the scales
+    (``ops.nn.quant_scales``); call it again over other batches to widen
+    them."""
+    with torch.no_grad(), quant_calibration(vunet):
+        vunet.dd(vunet.du(stickman), list(means), prior=True)
+    return quant_scales(vunet)
+
+
 def vunet_from_config(config: Optional[dict], variant: str,
                       n_channels_x: Optional[int] = None, **overrides):
     """Build a VUNet from a run config (a plain dict with "architecture",
     "data" and "training" keys) with the JAX package's defaults;
-    ``overrides`` set options such as dtype, device and rnb_impl."""
+    ``overrides`` set options such as dtype, device and rnb_impl, and the
+    serving-only quant, quant_max_hw and upsample_transpose."""
     config = config or {}
     arch = config.get("architecture", {})
     data = config.get("data", {})

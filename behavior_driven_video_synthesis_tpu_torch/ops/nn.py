@@ -9,18 +9,32 @@ Parameters are float32 and keep the reference's state-dict names
 (``conv.weight_v``, ``conv.weight_g``, ``conv.bias``, ``gamma``, ``beta``;
 ``main.{2k}.weight``); ``dtype`` is the compute dtype, as in the JAX
 modules.
+
+The three conv layers of ``architecture.conv_layer_type`` are
+:data:`CONV_LAYERS`: ``l1`` :class:`NormConv2d` (weight norm), ``l2``
+:class:`L2NormConv2d` and ``ln`` :class:`LayerNormConv2d`.  ``NormConv2d``
+also serves int8 (``quant``, the int8 conv kernel of ``ops/cuda/
+conv_int8.py``) and the subpixel upsample as one transposed conv
+(``d2s_transpose``).
 """
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from .cuda.conv_int8 import (act_scale, conv_int8, pack_weights,
+                             quantize_weight)
 from .cuda.elu_dropout import elu_dropout
 from .cuda.fused_rnb import fused_rnb
+
+QUANT_MODES = ("none", "int8", "int8_static")
+# Builds of a NormConv2d's int8 weights since import.
+int8_weight_builds = 0
 
 
 def space_to_depth(x: torch.Tensor, block_size: int = 2) -> torch.Tensor:
@@ -73,26 +87,59 @@ class NormConv2d(nn.Module):
     W = g * v / sqrt(sum(v^2) + 1e-12), the norm running over (cin, kh, kw)
     per output channel; y = gamma * (conv(x, W) + bias) + beta, with bias,
     gamma and beta cast to the compute dtype.
+
+    ``quant`` (JAX ``ops/nn.py:155-282``): ``"int8"`` and ``"int8_static"``
+    run a 3x3 conv of at least 8 features, whose input is at most
+    ``quant_max_hw`` high (0: any), as the int8 conv (``ops/cuda/
+    conv_int8.py``): activations quantized with one symmetric scale a
+    tensor, W with one a output channel, the sum dequantized, then the
+    affine in the compute dtype.  ``"int8"`` takes max|x| of each call as
+    the scale; ``"int8_static"`` the running max stored in
+    :attr:`act_amax` (``"ax"``, and ``"ax_aux"`` for the aux input), which
+    a call under :func:`quant_calibration` folds its own max into (and
+    uses).  The scales stay out of the state dict, as the JAX package keeps
+    them in its ``quant`` collection (:func:`quant_scales`,
+    :func:`load_quant_scales`).  W's int8 values are built once and kept
+    while the parameters keep their version counters.
+
+    ``d2s_transpose`` (JAX ``:76-108``, ``:246-260``): the conv to 4C of a
+    subpixel upsample followed by ``depth_to_space(., 2)``, computed as one
+    stride-2 transposed conv with the 6x6 kernel gathered from W, the
+    affine applied by output parity.  The parameters are the same, so one
+    checkpoint serves both forms.
     """
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
                  stride: int = 1, padding: int = 0, quant: str = "none",
-                 d2s_transpose: bool = False, dtype=torch.float32,
-                 device=None):
+                 quant_max_hw: int = 0, d2s_transpose: bool = False,
+                 dtype=torch.float32, device=None):
         super().__init__()
-        if quant != "none":
+        if quant not in QUANT_MODES:
+            raise ValueError(f"unknown quant {quant!r}; expected one of "
+                             f"{QUANT_MODES}")
+        if quant != "none" and kernel_size >= 3 and (
+                kernel_size, padding) != (3, 1):
             raise NotImplementedError(
-                f"NormConv2d quant={quant!r} is not ported yet")
-        if d2s_transpose:
-            raise NotImplementedError(
-                "NormConv2d d2s_transpose is not ported yet")
+                "the int8 conv takes 3x3 kernels with padding 1, got "
+                f"kernel_size {kernel_size}, padding {padding}")
+        if d2s_transpose and not (stride == 1 and kernel_size == 3
+                                  and padding == 1 and features % 4 == 0):
+            raise ValueError("d2s_transpose supports the subpixel-upsample "
+                             "conv shape only (3x3, stride 1, pad 1, "
+                             "features divisible by 4)")
         self.stride, self.padding, self.dtype = stride, padding, dtype
+        self.features, self.kernel_size = features, kernel_size
+        self.quant, self.quant_max_hw = quant, quant_max_hw
+        self.d2s_transpose = d2s_transpose
         self.conv = _WeightNormParams(in_channels, features, kernel_size,
                                       device)
         self.gamma = nn.Parameter(torch.ones(1, features, 1, 1,
                                              device=device))
         self.beta = nn.Parameter(torch.zeros(1, features, 1, 1,
                                              device=device))
+        self.act_amax: Dict[str, torch.Tensor] = {}
+        self.calibrating = False
+        self._int8 = None
 
     def kernel(self) -> torch.Tensor:
         v = self.conv.weight_v
@@ -100,17 +147,221 @@ class NormConv2d(nn.Module):
                             + 1e-12)
         return v * (self.conv.weight_g / v_norm)
 
+    def quant_active(self, x: torch.Tensor) -> bool:
+        """Whether this call runs int8 (JAX ``_quant_active``): 3x3 convs
+        of at least 8 features (1x1 convs and small heads stay in full
+        precision), never with d2s_transpose, and only where x (NHWC) is at
+        most ``quant_max_hw`` high when that is above 0."""
+        return (self.quant != "none" and not self.d2s_transpose
+                and self.kernel_size >= 3 and self.features >= 8
+                and (self.quant_max_hw <= 0
+                     or x.shape[1] <= self.quant_max_hw))
+
+    def _act_scale(self, x, name):
+        if self.quant == "int8":
+            return act_scale(x)
+        if self.calibrating:
+            ax = act_scale(x)
+            old = self.act_amax.get(name)
+            self.act_amax[name] = (ax if old is None else
+                                   torch.maximum(old.to(ax.device), ax))
+            return ax
+        ax = self.act_amax.get(name)
+        if ax is None:
+            raise RuntimeError(
+                f"this int8_static conv has no calibrated scale {name!r}: "
+                "calibrate first (models.vunet.calibrate_quant)")
+        return ax.to(x.device)
+
+    def _int8_weights(self, cx: Optional[int]):
+        """[(W_q, aw, packed for the kernel or None)] of W, or of its two
+        fan-in halves at ``cx`` (x's channels, then aux's), each quantized
+        over its own fan-in as the JAX package slices the kernel first;
+        rebuilt when a parameter's version, storage, device or dtype
+        changes."""
+        global int8_weight_builds
+        params = (self.conv.weight_v, self.conv.weight_g)
+        key = (cx,) + tuple((p._version, p.data_ptr(), p.device, p.dtype)
+                            for p in params)
+        if self._int8 is not None and self._int8[0] == key:
+            return self._int8[1]
+        with torch.no_grad():
+            k = self.kernel().float()
+            parts = [k] if cx is None else [k[:, :cx], k[:, cx:]]
+            weights = []
+            for w in parts:
+                w_q, aw = quantize_weight(w)
+                weights.append((w_q, aw, pack_weights(w_q, aw)
+                                if w.device.type == "cuda" else None))
+        self._int8 = (key, weights)
+        int8_weight_builds += 1
+        return weights
+
+    def _forward_int8(self, x, aux):
+        dt, bias = self.dtype, self.conv.bias.detach()
+        if aux is None:
+            (w_q, aw, packed), = self._int8_weights(None)
+            return conv_int8(x, w_q, aw, self._act_scale(x, "ax"), bias,
+                             self.stride, dt, packed)
+        (xw, xa, xp), (aw_q, aa, ap) = self._int8_weights(x.shape[-1])
+        y = conv_int8(x, xw, xa, self._act_scale(x, "ax"), bias,
+                      self.stride, dt, xp)
+        return y + conv_int8(aux, aw_q, aa, self._act_scale(aux, "ax_aux"),
+                             None, self.stride, dt, ap)
+
+    def _forward_d2s_transpose(self, x):
+        """depth_to_space(conv(x, W, pad 1) + bias, 2), then the affine, as
+        one transposed conv: the 6x6 kernel's tap (u, v) holds W's tap
+        (p_u, p_v) of output parity (i_u, i_v), i = (u + 1) % 2 and
+        p = (u - 1 + i) // 2 (JAX ``_conv_d2s_transpose``); conv_transpose2d
+        at stride 2 and padding 2 takes it flipped."""
+        dt = self.dtype
+        k = self.kernel()
+        c, cin = k.shape[0] // 4, k.shape[1]
+        u = torch.arange(6, device=k.device)
+        i = (u + 1) % 2
+        p = (u - 1 + i) // 2
+        kr = k.reshape(2, 2, c, cin, 3, 3)
+        k6 = kr[i[:, None], i[None, :], :, :, p[:, None], p[None, :]]
+        w = k6.permute(3, 2, 0, 1).flip(2, 3)            # (cin, c, 6, 6)
+        y = F.conv_transpose2d(x.to(dt).permute(0, 3, 1, 2), w.to(dt),
+                               None, 2, 2).permute(0, 2, 3, 1)
+        n, h2, w2, _ = y.shape
+
+        def par(t):
+            return t.to(dt).reshape(2, 2, c)[None, None, :, None, :, :]
+        y = y.reshape(n, h2 // 2, 2, w2 // 2, 2, c)
+        y = par(self.gamma) * (y + par(self.conv.bias)) + par(self.beta)
+        return y.reshape(n, h2, w2, c)
+
     def forward(self, x: torch.Tensor,
                 aux: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: NHWC.  aux: optional second input whose channels follow x's
         in the kernel's fan-in (the JAX package's split-kernel form)."""
         dt = self.dtype
-        if aux is not None:
-            x = torch.cat([x.to(dt), aux.to(dt)], dim=-1)
-        y = conv2d_nhwc(x.to(dt), self.kernel().to(dt),
-                        self.conv.bias.to(dt), self.stride, self.padding)
+        if self.d2s_transpose:
+            if aux is not None:
+                raise ValueError("d2s_transpose takes no aux input")
+            return self._forward_d2s_transpose(x)
+        if self.quant_active(x):
+            y = self._forward_int8(x, aux)
+        else:
+            if aux is not None:
+                x = torch.cat([x.to(dt), aux.to(dt)], dim=-1)
+            y = conv2d_nhwc(x.to(dt), self.kernel().to(dt),
+                            self.conv.bias.to(dt), self.stride,
+                            self.padding)
         return (self.gamma.to(dt).reshape(-1) * y
                 + self.beta.to(dt).reshape(-1))
+
+
+@contextlib.contextmanager
+def quant_calibration(module: nn.Module):
+    """Within the block, every ``int8_static`` NormConv2d of ``module``
+    quantizes each call with the call's own max|x| + 1e-12 and folds it
+    into its stored running max (JAX ``_act_scale`` with the ``quant``
+    collection mutable)."""
+    convs = [m for m in module.modules()
+             if isinstance(m, NormConv2d) and m.quant == "int8_static"]
+    for m in convs:
+        m.calibrating = True
+    try:
+        yield
+    finally:
+        for m in convs:
+            m.calibrating = False
+
+
+def quant_scales(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """The stored int8 activation scales of ``module``'s NormConv2d, keyed
+    ``<module name>.ax`` and ``<module name>.ax_aux``."""
+    return {f"{name}.{k}": v for name, m in module.named_modules()
+            if isinstance(m, NormConv2d) for k, v in m.act_amax.items()}
+
+
+def load_quant_scales(module: nn.Module,
+                      scales: Dict[str, torch.Tensor]) -> None:
+    """Replace every stored scale of ``module`` by ``scales`` (keys as
+    :func:`quant_scales` gives them; ``{}`` clears them)."""
+    convs = {name: m for name, m in module.named_modules()
+             if isinstance(m, NormConv2d)}
+    for m in convs.values():
+        m.act_amax = {}
+    for key, v in scales.items():
+        name, k = key.rsplit(".", 1)
+        m = convs.get(name)
+        if m is None or m.quant != "int8_static" or k not in ("ax",
+                                                             "ax_aux"):
+            raise KeyError(f"{key!r} names no int8_static scale of the "
+                           "module")
+        m.act_amax[k] = torch.as_tensor(v, dtype=torch.float32,
+                                        device=m.conv.weight_v.device)
+
+
+class L2NormConv2d(nn.Module):
+    """Conv whose kernel is L2-normalized per output channel, with learned
+    per-channel scale and shift (JAX ``ops/nn.py:285-321``):
+    W = w / sqrt(sum(w^2) + 1e-12) over (cin, kh, kw), then
+    y = gamma * (conv(x, W) + bias) + beta in the compute dtype.
+
+    State dict: ``weight`` (OIHW), ``bias`` (with ``use_bias``), ``gamma``
+    and ``beta`` (1, C, 1, 1) -- the reference's own names for this layer
+    are not available, so these follow its style (flax ``w``, ``bias``,
+    ``gamma``, ``beta``; ``models/convert.py``).
+    """
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
+                 stride: int = 1, padding: int = 0, use_bias: bool = True,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.stride, self.padding, self.dtype = stride, padding, dtype
+        k = kernel_size
+        self.weight = nn.Parameter(
+            torch.empty(features, in_channels, k, k, device=device))
+        self.bias = (nn.Parameter(torch.zeros(features, device=device))
+                     if use_bias else None)
+        self.gamma = nn.Parameter(torch.ones(1, features, 1, 1,
+                                             device=device))
+        self.beta = nn.Parameter(torch.zeros(1, features, 1, 1,
+                                             device=device))
+
+    def kernel(self) -> torch.Tensor:
+        w = self.weight
+        return w / torch.sqrt(torch.sum(w * w, dim=(1, 2, 3), keepdim=True)
+                              + 1e-12)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        bias = self.bias.to(dt) if self.bias is not None else None
+        y = conv2d_nhwc(x.to(dt), self.kernel().to(dt), bias, self.stride,
+                        self.padding)
+        return (self.gamma.to(dt).reshape(-1) * y
+                + self.beta.to(dt).reshape(-1))
+
+
+class LayerNormConv2d(nn.Module):
+    """A conv with bias, then a per-sample, per-channel normalization over
+    H and W without affine, eps 1e-5 (JAX ``ops/nn.py:358-380``).  State
+    dict: ``conv.weight`` (OIHW) and ``conv.bias``, the flax ``Conv_0``."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
+                 stride: int = 1, padding: int = 0, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.conv = nn.Conv2d(in_channels, features, kernel_size, stride,
+                              padding, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt, conv = self.dtype, self.conv
+        y = conv2d_nhwc(x.to(dt), conv.weight.to(dt), conv.bias.to(dt),
+                        conv.stride[0], conv.padding[0])
+        mean = y.mean(dim=(1, 2), keepdim=True)
+        var = y.var(dim=(1, 2), keepdim=True, unbiased=False)
+        return (y - mean) * torch.rsqrt(var + 1e-5)
+
+
+CONV_LAYERS = {"l1": NormConv2d, "l2": L2NormConv2d, "ln": LayerNormConv2d}
 
 
 class NormDense(nn.Module):
@@ -138,12 +389,13 @@ class NormDense(nn.Module):
 
 
 class Downsample(nn.Module):
-    """Stride-2 3x3 NormConv2d."""
+    """Stride-2 3x3 conv of ``conv_layer`` (a :data:`CONV_LAYERS` class, or
+    a partial of one)."""
 
-    def __init__(self, in_channels: int, features: int, dtype=torch.float32,
-                 device=None):
+    def __init__(self, in_channels: int, features: int,
+                 conv_layer=NormConv2d, dtype=torch.float32, device=None):
         super().__init__()
-        self.down = NormConv2d(in_channels, features, 3, stride=2,
+        self.down = conv_layer(in_channels, features, 3, stride=2,
                                padding=1, dtype=dtype, device=device)
 
     def forward(self, x):
@@ -151,26 +403,29 @@ class Downsample(nn.Module):
 
 
 class Upsample(nn.Module):
-    """2x upsample: subpixel (a 3x3 NormConv2d to 4*features, then
-    depth_to_space) or, with ``subpixel=False``, a 3x3 NormConv2d to
-    ``features`` and a bilinear resize with half-pixel centres, whose edge
-    rows repeat the border (``jax.image.resize(..., "bilinear")`` at 2x), in
-    the activation's dtype."""
+    """2x upsample: subpixel (a 3x3 conv to 4*features, then
+    depth_to_space) or, with ``subpixel=False``, a 3x3 conv to ``features``
+    and a bilinear resize with half-pixel centres, whose edge rows repeat
+    the border (``jax.image.resize(..., "bilinear")`` at 2x), in the
+    activation's dtype.  ``transpose`` computes the subpixel form as one
+    transposed conv (``NormConv2d(d2s_transpose=True)``, the same
+    parameters); the conv is ``conv_layer``'s."""
 
     def __init__(self, in_channels: int, features: int,
                  subpixel: bool = True, transpose: bool = False,
-                 dtype=torch.float32, device=None):
+                 conv_layer=NormConv2d, dtype=torch.float32, device=None):
         super().__init__()
-        if transpose:
-            raise NotImplementedError(
-                "Upsample transpose=True is not ported yet")
         self.subpixel = subpixel
-        self.up = NormConv2d(in_channels,
+        self.transpose = transpose and subpixel
+        kw = dict(d2s_transpose=True) if self.transpose else {}
+        self.up = conv_layer(in_channels,
                              (4 if subpixel else 1) * features, 3, padding=1,
-                             dtype=dtype, device=device)
+                             dtype=dtype, device=device, **kw)
 
     def forward(self, x):
         y = self.up(x)
+        if self.transpose:
+            return y
         if self.subpixel:
             return depth_to_space(y, 2)
         y = F.interpolate(y.permute(0, 3, 1, 2), scale_factor=2,
@@ -191,7 +446,7 @@ def check_dropout_impl(impl: str) -> None:
     if impl == "pallas_sharded":
         raise NotImplementedError(
             "dropout_impl 'pallas_sharded' is not ported yet (multi-device, "
-            "ROADMAP A14)")
+            "ROADMAP A14b)")
     if impl not in DROPOUT_IMPLS:
         raise ValueError(f"unknown dropout_impl {impl!r}; expected one of "
                          f"{DROPOUT_IMPLS}")
@@ -249,10 +504,19 @@ class VunetRNB(nn.Module):
     (``ops/cuda/elu_dropout.py``) at each branch.  The masks come from the
     ``generator`` passed to :meth:`forward`.
 
+    The convs are ``conv_layer``'s (a :data:`CONV_LAYERS` class or a
+    partial of one, JAX ``:565-672``).  A NormConv2d takes the aux branch
+    as its split-kernel second input; any other conv layer takes the two
+    branches concatenated.
+
     ``rnb_impl="fused"`` runs a block without auxiliary input (activate,
     3x3 conv, not training) as one fused RNB kernel
-    (``ops/cuda/fused_rnb.py``); every other block, and every block under
-    the default ``"cudnn"``, runs the cuDNN conv and eager elementwise ops.
+    (``ops/cuda/fused_rnb.py``), unless its conv runs int8 at the input's
+    height (``NormConv2d.quant_active``, a rule on the settings and the
+    static shape): that block keeps the int8 conv.  The kernel reads a
+    NormConv2d's weights, so ``"fused"`` with another conv layer raises a
+    ValueError.  Every other block, and every block under the default
+    ``"cudnn"``, runs the conv and eager elementwise ops.
 
     With ``remat`` set (an attribute, not a parameter: the state dict is
     the same either way) a training forward under autograd stores only the
@@ -264,7 +528,7 @@ class VunetRNB(nn.Module):
                  aux_channels: Optional[int] = None, kernel_size: int = 3,
                  activate: bool = True, dropout_prob: float = 0.0,
                  dropout_impl: str = "flax", rnb_impl: str = "cudnn",
-                 dtype=torch.float32, device=None):
+                 conv_layer=NormConv2d, dtype=torch.float32, device=None):
         super().__init__()
         check_dropout_impl(dropout_impl)
         if rnb_impl not in RNB_IMPLS:
@@ -272,16 +536,19 @@ class VunetRNB(nn.Module):
                              f"of {RNB_IMPLS}")
         self.residual, self.activate = residual, activate
         self.dropout_prob, self.dropout_impl = dropout_prob, dropout_impl
+        if residual:
+            self.nin = conv_layer(aux_channels or channels, channels, 1,
+                                  dtype=dtype, device=device)
+        self.conv = conv_layer((2 if residual else 1) * channels, channels,
+                               kernel_size, padding=kernel_size // 2,
+                               dtype=dtype, device=device)
+        if rnb_impl == "fused" and not isinstance(self.conv, NormConv2d):
+            raise ValueError("rnb_impl 'fused' needs the l1 conv layer "
+                             "(NormConv2d), whose weights its kernel reads")
         # the blocks the fused kernel computes: no auxiliary input, which
         # only a residual block takes
         self.fused = (rnb_impl == "fused" and activate and kernel_size == 3
                       and not residual)
-        if residual:
-            self.nin = NormConv2d(aux_channels or channels, channels, 1,
-                                  dtype=dtype, device=device)
-        self.conv = NormConv2d((2 if residual else 1) * channels, channels,
-                               kernel_size, padding=kernel_size // 2,
-                               dtype=dtype, device=device)
         self.remat = False
 
     def _act(self, v):
@@ -298,7 +565,8 @@ class VunetRNB(nn.Module):
     def forward(self, x: torch.Tensor, a: Optional[torch.Tensor] = None,
                 train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if self.fused and a is None and not train:
+        if (self.fused and a is None and not train
+                and not self.conv.quant_active(x)):
             return fused_rnb(x.to(self.conv.dtype), self)
         if self.remat and train and torch.is_grad_enabled():
             return checkpoint_with_generators(self._forward, (generator,),
@@ -311,7 +579,9 @@ class VunetRNB(nn.Module):
             if not self.residual:
                 raise ValueError("auxiliary input to a non-residual VunetRNB")
             a = self.nin(self._act(a))
-            return x + self.conv(act(x), aux=act(a))
+            if isinstance(self.conv, NormConv2d):
+                return x + self.conv(act(x), aux=act(a))
+            return x + self.conv(torch.cat([act(x), act(a)], dim=-1))
         return x + self.conv(act(x))
 
 

@@ -7,10 +7,17 @@ VUNet (either variant), which encodes the appearance once per video (its
 posterior means; the org variant has no logstds) and then runs the shape
 encoder and generator per frame in chunks of at most ``vunet_chunk``
 frames.  PyTorch runs it eagerly; ``lax.map`` over chunks becomes a loop.
+
+An ``int8_static`` VUNet serves calibrated activation scales:
+:meth:`BehaviorTransferPipeline.calibrate` runs the request's own front
+stages and one calibration pass of ``transfer_cached`` over all its frames
+(in chunks only where one call would not fit the device's memory,
+:func:`calibration_fits`), and returns the scales, which ``generate`` and
+``reenact`` take.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -18,6 +25,40 @@ import torch
 from .geometry.camera import apply_affine_transform, camera_projection
 from .geometry.stickman import JointModel, render_stickman
 from .models.behavior import decoder_rollout_kernel
+from .models.vunet import calibrate_quant
+from .ops.nn import load_quant_scales
+
+# At its peak a calibration pass over n frames holds up to this many times
+# the bytes of the shape encoder's block outputs for those n frames (the
+# skips that du hands dd).  chip_smoke.py phase [24] measures the ratio on
+# an H100 at 256 px, VUNet nf 32->128 in bf16, for each int8_static
+# request it serves (PERF.md section 6), and fails if a one-call pass
+# exceeds this bound.
+CALIBRATION_PEAK_PER_SKIP = 4.5
+
+
+def calibration_skip_bytes(vunet, stick: torch.Tensor) -> int:
+    """Bytes of the shape encoder's block outputs for the frames of
+    ``stick`` (n, S, S, C): two blocks per scale, each scale half the
+    size of the one before."""
+    n, S = stick.shape[0], stick.shape[1]
+    elem = torch.empty((), dtype=vunet.dtype).element_size()
+    return n * elem * sum(c * (-(-S // 2 ** (j // 2))) ** 2
+                          for j, c in enumerate(vunet.du.out_channels))
+
+
+def calibration_fits(vunet, stick: torch.Tensor) -> bool:
+    """Whether one calibration call over all of ``stick``'s frames fits
+    the memory the device has free (its allocator's cached blocks
+    included), by :data:`CALIBRATION_PEAK_PER_SKIP`.  Off CUDA always, as
+    the JAX package calibrates in one call."""
+    if stick.device.type != "cuda":
+        return True
+    free, _ = torch.cuda.mem_get_info(stick.device)
+    free += (torch.cuda.memory_reserved(stick.device)
+             - torch.cuda.memory_allocated(stick.device))
+    return (CALIBRATION_PEAK_PER_SKIP * calibration_skip_bytes(vunet, stick)
+            <= free)
 
 
 class BehaviorTransferPipeline:
@@ -116,10 +157,47 @@ class BehaviorTransferPipeline:
         return world, px, stick, means_tiled
 
     @torch.inference_mode()
+    def calibrate(self, z, x_start, app_img, extrinsics, intrinsics,
+                  image_size, length: int = 50, use_flow: bool = True,
+                  eps: Optional[Sequence[torch.Tensor]] = None,
+                  generator: Optional[torch.Generator] = None,
+                  scales: Optional[Dict[str, torch.Tensor]] = None
+                  ) -> Dict[str, torch.Tensor]:
+        """One calibration pass for an ``int8_static`` VUNet (JAX
+        ``pipeline.py:124-138``): the request's real front stages, then
+        ``models.vunet.calibrate_quant`` on its frames' stickmen and
+        latents, starting from ``scales`` (none: afresh).  Returns the
+        scales, which the VUNet also keeps; pass them to :meth:`generate`.
+
+        The JAX pass is one call over all B*T frames; so is this one
+        wherever that fits the device's memory (:func:`calibration_fits`).
+        Otherwise it runs chunks of at most ``vunet_chunk`` frames and no
+        padding; a conv then quantizes each chunk with that chunk's own
+        max, so downstream maxima may differ from the one-call pass
+        (ROADMAP, "Recorded")."""
+        z, x_start, app_img, extrinsics, intrinsics, image_size = (
+            self._tensor(v) for v in (z, x_start, app_img, extrinsics,
+                                      intrinsics, image_size))
+        _, _, stick, means_tiled = self._front_stages(
+            z, x_start, app_img, extrinsics, intrinsics, image_size,
+            length, use_flow, eps, generator)
+        n = z.shape[0] * length
+        flat_stick = stick.reshape((n,) + stick.shape[2:])
+        load_quant_scales(self.vunet, scales or {})
+        cs = (n if calibration_fits(self.vunet, flat_stick)
+              else self._chunk_size(n)[0])
+        for s in range(0, n, cs):
+            out = calibrate_quant(self.vunet,
+                                  [m[s:s + cs] for m in means_tiled],
+                                  flat_stick[s:s + cs])
+        return out
+
+    @torch.inference_mode()
     def generate(self, z, x_start, app_img, extrinsics, intrinsics,
                  image_size, length: int = 50, use_flow: bool = True,
                  eps: Optional[Sequence[torch.Tensor]] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 quant_scales: Optional[Dict[str, torch.Tensor]] = None):
         """Generate behavior-transfer videos.
 
         Args:
@@ -131,11 +209,15 @@ class BehaviorTransferPipeline:
           extrinsics: (B, 3, 4); intrinsics: (B, 4); image_size: (B, 2).
           eps / generator: the appearance encoder's posterior noise, one
              tensor per latent scale, or the generator to draw it from.
+          quant_scales: an ``int8_static`` VUNet's scales from
+             :meth:`calibrate` (default: those the VUNet holds).
 
         Returns:
           dict with "frames" (B, T, S, S, 3), "stickman" (bf16 in [-1, 1]),
           "poses_3d" (B, T, K, 3) and "keypoints_2d" (B, T, K, 2).
         """
+        if quant_scales is not None:
+            load_quant_scales(self.vunet, quant_scales)
         z, x_start, app_img, extrinsics, intrinsics, image_size = (
             self._tensor(v) for v in (z, x_start, app_img, extrinsics,
                                       intrinsics, image_size))
@@ -164,11 +246,13 @@ class BehaviorTransferPipeline:
     def reenact(self, x_source, x_start, app_img, extrinsics, intrinsics,
                 image_size, length: int = 50,
                 eps: Optional[Sequence[torch.Tensor]] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                quant_scales: Optional[Dict[str, torch.Tensor]] = None):
         """Transfer the behavior of x_source (B, T, K) onto x_start's
         posture (posterior mean path, no flow)."""
         _, mu, _, _ = self.behavior_model.infer_b(
             self._tensor(x_source), sample=False, generator=generator)
         return self.generate(mu, x_start, app_img, extrinsics, intrinsics,
                              image_size, length=length, use_flow=False,
-                             eps=eps, generator=generator)
+                             eps=eps, generator=generator,
+                             quant_scales=quant_scales)

@@ -199,7 +199,30 @@ CUDA toolkit (nvcc) and PyTorch.  It imports no JAX.  Phases:
     pipeline call, and the first call's rollout must agree with its plain
     version on the kernel's bf16 operands (phase [3]'s tolerance; the gap
     to the decoder's f32 loop is reported).  Printed: each hook's wall
-    time, split into its device work and the host's drawing and encoding.
+    time, split into its device work and the host's drawing and encoding;
+24. quantized, transposed and l2/ln serving at full width: (a) the int8
+    conv kernel (``csrc/conv_int8.cu``) against its plain version at the
+    sites of a 125-frame chunk (128 px x 64 -> 64, 128 and stride 2;
+    64 px x 128 -> 128 and 256; 256 px x 32 -> 32 and stride 2): the int32
+    sums equal and the bf16 outputs within one ulp, each site timed beside
+    its bound, the plain version, ``F.unfold`` + ``torch._int_mm`` (with
+    its peak memory) and the cuDNN bf16 conv; (b) B=20, T=50 requests
+    behind phase [4]'s behavior net and flow through VUNets with the
+    weights of a bf16 reference VUNet: the ``tpu-serving`` preset
+    (int8_static, quant_max_hw 128), int8_static, dynamic int8 (each
+    within a relative L2 of 5e-2 of the reference's frames, launching the
+    kernel once for every int8 convolution its VUNet's hooks count), the
+    transposed upsample (within 1e-2 of the subpixel VUNet's frames of
+    the same stickmen and appearance: two requests differ upstream, the
+    rollout kernel's atomics moving stickman pixels), and an org
+    request at phase [9]'s shape under int8_static; each with its wall
+    time, frames/s, ``transfer_cached`` stage and peak memory, the static
+    ones calibrating on the request first; the scales of 125-frame chunks
+    against one calibration call; (c) ``bdvs-generate-torch --preset
+    tpu-serving`` and ``--upsample transpose`` in-process on a synth.npz
+    of (b)'s VUNet; (d) an ``l2`` and an ``ln`` VUNet, each serving one
+    (b) request and training two cvbae steps at phase [7]'s configuration
+    (finite losses, step times).
 
 The last two lines are a JSON object of kernel results and
 ``{"ok": true, "device": {...}}``; any failure exits non-zero before them.
@@ -228,6 +251,7 @@ import yaml
 # the script's directory, the checkout's root, is first on sys.path
 from behavior_driven_video_synthesis_tpu_torch import generate as cli
 from behavior_driven_video_synthesis_tpu_torch import main as train_cli
+from behavior_driven_video_synthesis_tpu_torch import pipeline as pipeline_mod
 from behavior_driven_video_synthesis_tpu_torch.core.config import (
     deep_merge, load_config)
 from behavior_driven_video_synthesis_tpu_torch.core.precision import (
@@ -259,6 +283,7 @@ from behavior_driven_video_synthesis_tpu_torch.models.probes import (
 from behavior_driven_video_synthesis_tpu_torch.models.vunet import (
     VUNet, VunetRegressor, latent_widths, vunet_from_config)
 from behavior_driven_video_synthesis_tpu_torch.ops import nn as ops_nn
+from behavior_driven_video_synthesis_tpu_torch.ops.cuda import conv_int8
 from behavior_driven_video_synthesis_tpu_torch.ops.cuda import elu_dropout
 from behavior_driven_video_synthesis_tpu_torch.ops.cuda import fused_rnb
 from behavior_driven_video_synthesis_tpu_torch.ops.cuda import rollout
@@ -381,7 +406,7 @@ def phase_card():
 
 
 # -- 2. the build -------------------------------------------------------------
-KERNEL_SOURCES = ("rollout", "elu_dropout", "fused_rnb")
+KERNEL_SOURCES = ("rollout", "elu_dropout", "fused_rnb", "conv_int8")
 
 
 def phase_build():
@@ -828,9 +853,26 @@ def serving_vunet(variant, **kw):
                  device="meta", **kw)
 
 
-def with_rnb_impl(vunet, variant, rnb_impl):
-    """A copy of a serving VUNet, its weights included, under rnb_impl."""
-    other = serving_vunet(variant, rnb_impl=rnb_impl).to_empty(device=DEV)
+def vunet_frames(pipe, vunet, app_img, stick):
+    """The frames ``vunet`` makes of ``stick`` (B*T stickmen) with the
+    posterior means of ``app_img`` (drawn as ``serve`` draws them), in the
+    pipeline's chunks."""
+    n = stick.shape[0]
+    length = n // app_img.shape[0]
+    g = torch.Generator(device=DEV).manual_seed(1)
+    with torch.inference_mode():
+        means, _ = vunet.encode_means(app_img, generator=g)
+        tiled = [torch.repeat_interleave(m, length, 0) for m in means]
+        cs, _ = pipe._chunk_size(n)
+        return torch.cat([vunet.transfer_cached(
+            [m[s:s + cs] for m in tiled], stick[s:s + cs])
+            for s in range(0, n, cs)])
+
+
+def served_copy(vunet, variant, **kw):
+    """A copy of a serving VUNet, its weights included, built with the
+    options ``kw`` (rnb_impl, quant, upsample_transpose, ...)."""
+    other = serving_vunet(variant, **kw).to_empty(device=DEV)
     other.load_state_dict(vunet.state_dict())
     return other.eval()
 
@@ -957,7 +999,7 @@ def alter_fused_request(pipe, x):
     B, T = SLICE["B"], SLICE["T"]
     cudnn_vunet = pipe.vunet
     ref, _, _ = serve(pipe, x)
-    pipe.vunet = with_rnb_impl(cudnn_vunet, "alter", "fused")
+    pipe.vunet = served_copy(cudnn_vunet, "alter", rnb_impl="fused")
     try:
         fused_rnb.fused_rnb_launches = 0    # counts start here: the alter
         out, ms, peak = serve(pipe, x)      # fused route
@@ -1492,7 +1534,7 @@ def phase_org():
         f"{app}): parameters {counts}")
     x = request_inputs(B, g, app)
     vunets = {"cudnn": pipe.vunet,
-              "fused": with_rnb_impl(pipe.vunet, "org", "fused")}
+              "fused": served_copy(pipe.vunet, "org", rnb_impl="fused")}
     frames, launches, rows = {}, None, []
     for impl, vunet in vunets.items():
         pipe.vunet = vunet
@@ -3859,6 +3901,489 @@ def phase_figures(gan_base):
     return launches
 
 
+# -- 24. quantized, transposed and l2/ln serving at full width ----------------
+# the int8 conv's sites at a 125-frame chunk of an alter request (B=20,
+# T=50: 8 chunks): (frames, H, W, Cin, Cout, stride); the 256 px ones run
+# int8 only without quant_max_hw
+INT8_SITES = [(125, 128, 128, 64, 64, 1), (125, 128, 128, 64, 128, 1),
+              (125, 128, 128, 64, 128, 2), (125, 64, 64, 128, 128, 1),
+              (125, 64, 64, 128, 256, 1), (125, 256, 256, 32, 32, 1),
+              (125, 256, 256, 32, 64, 2)]
+# the site whose numbers stand in the kernels line: the most frequent
+# int8 conv of the tpu-serving preset (du's and dd's 128 px blocks)
+INT8_HEADLINE = INT8_SITES[0]
+# NVIDIA's H100 SXM data sheet: dense int8 tensor-core peak, at 700 W
+INT8_TENSOR_OPS = 1979e12
+QUANT_REL_L2 = 5e-2           # a quantized request's frames vs bf16
+TRANSPOSE_REL_L2 = 1e-2       # the transposed upsample vs subpixel
+
+
+def int8_bound_ms(B, H, W, Cin, Cout, stride):
+    """(bound ms, what bounds it) of one int8 conv: x read in bf16, the
+    bf16 output written, W_q and aw read once; 2 M N K operations at the
+    int8 tensor-core peak."""
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    M, K = B * Ho * Wo, 9 * Cin
+    nbytes = 2 * B * H * W * Cin + 2 * M * Cout + Cout * K + 8 * Cout
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * M * Cout * K / INT8_TENSOR_OPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def int_mm_conv(x, w_q, ax, stride):
+    """The library route to the same int32 sums: quantize, F.unfold (in
+    bf16, which holds int8 values exactly; unfold takes no int8), the
+    patches to int8, then one cuBLASLt int8 GEMM (torch._int_mm)."""
+    B, H, W, Cin = x.shape
+    N = w_q.shape[0]
+    xq = conv_int8.quantize_act(x, ax).permute(0, 3, 1, 2)
+    cols = F.unfold(xq, 3, padding=1, stride=stride)       # (B, 9C, L)
+    a = cols.transpose(1, 2).reshape(-1, 9 * Cin).to(torch.int8)
+    acc = torch._int_mm(a, w_q.reshape(N, 9 * Cin).t())
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    return acc.reshape(B, Ho, Wo, N)
+
+
+def bf16_ulp_ok(out, ref):
+    """|out - ref| <= one bf16 ulp at ref, 2^(floor(log2|ref|) - 7)."""
+    ref = ref.float()
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30)))
+                     - 7)
+    return bool(((out.float() - ref).abs() <= ulp).all())
+
+
+def int8_site(site, seed):
+    """The kernel against its plain version at one site, each timed, with
+    the _int_mm route and the cuDNN bf16 conv of the same shape."""
+    B, H, W, Cin, Cout, stride = site
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    x = (torch.randn(B, H, W, Cin, generator=g, device=DEV) * 2).to(
+        torch.bfloat16)
+    w = torch.randn(Cout, Cin, 3, 3, generator=g, device=DEV)
+    bias = torch.randn(Cout, generator=g, device=DEV)
+    w_q, aw = conv_int8.quantize_weight(w)
+    ax = conv_int8.act_scale(x)
+    packed = conv_int8.pack_weights(w_q, aw)
+    acc = conv_int8.conv_int8_packed(x, packed, ax, stride=stride,
+                                     accumulators=True)
+    out = conv_int8.conv_int8_packed(x, packed, ax, bias, stride)
+    torch.cuda.synchronize()
+    ref_acc = conv_int8.conv_int8_plain(x, w_q, aw, ax, stride=stride,
+                                        accumulators=True)
+    same_acc = torch.equal(acc, ref_acc)
+    del ref_acc
+    ref = conv_int8.conv_int8_plain(x, w_q, aw, ax, bias, stride)
+    err = float((out.float() - ref.float()).abs().max())
+    ulp_ok = bf16_ulp_ok(out, ref)
+    check(same_acc, f"int8 conv at {site}: the int32 sums differ from the "
+          "plain version's")
+    check(ulp_ok, f"int8 conv at {site}: outputs beyond 1 bf16 ulp of the "
+          f"plain version (max abs {err:.3e})")
+    del ref, acc
+    iters = 20
+    ms = cuda_ms(lambda: conv_int8.conv_int8_packed(x, packed, ax, bias,
+                                                    stride), iters)
+    plain_ms = cuda_ms(lambda: conv_int8.conv_int8_plain(
+        x, w_q, aw, ax, bias, stride), 3)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lib_acc = int_mm_conv(x, w_q, ax, stride)
+    torch.cuda.synchronize()
+    lib_peak = torch.cuda.max_memory_allocated() - base
+    lib_same = torch.equal(
+        lib_acc, conv_int8.conv_int8_packed(x, packed, ax, stride=stride,
+                                            accumulators=True))
+    del lib_acc
+    lib_ms = cuda_ms(lambda: int_mm_conv(x, w_q, ax, stride), 3)
+    xc = x.permute(0, 3, 1, 2)                    # channels-last NCHW view
+    wb = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    cudnn_ms = cuda_ms(lambda: F.conv2d(xc, wb, None, stride, 1), iters)
+    bound, bound_by = int8_bound_ms(*site)
+    return dict(site=list(site), ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, library_peak_mib=lib_peak / 2**20,
+                library_equal=lib_same, cudnn_bf16_ms=cudnn_ms,
+                bound_ms=bound, bound_by=bound_by, max_abs_err=err)
+
+
+def int8_launch_counter(vunet):
+    """Forward hooks that count, independently of the kernel's wrapper,
+    the int8 convolutions the VUNet's NormConv2d run (x's, and aux's where
+    a conv has one) and the input heights they run at; returns (counts,
+    remove)."""
+    counts = {"parts": 0, "heights": set()}
+
+    def hook(mod, args, kwargs, out):
+        x = args[0]
+        aux = args[1] if len(args) > 1 else kwargs.get("aux")
+        if mod.quant_active(x):
+            counts["parts"] += 1 + (aux is not None)
+            counts["heights"].add(int(x.shape[1]))
+    hooks = [m.register_forward_hook(hook, with_kwargs=True)
+             for m in vunet.modules()
+             if isinstance(m, ops_nn.NormConv2d) and m.quant != "none"]
+    return counts, lambda: [h.remove() for h in hooks]
+
+
+def calibrate_request(pipe, x, what):
+    """One timed calibration of the request: (ms, its own peak device
+    bytes, that peak above the bytes held before it as a multiple of the
+    frames' du skips, whether it ran as one call).  A one-call pass must
+    stay within the pipeline's estimate, CALIBRATION_PEAK_PER_SKIP."""
+    T, S = SLICE["T"], SLICE["S"]
+    n = x["z"].shape[0] * T
+    decided = []
+    fits = pipeline_mod.calibration_fits
+    pipeline_mod.calibration_fits = (
+        lambda v, s: decided.append(fits(v, s)) or decided[-1])
+    g = torch.Generator(device=DEV).manual_seed(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    try:
+        t0 = time.perf_counter()
+        scales = pipe.calibrate(
+            x["z"], x["x_start"], x["app_img"], x["extrinsics"],
+            x["intrinsics"], x["image_size"], length=T, generator=g)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        pipeline_mod.calibration_fits = fits
+    peak = torch.cuda.max_memory_allocated()
+    check(len(scales) > 0, f"{what}: no scale calibrated")
+    skips = pipeline_mod.calibration_skip_bytes(
+        pipe.vunet, torch.empty((n, S, S, 3), device="meta"))
+    per_skip = (peak - base) / skips
+    one_call = decided == [True]
+    if one_call:
+        check(per_skip <= pipeline_mod.CALIBRATION_PEAK_PER_SKIP,
+              f"{what}: one calibration call held {per_skip:.3f}x its "
+              f"frames' du skips, above the pipeline's estimate "
+              f"{pipeline_mod.CALIBRATION_PEAK_PER_SKIP}")
+    return ms, peak, per_skip, one_call
+
+
+def quantized_request(pipe, x, what, ref_frames, static, tol):
+    """A warm-up and a timed request (calibrate, then generate, for an
+    int8_static VUNet), each holding its kernel launches to the hooks'
+    count; the timed one's frames against ref_frames (rel-L2 <= tol) and
+    its stage breakdown."""
+    rows = []
+    for note in ("warm-up", "timed"):
+        counts, remove = int8_launch_counter(pipe.vunet)
+        before = conv_int8.conv_int8_launches
+        cal_ms, cal_peak, per_skip, one_call = 0.0, 0, 0.0, None
+        try:
+            if static:
+                cal_ms, cal_peak, per_skip, one_call = calibrate_request(
+                    pipe, x, what)
+            out, ms, peak = serve(pipe, x)
+        finally:
+            remove()
+        launches = conv_int8.conv_int8_launches - before
+        frames = out["frames"]
+        check(frames.shape == ref_frames.shape
+              and bool(torch.isfinite(frames.float()).all()),
+              f"{what}: frames")
+        check(launches == counts["parts"],
+              f"{what}: {launches} int8 conv launches, the VUNet ran "
+              f"{counts['parts']} int8 convolutions")
+        rel = rel_l2(frames, ref_frames)
+        check(rel <= tol, f"{what}: rel-L2 {rel:.3e} to the reference "
+              f"request > {tol}")
+        B, T = SLICE["B"], SLICE["T"]
+        req_ms = cal_ms + ms
+        log(f"    {what:34s} {note:7s}: request {req_ms:9.2f} ms "
+            f"(calibrate {cal_ms:.2f} + generate {ms:.2f}), "
+            f"{B * T * 1e3 / req_ms:8.1f} frames/s, peak "
+            f"{peak / 2**30:.2f} GiB generating"
+            + (f", {cal_peak / 2**30:.2f} GiB calibrating "
+               f"({'one call' if one_call else 'chunks'}, {per_skip:.3f}x "
+               f"the frames' du skips above what it started with)"
+               if static else "")
+            + f", {launches} int8 launches at input heights "
+            f"{sorted(counts['heights'])}; rel-L2 {rel:.3e}")
+        rows.append(dict(what=what, note=note, request_ms=req_ms,
+                         calibrate_ms=cal_ms, generate_ms=ms,
+                         calibrate_peak_gib=cal_peak / 2**30,
+                         calibrate_peak_per_skip=per_skip,
+                         calibrate_one_call=one_call,
+                         fps=B * T * 1e3 / req_ms, peak_gib=peak / 2**30,
+                         launches=launches,
+                         heights=sorted(counts["heights"]), rel_l2=rel))
+    return rows, counts
+
+
+def chunked_calibration_gap(pipe, x):
+    """The scales of one calibration call over all B*T frames against
+    those of 125-frame chunks on the same stickmen and latents, and
+    against one call on another serving of the same request (the rollout
+    kernel's atomics move stickman pixels): the largest relative
+    difference of a scale, each."""
+    args = (x["z"], x["x_start"], x["app_img"], x["extrinsics"],
+            x["intrinsics"], x["image_size"])
+
+    def calibrate():
+        g = torch.Generator(device=DEV).manual_seed(1)
+        return pipe.calibrate(*args, length=SLICE["T"], generator=g)
+
+    def gap(a, b):
+        check(a.keys() == b.keys(), "chunked calibration: scales")
+        return max(abs(float(a[k]) - float(b[k])) / float(a[k]) for k in a)
+
+    front, fronts = pipe._front_stages, []
+
+    def first_front(*a):
+        if not fronts:
+            fronts.append(front(*a))
+        return fronts[0]
+
+    pipe._front_stages = first_front
+    fits = pipeline_mod.calibration_fits
+    try:
+        one = calibrate()
+        pipeline_mod.calibration_fits = lambda *_: False
+        chunked = calibrate()
+    finally:
+        pipeline_mod.calibration_fits = fits
+        del pipe._front_stages
+    return gap(one, chunked), gap(one, calibrate())
+
+
+def quant_ablation_line():
+    with open(os.path.join(ROOT, "QUANT_ABLATION.json")) as f:
+        q = json.load(f)
+    return ", ".join(f"{k} {v['rel_l2_vs_f32']}"
+                     for k, v in q["paths"].items())
+
+
+def phase_quant_serving():
+    """Phase [24] (a)-(c); returns (conv_int8 kernel entry, int8 launches
+    of the requests and the CLI, rollout launches)."""
+    log(f"[24] on {RESULTS.get('card', 'the card')}: the int8 conv kernel "
+        f"vs its plain version (int32 sums equal, outputs within 1 bf16 "
+        f"ulp), timed beside the plain version, F.unfold + torch._int_mm "
+        f"(library) and the cuDNN bf16 conv")
+    sites = []
+    for i, site in enumerate(INT8_SITES):
+        r = int8_site(site, i)
+        log(f"    {site}: kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f}"
+            f" ms ({r['bound_by']}), plain {r['plain_ms']:.3f} ms, _int_mm "
+            f"{r['library_ms']:.3f} ms (peak {r['library_peak_mib']:.0f} "
+            f"MiB, sums equal: {r['library_equal']}), cuDNN bf16 "
+            f"{r['cudnn_bf16_ms']:.4f} ms; max|kernel-plain| "
+            f"{r['max_abs_err']:.3e}")
+        sites.append(r)
+        torch.cuda.empty_cache()
+    RESULTS["int8_sites"] = sites
+    head = sites[INT8_SITES.index(INT8_HEADLINE)]
+
+    # (b) requests at phase [4]'s alter shape
+    pipe, g, _ = full_width_slice()
+    B, T, S = SLICE["B"], SLICE["T"], SLICE["S"]
+    x = request_inputs(B, g)
+    base_vunet = pipe.vunet
+    first, _, _ = serve(pipe, x)
+    ref, ref_ms, ref_peak = serve(pipe, x)
+    # the same request twice: the rollout kernel's atomics make the
+    # stickmen, and so the frames, differ from one request to the next
+    noise = rel_l2(first["frames"], ref["frames"])
+    del first
+    log(f"    bf16 reference request B={B} T={T}: {ref_ms:.2f} ms, "
+        f"{B * T * 1e3 / ref_ms:.1f} frames/s, peak {ref_peak / 2**30:.2f} "
+        f"GiB; rel-L2 to the same request served before it {noise:.3e}; "
+        f"QUANT_ABLATION.json (TPU, a trained checkpoint, rel-L2 vs f32, "
+        f"not this card's): {quant_ablation_line()}")
+    RESULTS["quant_reference"] = dict(ms=ref_ms, peak_gib=ref_peak / 2**30,
+                                      rel_l2_repeat=noise)
+    rollout.rollout_launches = 0     # counts start here: [24]'s requests
+    conv_int8.conv_int8_launches = 0
+    modes = [("--preset tpu-serving", dict(quant="int8_static",
+                                           quant_max_hw=128), True),
+             ("--quant int8_static", dict(quant="int8_static"), True),
+             ("quant int8 (dynamic)", dict(quant="int8"), False)]
+    rows, stages = [], {}
+    for what, kw, static in modes:
+        pipe.vunet = served_copy(base_vunet, "alter", **kw)
+        r, counts = quantized_request(pipe, x, what, ref["frames"], static,
+                                      QUANT_REL_L2)
+        rows += r
+        if kw.get("quant_max_hw"):
+            check(max(counts["heights"]) <= 128,
+                  f"{what}: int8 at input heights {counts['heights']}")
+        else:
+            check(S in counts["heights"],
+                  f"{what}: no int8 conv at {S} px")
+        stage_breakdown(pipe, x, g, "stages")
+        stages[what] = RESULTS.pop("stages")
+        if what == "--preset tpu-serving":
+            gap, noise = chunked_calibration_gap(pipe, x)
+            log(f"    calibration in 125-frame chunks vs one call over "
+                f"{B * T} frames, on the same stickmen: largest relative "
+                f"difference of a scale {gap:.3e} (one call vs one call on "
+                f"another serving of the request: {noise:.3e})")
+            RESULTS["chunked_calibration_gap"] = gap
+            RESULTS["calibration_request_gap"] = noise
+    pipe.vunet = served_copy(base_vunet, "alter", upsample_transpose=True)
+    for note in ("warm-up", "timed"):
+        out, ms, peak = serve(pipe, x)
+    check(out["frames"].shape == ref["frames"].shape
+          and bool(torch.isfinite(out["frames"].float()).all()),
+          "--upsample transpose: frames")
+    # two requests differ upstream of the VUNet too (the rollout kernel's
+    # atomics move stickman pixels), so the two upsample forms are held on
+    # this request's own stickmen and appearance
+    stick = out["stickman"].reshape((B * T, S, S, 3))
+    rel = rel_l2(vunet_frames(pipe, pipe.vunet, x["app_img"], stick),
+                 vunet_frames(pipe, base_vunet, x["app_img"], stick))
+    rel_requests = rel_l2(out["frames"], ref["frames"])
+    check(rel <= TRANSPOSE_REL_L2,
+          f"--upsample transpose: rel-L2 {rel:.3e} to subpixel on the same "
+          f"stickmen")
+    log(f"    {'--upsample transpose':34s} timed  : request {ms:9.2f} ms, "
+        f"{B * T * 1e3 / ms:8.1f} frames/s, peak {peak / 2**30:.2f} GiB; "
+        f"rel-L2 to the subpixel VUNet on its stickmen {rel:.3e} (to the "
+        f"subpixel request {rel_requests:.3e}, reported)")
+    rows.append(dict(what="--upsample transpose", note="timed",
+                     request_ms=ms, fps=B * T * 1e3 / ms,
+                     peak_gib=peak / 2**30, rel_l2=rel,
+                     rel_l2_requests=rel_requests))
+    stage_breakdown(pipe, x, g, "stages")
+    stages["--upsample transpose"] = RESULTS.pop("stages")
+
+    # the org request at phase [9]'s shape under int8_static
+    org, g_org, _ = full_width_slice("org")
+    xo = request_inputs(B, g_org, (S // 4, S // 4, 30))
+    org_ref, _, _ = serve(org, xo)
+    org_base = org.vunet
+    org.vunet = served_copy(org_base, "org", quant="int8_static")
+    r, _ = quantized_request(org, xo, "org --quant int8_static",
+                             org_ref["frames"], True, QUANT_REL_L2)
+    rows += r
+    stage_breakdown(org, xo, g_org, "stages")
+    stages["org --quant int8_static"] = RESULTS.pop("stages")
+    for what, st in stages.items():
+        log(f"    transfer_cached stage, {what}: "
+            f"{st['vunet_transfer_cached']:.2f} ms")
+    RESULTS["quant_requests"] = rows
+    RESULTS["quant_stages_ms"] = stages
+    del org, org_ref, xo
+    torch.cuda.empty_cache()
+
+    # (c) the CLI on the slice's VUNet, written as a synth.npz
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_quant_cli_")
+    try:
+        rng = np.random.RandomState(0)
+        K, HID = SLICE["K_USE"], 64
+        net = init_random_(ResidualBehaviorNet(K, HID), rng)
+        flow = init_random_(LatentFlow(HID, 2 * HID, n_flows=3), rng)
+        convert.save_flax_npz(os.path.join(tmp, "behavior.npz"), {
+            "net": convert.behavior_net_to_flax(net.state_dict()),
+            "flow": convert.latent_flow_to_flax(flow.state_dict())})
+        with open(os.path.join(tmp, "behavior.json"), "w") as f:
+            json.dump({"architecture": {"dim_hidden_b": HID,
+                                        "n_flows": 3}}, f)
+        convert.save_flax_npz(os.path.join(tmp, "synth.npz"), {
+            "vunet": convert.vunet_alter_to_flax(base_vunet.state_dict())})
+        with open(os.path.join(tmp, "synth.json"), "w") as f:
+            json.dump({"data": {"spatial_size": S}, "architecture": {
+                "nf_start": SLICE["NF_START"],
+                "nf_max": SLICE["NF_MAX"]}}, f)
+        for flags, want in ((["--preset", "tpu-serving"],
+                             ("int8_static", 128, "subpixel")),
+                            (["--upsample", "transpose"],
+                             ("none", 0, "transpose"))):
+            before = conv_int8.conv_int8_launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            man = cli.main(["--behavior_params",
+                            os.path.join(tmp, "behavior.npz"),
+                            "--synth_params", os.path.join(tmp, "synth.npz"),
+                            "--batch", "4", "--length", "50", "--device",
+                            "cuda", "--out", os.path.join(tmp, flags[1]),
+                            *flags])
+            wall = time.perf_counter() - t0
+            n = conv_int8.conv_int8_launches - before
+            got = (man["quant"], man["quant_max_hw"], man["upsample"])
+            check(got == want and len(man["videos"]) == 4 and all(
+                os.path.getsize(p) > 0 for p in man["videos"].values()),
+                f"CLI {' '.join(flags)}: manifest {got}, videos "
+                f"{man['videos']}")
+            check((n > 0) == (want[0] != "none"),
+                  f"CLI {' '.join(flags)}: {n} int8 conv launches")
+            log(f"    CLI {' '.join(flags)}: manifest quant {got[0]}, "
+                f"quant_max_hw {got[1]}, upsample {got[2]}; 4 videos of 50 "
+                f"frames at {S} px in {wall:.1f} s, {n} int8 launches")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    int8_launches = conv_int8.conv_int8_launches
+    rollout_launches = rollout.rollout_launches
+    entry = {"name": "conv_int8", "route": "cuda",
+             "source": ("behavior_driven_video_synthesis_tpu_torch/csrc/"
+                        "conv_int8.cu"),
+             "replaces": "behavior_driven_video_synthesis_tpu/ops/nn.py:111",
+             "launches": int8_launches,
+             "max_abs_err": max(r["max_abs_err"] for r in sites),
+             "ms": head["ms"], "plain_ms": head["plain_ms"],
+             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+             "library_ms": head["library_ms"]}
+    del pipe
+    torch.cuda.empty_cache()
+    return entry, rollout_launches
+
+
+def phase_conv_types():
+    """Phase [24] (d): an l2 and an ln VUNet, each serving one alter
+    request at phase [4]'s shape and training two cvbae steps at phase
+    [7]'s configuration."""
+    pipe, g, _ = full_width_slice()
+    B, T, S = SLICE["B"], SLICE["T"], SLICE["S"]
+    x = request_inputs(B, g)
+    launches = 0
+    for conv in ("l2", "ln"):
+        pipe.vunet = on_device(serving_vunet("alter", conv_layer_type=conv),
+                               torch.Generator(device=DEV).manual_seed(2))
+        before = rollout.rollout_launches
+        serve(pipe, x)
+        out, ms, peak = serve(pipe, x)
+        launches += rollout.rollout_launches - before
+        check(out["frames"].shape == (B, T, S, S, 3)
+              and bool(torch.isfinite(out["frames"].float()).all()),
+              f"{conv} VUNet request: frames")
+        base = tempfile.mkdtemp(prefix=f"chip_smoke_{conv}_")
+        try:
+            cfg = deep_merge(train_config(base), {
+                "architecture": {"conv_layer_type": conv},
+                "training": {"end_iteration": 2}})
+            path = write_config(base, "config.yaml", cfg)
+            recorder = StepRecorder()
+            made = shape_and_pose_net.make_cvbae_train_step
+            shape_and_pose_net.make_cvbae_train_step = recorder.make
+            try:
+                train_cli.main(["-c", path, "--device", "cuda"])
+            finally:
+                shape_and_pose_net.make_cvbae_train_step = made
+        finally:
+            shutil.rmtree(base, ignore_errors=True)
+        steps = recorder.steps
+        check(len(steps) == 2 and all(
+            np.isfinite(r[k]) for r in steps
+            for k in ("loss", "likelihood_loss", "kl_loss", "grad_norm")),
+            f"{conv} cvbae training: steps {steps}")
+        log(f"    conv_layer_type {conv}: request B={B} T={T} {ms:.2f} ms, "
+            f"{B * T * 1e3 / ms:.1f} frames/s, peak {peak / 2**30:.2f} GiB;"
+            f" 2 cvbae steps at phase [7]'s configuration: losses "
+            + ", ".join(f"{r['loss']:.6g}" for r in steps)
+            + "; step ms " + ", ".join(f"{r['ms']:.2f}" for r in steps))
+        RESULTS[f"conv_type_{conv}"] = dict(
+            request_ms=ms, fps=B * T * 1e3 / ms, peak_gib=peak / 2**30,
+            steps=steps)
+    del pipe
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch "
                                  "port on one NVIDIA GPU")
@@ -3907,6 +4432,10 @@ def main(argv=None):
         launches += phase_figures(gan_base)
     finally:
         shutil.rmtree(gan_base, ignore_errors=True)
+    t0 = time.perf_counter()
+    int8_entry, quant_launches = phase_quant_serving()
+    launches += quant_launches + phase_conv_types()
+    log(f"    phase [24] {time.perf_counter() - t0:.1f} s")
     bound, bound_by = rollout_bound_ms(*ROLLOUT_SHAPES[0])
     source = "behavior_driven_video_synthesis_tpu_torch/csrc/"
     pallas = "behavior_driven_video_synthesis_tpu/ops/pallas/"
@@ -3925,7 +4454,7 @@ def main(argv=None):
             "name": "fused_rnb", "route": "cuda",
             "source": source + "fused_rnb.cu",
             "replaces": "attic/pallas_rnb.py:86",
-            "launches": rnb_launches, **rnb}]}
+            "launches": rnb_launches, **rnb}, int8_entry]}
     RESULTS.update(kernels)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

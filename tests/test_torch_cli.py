@@ -213,14 +213,20 @@ def test_cli_serves_an_org_run_as_the_jax_pipeline_does(
                                   ["--upsample", "transpose"],
                                   ["--preset", "tpu-serving"]])
 def test_cli_unported_options_exit(param_files, tmp_path, flag, capsys):
-    """The quantized and TPU serving options exit 2 naming A14
-    (``--from_dataset``, once in this list, serves:
-    ``test_torch_from_dataset.py``)."""
-    with pytest.raises(SystemExit) as e:
-        _run(param_files, tmp_path, *flag)
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "A14" in err
+    """The quantized and transposed-upsample serving options, which exited
+    2 before they were ported, serve, and the manifest records them
+    (``--preset tpu-serving`` is int8_static with quant_max_hw 128; the
+    expansion's rules: ``test_torch_quant.py``)."""
+    man = _run(param_files, tmp_path, *flag)
+    assert len(man["videos"]) == 2
+    quant = "int8_static" if ("--quant" in flag or "--preset" in flag) \
+        else "none"
+    assert man["quant"] == quant
+    assert man["quant_max_hw"] == (128 if "--preset" in flag else 0)
+    assert man["upsample"] == ("transpose" if "transpose" in flag
+                               else "subpixel")
+    out = capsys.readouterr().out
+    assert ("calibrated activation scales" in out) == (quant != "none")
 
 
 def test_export_script_writes_what_the_port_loads(tmp_path):
@@ -263,6 +269,7 @@ def test_port_imports_no_jax():
         "import behavior_driven_video_synthesis_tpu_torch.ops.cuda.rollout\n"
         "import behavior_driven_video_synthesis_tpu_torch.ops.cuda.elu_dropout\n"
         "import behavior_driven_video_synthesis_tpu_torch.ops.cuda.fused_rnb\n"
+        "import behavior_driven_video_synthesis_tpu_torch.ops.cuda.conv_int8\n"
         "import behavior_driven_video_synthesis_tpu_torch.main\n"
         "import behavior_driven_video_synthesis_tpu_torch.experiments."
         "shape_and_pose_net\n"

@@ -14,7 +14,11 @@ values within one bf16 ulp (bf16) or 1e-6 (f32), for expm1f/expf may
 differ from torch's in the last f32 bit.  Fused RNB: the kernel and its
 plain version round elu(x) and W to bf16 and accumulate in f32; they
 differ in summation order and, rarely, in a bf16 rounding of elu(x) or of
-the output, so atol 1e-2, rtol 1e-2.
+the output, so atol 1e-2, rtol 1e-2.  int8 conv: the kernel and its
+plain version quantize alike and sum integers exactly, so the int32
+accumulators are equal and the outputs within one bf16 ulp (bf16; the
+epilogue's f32 arithmetic is the same, but the cast of a sum on a bf16
+midpoint may break either way) or equal (f32).
 """
 import os
 
@@ -29,6 +33,8 @@ from behavior_driven_video_synthesis_tpu_torch.models import (
 from behavior_driven_video_synthesis_tpu_torch.models.init import init_random_
 from behavior_driven_video_synthesis_tpu_torch.models.vunet import VUNet
 from behavior_driven_video_synthesis_tpu_torch.ops import nn as pnn
+from behavior_driven_video_synthesis_tpu_torch.ops.cuda import (
+    conv_int8 as CI)
 from behavior_driven_video_synthesis_tpu_torch.ops.cuda import (
     elu_dropout as E)
 from behavior_driven_video_synthesis_tpu_torch.ops.cuda import (
@@ -471,3 +477,105 @@ def test_mtvae_steps_on_the_card_hold_the_golden(cuda):
     metrics, after = TM.port_steps(tree, batch, noise, device=cuda)
     worst_m, worst_u = TM.check_against_golden(metrics, tree, after, golden)
     assert worst_m <= 1.0 and worst_u <= 1.0, (worst_m, worst_u)
+
+
+def _int8_case(shape, cout, dtype, device, seed=0, scale=2.0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn(*shape, generator=g, device=device) * scale).to(dtype)
+    w = torch.randn(cout, shape[-1], 3, 3, generator=g, device=device)
+    bias = torch.randn(cout, generator=g, device=device)
+    w_q, aw = CI.quantize_weight(w)
+    return x, w_q, aw, CI.act_scale(x), bias
+
+
+def _bf16_ulp_ok(out, ref):
+    """|out - ref| <= one bf16 ulp at ref, 2^(floor(log2|ref|) - 7)."""
+    ref = ref.float()
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
+    return bool(((out.float() - ref).abs() <= ulp).all())
+
+
+@pytest.mark.parametrize("shape,cout,stride", [
+    ((2, 16, 16, 32), 32, 1), ((3, 9, 13, 64), 64, 1),
+    ((2, 8, 8, 128), 256, 1), ((2, 17, 11, 64), 128, 2),
+    ((1, 6, 6, 12), 20, 1), ((2, 5, 7, 8), 8, 2), ((1, 4, 4, 512), 128, 1)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv_int8_kernel_matches_plain(cuda, shape, cout, stride, dtype):
+    x, w_q, aw, ax, bias = _int8_case(shape, cout, dtype, cuda)
+    packed = CI.pack_weights(w_q, aw)
+    before = CI.conv_int8_launches
+    acc = CI.conv_int8_packed(x, packed, ax, stride=stride,
+                              accumulators=True)
+    out = CI.conv_int8(x, w_q, aw, ax, bias, stride, packed=packed)
+    torch.cuda.synchronize()
+    assert CI.conv_int8_launches == before + 2
+    ref_acc = CI.conv_int8_plain(x, w_q, aw, ax, stride=stride,
+                                 accumulators=True)
+    ref = CI.conv_int8_plain(x, w_q, aw, ax, bias, stride)
+    assert acc.dtype == torch.int32 and torch.equal(acc, ref_acc)
+    assert out.dtype == dtype and out.shape == ref.shape
+    if dtype == torch.float32:
+        assert torch.equal(out, ref)
+    else:
+        assert _bf16_ulp_ok(out, ref)
+
+
+def test_conv_int8_kernel_mixed_dtypes_and_no_bias(cuda):
+    """f32 in, bf16 out and the reverse, without a bias."""
+    for din, dout in ((torch.float32, torch.bfloat16),
+                      (torch.bfloat16, torch.float32)):
+        x, w_q, aw, ax, _ = _int8_case((2, 12, 12, 32), 64, din, cuda, 1)
+        out = CI.conv_int8(x, w_q, aw, ax, None, 1, dout,
+                           packed=CI.pack_weights(w_q, aw))
+        ref = CI.conv_int8_plain(x, w_q, aw, ax, None, 1, dout)
+        assert out.dtype == dout
+        if dout == torch.float32:
+            assert torch.equal(out, ref)
+        else:
+            assert _bf16_ulp_ok(out, ref)
+
+
+def test_conv_int8_kernel_refuses_what_it_does_not_take(cuda):
+    x, w_q, aw, ax, bias = _int8_case((1, 8, 8, 16), 16, torch.bfloat16,
+                                      cuda)
+    packed = CI.pack_weights(w_q, aw)
+    with pytest.raises(ValueError, match="stride"):
+        CI.conv_int8_packed(x, packed, ax, stride=3)
+    with pytest.raises(ValueError, match="channels"):
+        CI.conv_int8_packed(x[..., :8], packed, ax)
+    with pytest.raises(TypeError):
+        CI.conv_int8_packed(x.half(), packed, ax)
+    with pytest.raises(ValueError, match="share a device"):
+        CI.conv_int8_packed(x, packed, ax.cpu())
+    with pytest.raises(ValueError, match="packed weights"):
+        CI.conv_int8(x, w_q, aw, ax, bias)
+
+
+def test_quantized_vunet_serves_through_the_kernel(cuda):
+    """An int8_static VUNet on the card: calibrate, then transfer_cached
+    launches the int8 kernel at every int8 conv and stays close to the same
+    VUNet serving in bf16 without quant."""
+    kw = dict(spatial_size=64, nf_start=16, nf_max=64, dtype=torch.bfloat16)
+    plain = VUNet(**kw, device="meta").to_empty(device=cuda)
+    init_random_(plain, torch.Generator(device=cuda).manual_seed(0))
+    net = VUNet(**kw, quant="int8_static", quant_max_hw=32, device="meta")
+    net = net.to_empty(device=cuda)
+    net.load_state_dict(plain.state_dict())
+    g = torch.Generator(device=cuda).manual_seed(1)
+    c = (torch.rand(6, 64, 64, 3, generator=g, device=cuda) * 2 - 1).to(
+        torch.bfloat16)
+    app = (torch.rand(2, 64, 64, 3, generator=g, device=cuda) * 2 - 1)
+    with torch.inference_mode():
+        means, _ = plain.eval().encode_means(app, generator=g)
+        means = [m.repeat_interleave(3, 0) for m in means]
+        from behavior_driven_video_synthesis_tpu_torch.models.vunet import (
+            calibrate_quant)
+        scales = calibrate_quant(net.eval(), means, c)
+        before = CI.conv_int8_launches
+        out = net.transfer_cached(means, c)
+        launches = CI.conv_int8_launches - before
+        ref = plain.transfer_cached(means, c)
+    # one launch a scale: x's, and aux's where a conv has one
+    assert scales and launches == len(scales)
+    rel = (out.float() - ref.float()).norm() / ref.float().norm()
+    assert float(rel) < 5e-2

@@ -68,12 +68,17 @@ def test_norm_conv_matches_jax(rng, k, stride, pad, aux):
 
 
 def test_norm_conv_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        pnn.NormConv2d(3, 4, quant="int8_static")
-    with pytest.raises(NotImplementedError):
+    """quant, d2s_transpose and Upsample(transpose=True), once refused, are
+    ported (``test_torch_quant.py``, ``test_torch_conv_types.py``); what
+    the JAX package asserts stays refused: an unknown quant, and
+    d2s_transpose off the subpixel conv's shape."""
+    pnn.NormConv2d(3, 8, 3, padding=1, quant="int8_static")
+    pnn.NormConv2d(3, 16, 3, padding=1, d2s_transpose=True)
+    assert pnn.Upsample(3, 4, transpose=True).up.d2s_transpose
+    with pytest.raises(ValueError, match="unknown quant"):
+        pnn.NormConv2d(3, 4, quant="int4")
+    with pytest.raises(ValueError, match="subpixel-upsample conv shape"):
         pnn.NormConv2d(3, 4, d2s_transpose=True)
-    with pytest.raises(NotImplementedError):
-        pnn.Upsample(3, 4, transpose=True)
 
 
 def test_norm_dense_matches_jax(rng):

@@ -104,18 +104,23 @@ def test_vunet_from_config_and_unported_options():
                              "training": {"bf16": False}}, "alter")
     assert net.dtype == torch.float32 and net.spatial_size == 64
     assert vunet_from_config(None, "alter").dtype == torch.bfloat16
-    for kw in ({"quant": "int8_static"},
+    # every option is ported: each builds, with the state dict of the
+    # defaults but for the conv layer type; quant and the transposed
+    # upsample need the l1 conv layer (the JAX package's assertions)
+    plain = set(VUNet(spatial_size=S, nf_start=NF0, nf_max=NF1).state_dict())
+    for kw in ({"quant": "int8_static"}, {"quant": "int8",
+                                          "quant_max_hw": 8},
                {"upsample_transpose": True}, {"remat": "subnet"},
                {"conv_layer_type": "l2"}):
-        if "remat" in kw:
-            # ported: it builds, with the state dict of remat off
-            net = VUNet(spatial_size=S, nf_start=NF0, nf_max=NF1, **kw)
-            assert net.remat == "subnet" and set(net.state_dict()) == set(
-                VUNet(spatial_size=S, nf_start=NF0,
-                      nf_max=NF1).state_dict())
-            continue
-        with pytest.raises(NotImplementedError):
-            VUNet(spatial_size=S, nf_start=NF0, nf_max=NF1, **kw)
+        net = VUNet(spatial_size=S, nf_start=NF0, nf_max=NF1, **kw)
+        assert (set(net.state_dict()) == plain) == ("conv_layer_type"
+                                                     not in kw)
+    assert net.dtype == torch.float32
+    for kw in ({"quant": "int8_static"}, {"upsample_transpose": True},
+               {"rnb_impl": "fused"}):
+        with pytest.raises(ValueError, match="l1"):
+            VUNet(spatial_size=S, nf_start=NF0, nf_max=NF1,
+                  conv_layer_type="ln", **kw)
 
 
 def test_bf16_compute_stays_close_to_f32(nets):

@@ -5,7 +5,8 @@ Shared by the PyTorch-port parity tests and ``make_torch_port_golden.py``.
 Shapes follow ``tests/test_pipeline.py``: 32 px, HID 32, T 6, B 2, VUNet
 nf 8->16, a 2-flow LatentFlow with mid width 64, 48 of 51 keypoints.  The
 weights are drawn into the port's modules with numpy, exported as flax
-trees, and those trees feed both packages.
+trees, and those trees feed both packages.  ``vunet_kw`` adds VUNet
+options (quant, upsample_transpose) that leave the state dict as it is.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ FLOW_MID, N_FLOWS = 64, 2
 NOISE_SHAPES = [(B, 4, 4, NF_MAX), (B, 8, 8, NF_MAX)]
 
 
-def port_modules(decoder_arch="lstm", use_nin=False):
+def port_modules(decoder_arch="lstm", use_nin=False, vunet_kw=None):
     from behavior_driven_video_synthesis_tpu_torch.models import (
         ResidualBehaviorNet)
     from behavior_driven_video_synthesis_tpu_torch.models.flows import (
@@ -31,7 +32,8 @@ def port_modules(decoder_arch="lstm", use_nin=False):
 
     return (ResidualBehaviorNet(K_USE, HID, decoder_arch=decoder_arch,
                                 use_nin_dec=use_nin),
-            VUNet(spatial_size=S, nf_start=NF_START, nf_max=NF_MAX),
+            VUNet(spatial_size=S, nf_start=NF_START, nf_max=NF_MAX,
+                  **(vunet_kw or {})),
             LatentFlow(HID, FLOW_MID, n_flows=N_FLOWS))
 
 
@@ -91,7 +93,7 @@ def jax_noise(noise):
 
 
 def jax_pipeline(decoder_arch="lstm", use_nin=False, inputs=None,
-                 vunet_chunk=128):
+                 vunet_chunk=128, vunet_kw=None):
     from behavior_driven_video_synthesis_tpu.data.human36m import (
         detailed_joint_model)
     from behavior_driven_video_synthesis_tpu.models import (
@@ -105,7 +107,7 @@ def jax_pipeline(decoder_arch="lstm", use_nin=False, inputs=None,
         ResidualBehaviorNet(n_kps=K_USE, dim_hidden_b=HID,
                             decoder_arch=decoder_arch, use_nin_dec=use_nin),
         VUNet(spatial_size=S, nf_start=NF_START, nf_max=NF_MAX,
-              variant="alter"),
+              variant="alter", **(vunet_kw or {})),
         detailed_joint_model(world_coords=True), inputs["norm_mean"],
         inputs["norm_std"], inputs["dim_to_use"], spatial_size=S,
         flow_model=LatentFlow(flow_in_channels=HID,
@@ -114,14 +116,14 @@ def jax_pipeline(decoder_arch="lstm", use_nin=False, inputs=None,
 
 
 def port_pipeline(trees, inputs, decoder_arch="lstm", use_nin=False,
-                  vunet_chunk=128):
+                  vunet_chunk=128, vunet_kw=None):
     from behavior_driven_video_synthesis_tpu_torch.data.human36m import (
         detailed_joint_model)
     from behavior_driven_video_synthesis_tpu_torch.models import convert
     from behavior_driven_video_synthesis_tpu_torch.pipeline import (
         BehaviorTransferPipeline)
 
-    pb, pv, pf = port_modules(decoder_arch, use_nin)
+    pb, pv, pf = port_modules(decoder_arch, use_nin, vunet_kw)
     pb.load_state_dict(convert.behavior_net_from_flax(trees["behavior"]))
     pv.load_state_dict(convert.vunet_alter_from_flax(trees["vunet"]))
     pf.load_state_dict(convert.latent_flow_from_flax(trees["flow"]))

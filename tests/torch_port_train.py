@@ -30,7 +30,8 @@ GAN_TRAINING = {"use_gan": True, "grad_pen": True, "gan_weight": 0.1,
                 "disc_lr": 2e-3}
 
 
-def config(grad_accum: int = 1, gan: bool = False) -> dict:
+def config(grad_accum: int = 1, gan: bool = False,
+           conv_layer_type: str = "l1") -> dict:
     cfg = {
         "general": {"experiment": "cvbae", "seed": 0},
         "data": {"spatial_size": S},
@@ -47,6 +48,8 @@ def config(grad_accum: int = 1, gan: bool = False) -> dict:
     }
     if gan:
         cfg["training"].update(GAN_TRAINING)
+    if conv_layer_type != "l1":
+        cfg["architecture"]["conv_layer_type"] = conv_layer_type
     return cfg
 
 
@@ -54,11 +57,12 @@ def noise_shapes(batch: int):
     return [(batch, 4, 4, NF_MAX), (batch, 8, 8, NF_MAX)]
 
 
-def port_modules(device=None):
+def port_modules(device=None, conv_layer_type: str = "l1"):
     from behavior_driven_video_synthesis_tpu_torch.models.vunet import (
         VunetRegressor, vunet_from_config)
 
-    vunet = vunet_from_config(config(), "alter", device=device)
+    vunet = vunet_from_config(config(conv_layer_type=conv_layer_type),
+                              "alter", device=device)
     regressor = VunetRegressor(2 * N_KPS, LATENT_WIDTHS, nf_max=NF_MAX,
                                device=device)
     return vunet, regressor
@@ -71,16 +75,17 @@ def port_disc(device=None):
     return build_discriminator(config(gan=True), device)
 
 
-def make_inputs(seed: int = 0, gan: bool = False):
+def make_inputs(seed: int = 0, gan: bool = False,
+                conv_layer_type: str = "l1"):
     """(flax trees {"vunet", "regressor"[, "disc"]}, batch, noise) from
     numpy seed ``seed``; noise holds the full batch's and a half batch's
-    shapes."""
+    shapes.  The VUNet's conv layers are ``conv_layer_type``'s."""
     from behavior_driven_video_synthesis_tpu_torch.models import convert
     from behavior_driven_video_synthesis_tpu_torch.models.init import (
         init_random_)
 
     rng = np.random.RandomState(seed)
-    vunet, regressor = port_modules()
+    vunet, regressor = port_modules(conv_layer_type=conv_layer_type)
     init_random_(vunet, rng)
     init_random_(regressor, rng)
     trees = {"vunet": convert.vunet_alter_to_flax(vunet.state_dict()),
@@ -103,7 +108,7 @@ def make_inputs(seed: int = 0, gan: bool = False):
 
 
 def jax_steps(trees, batch, noise, grad_accum: int = 1,
-              n_steps: int = N_STEPS):
+              n_steps: int = N_STEPS, conv_layer_type: str = "l1"):
     """The JAX package's cvbae step, ``n_steps`` times on ``batch`` (with
     the GAN branch where ``trees`` holds "disc").  Returns (per-step
     metrics, final flax trees)."""
@@ -122,7 +127,7 @@ def jax_steps(trees, batch, noise, grad_accum: int = 1,
     from torch_port_slice import jax_noise
 
     gan = "disc" in trees
-    cfg = Config(config(grad_accum, gan))
+    cfg = Config(config(grad_accum, gan, conv_layer_type))
     tr = cfg.training
     vunet = vunet_from_config(cfg, "alter")
     regressor = VunetRegressor(n_out=2 * N_KPS,
@@ -166,7 +171,8 @@ def jax_steps(trees, batch, noise, grad_accum: int = 1,
 
 
 def port_steps(trees, batch, noise, grad_accum: int = 1,
-               n_steps: int = N_STEPS, device="cpu"):
+               n_steps: int = N_STEPS, device="cpu",
+               conv_layer_type: str = "l1"):
     """The port's cvbae step, ``n_steps`` times on ``batch`` on
     ``device`` (with the GAN branch where ``trees`` holds "disc").
     Returns (per-step metrics, final flax trees)."""
@@ -181,8 +187,8 @@ def port_steps(trees, batch, noise, grad_accum: int = 1,
     from behavior_driven_video_synthesis_tpu_torch.train.vunet_exp import (
         VunetTrainState, make_cvbae_train_step)
 
-    cfg = config(grad_accum, "disc" in trees)
-    vunet, regressor = port_modules(device)
+    cfg = config(grad_accum, "disc" in trees, conv_layer_type)
+    vunet, regressor = port_modules(device, conv_layer_type)
     vunet.load_state_dict(convert.vunet_alter_from_flax(trees["vunet"]))
     regressor.load_state_dict(
         convert.vunet_regressor_from_flax(trees["regressor"]))
