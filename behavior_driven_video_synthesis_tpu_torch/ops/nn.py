@@ -198,16 +198,22 @@ class NormConv2d(nn.Module):
         return weights
 
     def _forward_int8(self, x, aux):
-        dt, bias = self.dtype, self.conv.bias.detach()
-        if aux is None:
-            (w_q, aw, packed), = self._int8_weights(None)
-            return conv_int8(x, w_q, aw, self._act_scale(x, "ax"), bias,
-                             self.stride, dt, packed)
-        (xw, xa, xp), (aw_q, aa, ap) = self._int8_weights(x.shape[-1])
-        y = conv_int8(x, xw, xa, self._act_scale(x, "ax"), bias,
-                      self.stride, dt, xp)
-        return y + conv_int8(aux, aw_q, aa, self._act_scale(aux, "ax_aux"),
-                             None, self.stride, dt, ap)
+        """The whole call, affine included, as one int8 conv (one kernel
+        launch on the card): x's conv plus bias, aux's conv added in the
+        compute dtype, then gamma * y + beta."""
+        weights = self._int8_weights(None if aux is None else x.shape[-1])
+        (w_q, aw, packed) = weights[0]
+        ax = self._act_scale(x, "ax")
+        kw = {}
+        if aux is not None:
+            (aux_w_q, aux_aw, aux_packed) = weights[1]
+            kw = dict(aux=aux, aux_w_q=aux_w_q, aux_aw=aux_aw,
+                      ax_aux=self._act_scale(aux, "ax_aux"),
+                      aux_packed=aux_packed)
+        return conv_int8(x, w_q, aw, ax, self.conv.bias.detach(), self.stride,
+                         self.dtype, packed,
+                         gamma=self.gamma.detach().reshape(-1),
+                         beta=self.beta.detach().reshape(-1), **kw)
 
     def _forward_d2s_transpose(self, x):
         """depth_to_space(conv(x, W, pad 1) + bias, 2), then the affine, as
@@ -244,13 +250,11 @@ class NormConv2d(nn.Module):
                 raise ValueError("d2s_transpose takes no aux input")
             return self._forward_d2s_transpose(x)
         if self.quant_active(x):
-            y = self._forward_int8(x, aux)
-        else:
-            if aux is not None:
-                x = torch.cat([x.to(dt), aux.to(dt)], dim=-1)
-            y = conv2d_nhwc(x.to(dt), self.kernel().to(dt),
-                            self.conv.bias.to(dt), self.stride,
-                            self.padding)
+            return self._forward_int8(x, aux)
+        if aux is not None:
+            x = torch.cat([x.to(dt), aux.to(dt)], dim=-1)
+        y = conv2d_nhwc(x.to(dt), self.kernel().to(dt),
+                        self.conv.bias.to(dt), self.stride, self.padding)
         return (self.gamma.to(dt).reshape(-1) * y
                 + self.beta.to(dt).reshape(-1))
 

@@ -201,17 +201,25 @@ CUDA toolkit (nvcc) and PyTorch.  It imports no JAX.  Phases:
     to the decoder's f32 loop is reported).  Printed: each hook's wall
     time, split into its device work and the host's drawing and encoding;
 24. quantized, transposed and l2/ln serving at full width: (a) the int8
-    conv kernel (``csrc/conv_int8.cu``) against its plain version at the
-    sites of a 125-frame chunk (128 px x 64 -> 64, 128 and stride 2;
-    64 px x 128 -> 128 and 256; 256 px x 32 -> 32 and stride 2): the int32
-    sums equal and the bf16 outputs within one ulp, each site timed beside
-    its bound, the plain version, ``F.unfold`` + ``torch._int_mm`` (with
-    its peak memory) and the cuDNN bf16 conv; (b) B=20, T=50 requests
-    behind phase [4]'s behavior net and flow through VUNets with the
-    weights of a bf16 reference VUNet: the ``tpu-serving`` preset
-    (int8_static, quant_max_hw 128), int8_static, dynamic int8 (each
-    within a relative L2 of 5e-2 of the reference's frames, launching the
-    kernel once for every int8 convolution its VUNet's hooks count), the
+    conv kernel (``csrc/conv_int8.cu``), one launch for a whole int8
+    NormConv2d call (bias, aux, gamma and beta), against its plain version
+    at the sites of a 125-frame chunk (128 px x 64 -> 64, 128 and stride
+    2; 64 px x 128 -> 128 and 256; 256 px x 32 -> 32 and stride 2; the
+    aux calls 128 px x (64 + 64) -> 64 and 64 px x (128 + 128) -> 128;
+    32 px x 128 -> 512; 8 px x (128 + 128) -> 128): the int32 sums equal
+    and the bf16 outputs within one ulp, each site timed beside its bound
+    (aux's bytes counted), x's conv and bias alone, the plain version,
+    ``F.unfold`` + ``torch._int_mm`` (with its peak memory) and the cuDNN
+    bf16 conv, with the kernel's launch plan and its registers and spills
+    from ``build.log``; (b) B=20, T=50 requests behind phase [4]'s
+    behavior net and flow through VUNets with the weights of a bf16
+    reference VUNet: the ``tpu-serving`` preset (int8_static,
+    quant_max_hw 128; its int8 calls by shape, and under
+    ``torch.profiler`` the kernel's summed device time and the device-busy
+    share of ``generate`` and of ``transfer_cached``), int8_static,
+    dynamic int8 (each within a relative L2 of 5e-2 of the reference's
+    frames, launching the kernel once for every int8 NormConv2d call its
+    VUNet's hooks count), the
     transposed upsample (within 1e-2 of the subpixel VUNet's frames of
     the same stickmen and appearance: two requests differ upstream, the
     rollout kernel's atomics moving stickman pixels), and an org
@@ -1025,7 +1033,8 @@ def alter_fused_request(pipe, x):
 
 def stage_breakdown(pipe, x, g, key):
     """Host-clock time of each stage of one full-batch request, kept in
-    RESULTS[key]."""
+    RESULTS[key]; returns a closure that runs its transfer_cached stage
+    again on the same inputs."""
     B, length, S = SLICE["B"], SLICE["T"], SLICE["S"]
 
     def timed(fn):
@@ -1050,15 +1059,20 @@ def stage_breakdown(pipe, x, g, key):
             x["app_img"], generator=g)[0])
         tiled = [torch.repeat_interleave(m, length, 0) for m in means]
         cs, _ = pipe._chunk_size(B * length)
-        _, t_vunet = timed(lambda: [pipe.vunet.transfer_cached(
-            [m[s:s + cs] for m in tiled], flat[s:s + cs])
-            for s in range(0, B * length, cs)])
+
+    def vunet_stage():
+        with torch.inference_mode():
+            for s in range(0, B * length, cs):
+                pipe.vunet.transfer_cached([m[s:s + cs] for m in tiled],
+                                           flat[s:s + cs])
+    _, t_vunet = timed(vunet_stage)
     stages = dict(flow_reverse=t_flow, rollout_kernel=t_roll,
                   camera=t_proj, stickman_raster=t_raster,
                   vunet_encode_means=t_enc, vunet_transfer_cached=t_vunet)
     log(f"    stages of one B={B} request (ms, host clock, synchronized): "
         + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
     RESULTS[key] = stages
+    return vunet_stage
 
 
 # -- 5. the CLI ---------------------------------------------------------------
@@ -1643,9 +1657,11 @@ class BehaviorRecorder:
         return recorded_make
 
 
-def profile_call(fn, wall_ms_of=None, top_n=5):
+def profile_call(fn, wall_ms_of=None, top_n=5, match=None):
     """Device busy time, idle share and the top kernels of one call of fn
-    under torch.profiler (None where it saw no device time)."""
+    under torch.profiler (None where it saw no device time); with
+    ``match``, the summed device time and launches of the kernels whose
+    name holds it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1670,6 +1686,10 @@ def profile_call(fn, wall_ms_of=None, top_n=5):
                     for e in top])
     if wall_ms_of:
         out["busy_share_unprofiled"] = min(1.0, busy_ms / wall_ms_of)
+    if match:
+        hits = [e for e in events if match in e.key]
+        out["match_ms"] = sum(e.self_device_time_total for e in hits) / 1e3
+        out["match_count"] = sum(e.count for e in hits)
     return out
 
 
@@ -3903,12 +3923,17 @@ def phase_figures(gan_base):
 
 # -- 24. quantized, transposed and l2/ln serving at full width ----------------
 # the int8 conv's sites at a 125-frame chunk of an alter request (B=20,
-# T=50: 8 chunks): (frames, H, W, Cin, Cout, stride); the 256 px ones run
-# int8 only without quant_max_hw
-INT8_SITES = [(125, 128, 128, 64, 64, 1), (125, 128, 128, 64, 128, 1),
-              (125, 128, 128, 64, 128, 2), (125, 64, 64, 128, 128, 1),
-              (125, 64, 64, 128, 256, 1), (125, 256, 256, 32, 32, 1),
-              (125, 256, 256, 32, 64, 2)]
+# T=50: 8 chunks): (frames, H, W, Cin, Cout, stride, aux Cin); the 256 px
+# ones run int8 only without quant_max_hw.  The first seven are the sites
+# the kernel's first version was timed at; the aux calls (du's and dd's
+# residual blocks with a skip), the 32 px subpixel upsample and an 8 px
+# aux call follow.
+INT8_SITES = [(125, 128, 128, 64, 64, 1, 0), (125, 128, 128, 64, 128, 1, 0),
+              (125, 128, 128, 64, 128, 2, 0), (125, 64, 64, 128, 128, 1, 0),
+              (125, 64, 64, 128, 256, 1, 0), (125, 256, 256, 32, 32, 1, 0),
+              (125, 256, 256, 32, 64, 2, 0), (125, 128, 128, 64, 64, 1, 64),
+              (125, 64, 64, 128, 128, 1, 128), (125, 32, 32, 128, 512, 1, 0),
+              (125, 8, 8, 128, 128, 1, 128)]
 # the site whose numbers stand in the kernels line: the most frequent
 # int8 conv of the tpu-serving preset (du's and dd's 128 px blocks)
 INT8_HEADLINE = INT8_SITES[0]
@@ -3918,13 +3943,15 @@ QUANT_REL_L2 = 5e-2           # a quantized request's frames vs bf16
 TRANSPOSE_REL_L2 = 1e-2       # the transposed upsample vs subpixel
 
 
-def int8_bound_ms(B, H, W, Cin, Cout, stride):
-    """(bound ms, what bounds it) of one int8 conv: x read in bf16, the
-    bf16 output written, W_q and aw read once; 2 M N K operations at the
-    int8 tensor-core peak."""
+def int8_bound_ms(B, H, W, Cin, Cout, stride, aux_cin=0):
+    """(bound ms, what bounds it) of one int8 NormConv2d call: x (and aux)
+    read in bf16, the bf16 output written, W_q (both parts), aw, bias,
+    gamma and beta read once; 2 M N K operations at the int8 tensor-core
+    peak, K = 9 (Cin + aux Cin)."""
     Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
-    M, K = B * Ho * Wo, 9 * Cin
-    nbytes = 2 * B * H * W * Cin + 2 * M * Cout + Cout * K + 8 * Cout
+    M, K = B * Ho * Wo, 9 * (Cin + aux_cin)
+    nbytes = (2 * B * H * W * (Cin + aux_cin) + 2 * M * Cout + Cout * K
+              + 4 * Cout * (2 if aux_cin else 1) + 4 * Cout + 2 * 2 * Cout)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * M * Cout * K / INT8_TENSOR_OPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -3954,26 +3981,43 @@ def bf16_ulp_ok(out, ref):
 
 
 def int8_site(site, seed):
-    """The kernel against its plain version at one site, each timed, with
-    the _int_mm route and the cuDNN bf16 conv of the same shape."""
-    B, H, W, Cin, Cout, stride = site
+    """The kernel against its plain version at one site, as a NormConv2d
+    call makes it (bias, gamma and beta, and aux where the site has one),
+    each timed, with the _int_mm route (both convs with aux) and the
+    cuDNN bf16 conv of the same shape (over x and aux concatenated)."""
+    B, H, W, Cin, Cout, stride, Ca = site
     g = torch.Generator(device=DEV).manual_seed(seed)
     x = (torch.randn(B, H, W, Cin, generator=g, device=DEV) * 2).to(
         torch.bfloat16)
-    w = torch.randn(Cout, Cin, 3, 3, generator=g, device=DEV)
+    w = torch.randn(Cout, Cin + Ca, 3, 3, generator=g, device=DEV)
     bias = torch.randn(Cout, generator=g, device=DEV)
-    w_q, aw = conv_int8.quantize_weight(w)
+    gamma = torch.randn(Cout, generator=g, device=DEV).to(torch.bfloat16)
+    beta = torch.randn(Cout, generator=g, device=DEV).to(torch.bfloat16)
+    w_q, aw = conv_int8.quantize_weight(w[:, :Cin])
     ax = conv_int8.act_scale(x)
     packed = conv_int8.pack_weights(w_q, aw)
+    kernel_kw, plain_kw = {}, {}
+    if Ca:
+        aux = (torch.randn(B, H, W, Ca, generator=g, device=DEV) * 2).to(
+            torch.bfloat16)
+        aux_w_q, aux_aw = conv_int8.quantize_weight(w[:, Cin:])
+        ax_aux = conv_int8.act_scale(aux)
+        kernel_kw = dict(aux=aux, ax_aux=ax_aux,
+                         aux_packed=conv_int8.pack_weights(aux_w_q, aux_aw))
+        plain_kw = dict(aux=aux, ax_aux=ax_aux, aux_w_q=aux_w_q,
+                        aux_aw=aux_aw)
     acc = conv_int8.conv_int8_packed(x, packed, ax, stride=stride,
-                                     accumulators=True)
-    out = conv_int8.conv_int8_packed(x, packed, ax, bias, stride)
+                                     accumulators=True, **kernel_kw)
+    out = conv_int8.conv_int8_packed(x, packed, ax, bias, stride,
+                                     gamma=gamma, beta=beta, **kernel_kw)
     torch.cuda.synchronize()
     ref_acc = conv_int8.conv_int8_plain(x, w_q, aw, ax, stride=stride,
-                                        accumulators=True)
-    same_acc = torch.equal(acc, ref_acc)
-    del ref_acc
-    ref = conv_int8.conv_int8_plain(x, w_q, aw, ax, bias, stride)
+                                        accumulators=True, **plain_kw)
+    pairs = list(zip(acc, ref_acc)) if Ca else [(acc, ref_acc)]
+    same_acc = all(torch.equal(a, r) for a, r in pairs)
+    del ref_acc, pairs
+    ref = conv_int8.conv_int8_plain(x, w_q, aw, ax, bias, stride,
+                                    gamma=gamma, beta=beta, **plain_kw)
     err = float((out.float() - ref.float()).abs().max())
     ulp_ok = bf16_ulp_ok(out, ref)
     check(same_acc, f"int8 conv at {site}: the int32 sums differ from the "
@@ -3982,48 +4026,118 @@ def int8_site(site, seed):
           f"plain version (max abs {err:.3e})")
     del ref, acc
     iters = 20
-    ms = cuda_ms(lambda: conv_int8.conv_int8_packed(x, packed, ax, bias,
-                                                    stride), iters)
+    ms = cuda_ms(lambda: conv_int8.conv_int8_packed(
+        x, packed, ax, bias, stride, gamma=gamma, beta=beta, **kernel_kw),
+        iters)
+    # x's conv and bias alone, as the kernel's first version was timed
+    # (its NormConv2d added aux's conv and the affine in three more passes)
+    conv_ms = cuda_ms(lambda: conv_int8.conv_int8_packed(
+        x, packed, ax, bias, stride), iters)
     plain_ms = cuda_ms(lambda: conv_int8.conv_int8_plain(
-        x, w_q, aw, ax, bias, stride), 3)
+        x, w_q, aw, ax, bias, stride, gamma=gamma, beta=beta, **plain_kw), 3)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     lib_acc = int_mm_conv(x, w_q, ax, stride)
     torch.cuda.synchronize()
     lib_peak = torch.cuda.max_memory_allocated() - base
-    lib_same = torch.equal(
-        lib_acc, conv_int8.conv_int8_packed(x, packed, ax, stride=stride,
-                                            accumulators=True))
-    del lib_acc
-    lib_ms = cuda_ms(lambda: int_mm_conv(x, w_q, ax, stride), 3)
-    xc = x.permute(0, 3, 1, 2)                    # channels-last NCHW view
+    lib_ref = conv_int8.conv_int8_packed(x, packed, ax, stride=stride,
+                                         accumulators=True, **kernel_kw)
+    lib_same = torch.equal(lib_acc, lib_ref[0] if Ca else lib_ref)
+    del lib_acc, lib_ref
+
+    def library():
+        acc = int_mm_conv(x, w_q, ax, stride)
+        if Ca:
+            acc = (acc, int_mm_conv(aux, aux_w_q, ax_aux, stride))
+        return acc
+    lib_ms = cuda_ms(library, 3)
+    # the bf16 route's conv: channels-last NCHW views of x (and aux)
+    xc = (torch.cat([x, aux], dim=-1) if Ca else x).permute(0, 3, 1, 2)
     wb = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
     cudnn_ms = cuda_ms(lambda: F.conv2d(xc, wb, None, stride, 1), iters)
+    plan = conv_int8.conv_int8_plan(B, H, W, Cin, Cout, stride=stride,
+                                    aux_cin=Ca)
     bound, bound_by = int8_bound_ms(*site)
-    return dict(site=list(site), ms=ms, plain_ms=plain_ms,
+    return dict(site=list(site), ms=ms, conv_ms=conv_ms, plain_ms=plain_ms,
                 library_ms=lib_ms, library_peak_mib=lib_peak / 2**20,
                 library_equal=lib_same, cudnn_bf16_ms=cudnn_ms,
-                bound_ms=bound, bound_by=bound_by, max_abs_err=err)
+                bound_ms=bound, bound_by=bound_by, max_abs_err=err,
+                plan=plan)
 
 
 def int8_launch_counter(vunet):
     """Forward hooks that count, independently of the kernel's wrapper,
-    the int8 convolutions the VUNet's NormConv2d run (x's, and aux's where
-    a conv has one) and the input heights they run at; returns (counts,
+    the int8 NormConv2d calls the VUNet runs (one launch each, aux
+    included), the input heights they run at and the calls by shape
+    (frames, H, W, Cin, Cout, stride, aux Cin); returns (counts,
     remove)."""
-    counts = {"parts": 0, "heights": set()}
+    counts = {"calls": 0, "heights": set(), "shapes": {}}
 
     def hook(mod, args, kwargs, out):
         x = args[0]
         aux = args[1] if len(args) > 1 else kwargs.get("aux")
         if mod.quant_active(x):
-            counts["parts"] += 1 + (aux is not None)
+            counts["calls"] += 1
             counts["heights"].add(int(x.shape[1]))
+            shape = tuple(x.shape) + (mod.features, mod.stride,
+                                      0 if aux is None else aux.shape[-1])
+            counts["shapes"][shape] = counts["shapes"].get(shape, 0) + 1
     hooks = [m.register_forward_hook(hook, with_kwargs=True)
              for m in vunet.modules()
              if isinstance(m, ops_nn.NormConv2d) and m.quant != "none"]
     return counts, lambda: [h.remove() for h in hooks]
+
+
+def log_site_launches(counts):
+    """The preset request's int8 calls by shape, each beside the
+    INT8_SITES entry it matches."""
+    log("    int8 calls of one --preset tpu-serving request by shape "
+        "(frames, H, W, Cin, Cout, stride, aux Cin): launches")
+    rows = []
+    for shape, n in sorted(counts["shapes"].items(),
+                           key=lambda kv: (-kv[0][1], kv[0][3:])):
+        site = INT8_SITES.index(shape) if shape in INT8_SITES else None
+        log(f"      {shape}: {n}" + (f"  (INT8_SITES[{site}])"
+                                     if site is not None else ""))
+        rows.append(dict(shape=list(shape), launches=n, site=site))
+    RESULTS["int8_preset_launches_by_shape"] = rows
+
+
+def preset_device_time(pipe, x, vunet_stage):
+    """torch.profiler over one --preset tpu-serving generate request and
+    over its transfer_cached stage alone (stage_breakdown's closure): the
+    int8 kernel's summed device time and launches, and each call's
+    device-busy share."""
+    rows = {}
+    for what, fn in (("generate", lambda: serve(pipe, x)),
+                     ("transfer_cached", vunet_stage)):
+        fn()
+        prof = profile_call(fn, match="conv_int8_kernel")
+        rows[what] = prof
+        if prof is None:
+            log(f"    profiled {what} (--preset tpu-serving): no device "
+                f"time seen; not measured")
+            continue
+        log(f"    profiled {what} (--preset tpu-serving): wall "
+            f"{prof['wall_ms']:.2f} ms, device busy "
+            f"{prof['device_busy_ms']:.2f} ms (busy share "
+            f"{prof['busy_share']:.3f}), {prof['launches']} launches; the "
+            f"int8 kernel {prof['match_ms']:.3f} ms in "
+            f"{prof['match_count']} launches")
+    RESULTS["int8_preset_profile"] = rows
+
+
+def int8_ptxas():
+    """Registers, spills and the dynamic shared memory plan of the int8
+    kernel's instantiations, from build.log (-Xptxas -v)."""
+    report = ptxas_report(build_log("conv_int8"), "conv_int8_kernel")
+    for np_, (regs, st, ld) in sorted(report.items()):
+        log(f"    conv_int8_kernel<{np_}> ({4 * np_} threads): {regs} "
+            f"registers, spill stores {st} B, spill loads {ld} B")
+    RESULTS["int8_ptxas"] = {str(k): dict(registers=v[0], spill_stores=v[1],
+                                          spill_loads=v[2])
+                             for k, v in report.items()}
 
 
 def calibrate_request(pipe, x, what):
@@ -4086,9 +4200,9 @@ def quantized_request(pipe, x, what, ref_frames, static, tol):
         check(frames.shape == ref_frames.shape
               and bool(torch.isfinite(frames.float()).all()),
               f"{what}: frames")
-        check(launches == counts["parts"],
+        check(launches == counts["calls"],
               f"{what}: {launches} int8 conv launches, the VUNet ran "
-              f"{counts['parts']} int8 convolutions")
+              f"{counts['calls']} int8 NormConv2d calls")
         rel = rel_l2(frames, ref_frames)
         check(rel <= tol, f"{what}: rel-L2 {rel:.3e} to the reference "
               f"request > {tol}")
@@ -4165,15 +4279,18 @@ def phase_quant_serving():
         f"vs its plain version (int32 sums equal, outputs within 1 bf16 "
         f"ulp), timed beside the plain version, F.unfold + torch._int_mm "
         f"(library) and the cuDNN bf16 conv")
+    int8_ptxas()
     sites = []
     for i, site in enumerate(INT8_SITES):
         r = int8_site(site, i)
-        log(f"    {site}: kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f}"
-            f" ms ({r['bound_by']}), plain {r['plain_ms']:.3f} ms, _int_mm "
-            f"{r['library_ms']:.3f} ms (peak {r['library_peak_mib']:.0f} "
-            f"MiB, sums equal: {r['library_equal']}), cuDNN bf16 "
-            f"{r['cudnn_bf16_ms']:.4f} ms; max|kernel-plain| "
-            f"{r['max_abs_err']:.3e}")
+        log(f"    {site}: kernel {r['ms']:.4f} ms (x's conv and bias alone "
+            f"{r['conv_ms']:.4f}), bound {r['bound_ms']:.4f}"
+            f" ms ({r['bound_by']}, {r['bound_ms'] / r['ms']:.1%} reached),"
+            f" plain {r['plain_ms']:.3f} ms, _int_mm {r['library_ms']:.3f} "
+            f"ms (peak {r['library_peak_mib']:.0f} MiB, sums equal: "
+            f"{r['library_equal']}), cuDNN bf16 {r['cudnn_bf16_ms']:.4f} ms "
+            f"({r['ms'] / r['cudnn_bf16_ms']:.2f}x); max|kernel-plain| "
+            f"{r['max_abs_err']:.3e}; launch {r['plan']}")
         sites.append(r)
         torch.cuda.empty_cache()
     RESULTS["int8_sites"] = sites
@@ -4215,8 +4332,12 @@ def phase_quant_serving():
         else:
             check(S in counts["heights"],
                   f"{what}: no int8 conv at {S} px")
-        stage_breakdown(pipe, x, g, "stages")
+        vunet_stage = stage_breakdown(pipe, x, g, "stages")
         stages[what] = RESULTS.pop("stages")
+        if kw.get("quant_max_hw"):
+            log_site_launches(counts)
+            preset_device_time(pipe, x, vunet_stage)
+        del vunet_stage
         if what == "--preset tpu-serving":
             gap, noise = chunked_calibration_gap(pipe, x)
             log(f"    calibration in 125-frame chunks vs one call over "

@@ -17,8 +17,8 @@ differ in summation order and, rarely, in a bf16 rounding of elu(x) or of
 the output, so atol 1e-2, rtol 1e-2.  int8 conv: the kernel and its
 plain version quantize alike and sum integers exactly, so the int32
 accumulators are equal and the outputs within one bf16 ulp (bf16; the
-epilogue's f32 arithmetic is the same, but the cast of a sum on a bf16
-midpoint may break either way) or equal (f32).
+epilogue's arithmetic is the same, aux and the affine included, but the
+cast of a sum on a bf16 midpoint may break either way) or equal (f32).
 """
 import os
 
@@ -535,6 +535,79 @@ def test_conv_int8_kernel_mixed_dtypes_and_no_bias(cuda):
             assert _bf16_ulp_ok(out, ref)
 
 
+def _fused_case(shape, cout, aux_cin, dtype, device, seed=0):
+    """A NormConv2d int8 call's operands: x, its weights, scale and bias,
+    gamma and beta in the output dtype, and aux with its own weights and
+    scale where aux_cin > 0; (kernel kwargs, plain kwargs)."""
+    x, w_q, aw, ax, bias = _int8_case(shape, cout, dtype, device, seed)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    gamma = torch.randn(cout, generator=g, device=device).to(dtype)
+    beta = torch.randn(cout, generator=g, device=device).to(dtype)
+    kernel = dict(packed=CI.pack_weights(w_q, aw), gamma=gamma, beta=beta)
+    plain = dict(w_q=w_q, aw=aw, gamma=gamma, beta=beta)
+    if aux_cin:
+        a, a_q, a_aw, a_ax, _ = _int8_case(shape[:3] + (aux_cin,), cout,
+                                           dtype, device, seed + 2, 3.0)
+        kernel.update(aux=a, aux_packed=CI.pack_weights(a_q, a_aw),
+                      ax_aux=a_ax)
+        plain.update(aux=a, aux_w_q=a_q, aux_aw=a_aw, ax_aux=a_ax)
+    return x, ax, bias, kernel, plain
+
+
+@pytest.mark.parametrize("shape,cout,stride,aux_cin", [
+    ((2, 16, 16, 32), 32, 1, 32), ((3, 9, 13, 64), 64, 1, 64),
+    ((2, 8, 8, 128), 256, 1, 128), ((2, 17, 11, 64), 128, 2, 64),
+    ((1, 6, 6, 12), 20, 1, 12), ((2, 5, 7, 8), 8, 2, 8),
+    ((1, 4, 4, 512), 128, 1, 0), ((2, 12, 12, 48), 512, 1, 0),
+    ((3, 10, 10, 48), 20, 1, 12), ((20, 4, 4, 128), 128, 1, 128),
+    ((20, 80, 80, 64), 64, 1, 0), ((20, 80, 80, 64), 64, 1, 64),
+    ((3, 33, 35, 64), 128, 2, 0)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv_int8_fused_call_matches_plain(cuda, shape, cout, stride,
+                                            aux_cin, dtype):
+    """The whole NormConv2d int8 call (aux, bias, gamma and beta) in one
+    launch against the plain composition: int32 sums equal, bf16 within
+    one ulp, f32 equal.  (20, 80, 80) has more tiles than the card holds
+    persistent blocks; (20, 4, 4) packs whole frames into a tile."""
+    x, ax, bias, kernel, plain = _fused_case(shape, cout, aux_cin, dtype,
+                                             cuda)
+    acc_kw = {k: v for k, v in kernel.items() if k not in ("gamma", "beta")}
+    acc_kw.pop("packed")
+    before = CI.conv_int8_launches
+    out = CI.conv_int8(x, plain["w_q"], plain["aw"], ax, bias, stride,
+                       aux_w_q=plain.get("aux_w_q"),
+                       aux_aw=plain.get("aux_aw"), **kernel)
+    torch.cuda.synchronize()
+    assert CI.conv_int8_launches == before + 1
+    acc = CI.conv_int8_packed(x, kernel["packed"], ax, stride=stride,
+                              accumulators=True, **acc_kw)
+    plain_acc = {k: v for k, v in plain.items()
+                 if k not in ("w_q", "aw", "gamma", "beta")}
+    ref_acc = CI.conv_int8_plain(x, plain["w_q"], plain["aw"], ax,
+                                 stride=stride, accumulators=True,
+                                 **plain_acc)
+    pairs = list(zip(acc, ref_acc)) if aux_cin else [(acc, ref_acc)]
+    assert all(a.dtype == torch.int32 and torch.equal(a, r)
+               for a, r in pairs)
+    ref = CI.conv_int8_plain(x, ax=ax, bias=bias, stride=stride, **plain)
+    assert out.dtype == dtype and out.shape == ref.shape
+    if dtype == torch.float32:
+        assert torch.equal(out, ref)
+    else:
+        assert _bf16_ulp_ok(out, ref)
+
+
+@pytest.mark.parametrize("cout", [8, 32, 64, 128, 256, 512])
+def test_conv_int8_fused_call_every_pass_width(cuda, cout):
+    """N from 8 to 512: one pass of 32, 64 or 128 channels, or 2 and 4
+    passes over one quantized halo, with aux."""
+    x, ax, bias, kernel, plain = _fused_case((3, 20, 18, 64), cout, 32,
+                                             torch.bfloat16, cuda, 4)
+    out = CI.conv_int8_packed(x, kernel.pop("packed"), ax, bias, **kernel)
+    ref = CI.conv_int8_plain(x, ax=ax, bias=bias, **plain)
+    assert _bf16_ulp_ok(out, ref)
+
+
 def test_conv_int8_kernel_refuses_what_it_does_not_take(cuda):
     x, w_q, aw, ax, bias = _int8_case((1, 8, 8, 16), 16, torch.bfloat16,
                                       cuda)
@@ -549,6 +622,28 @@ def test_conv_int8_kernel_refuses_what_it_does_not_take(cuda):
         CI.conv_int8_packed(x, packed, ax.cpu())
     with pytest.raises(ValueError, match="packed weights"):
         CI.conv_int8(x, w_q, aw, ax, bias)
+    # the fused call's arguments: aux's channels against its weights, aux
+    # without its weights, gamma or beta of the wrong size
+    _, ax_aux, _, kernel, plain = _fused_case((1, 8, 8, 16), 16, 8,
+                                              torch.bfloat16, cuda)
+    aux_kw = dict(aux=kernel["aux"], aux_packed=kernel["aux_packed"],
+                  ax_aux=kernel["ax_aux"])
+    with pytest.raises(ValueError, match="channels"):
+        CI.conv_int8_packed(x, packed, ax,
+                            **dict(aux_kw, aux=kernel["aux"][..., :4]))
+    with pytest.raises(ValueError, match="packed weights"):
+        CI.conv_int8(x, w_q, aw, ax, bias, packed=packed, aux=kernel["aux"],
+                     aux_w_q=plain["aux_w_q"], aux_aw=plain["aux_aw"],
+                     ax_aux=kernel["ax_aux"])
+    with pytest.raises(ValueError, match="16 values"):
+        CI.conv_int8_packed(x, packed, ax, gamma=kernel["gamma"][:8],
+                            beta=kernel["beta"])
+    with pytest.raises(ValueError, match="16 values"):
+        CI.conv_int8_packed(x, packed, ax, gamma=kernel["gamma"],
+                            beta=kernel["beta"][:15])
+    with pytest.raises(ValueError, match="share a device"):
+        CI.conv_int8_packed(x, packed, ax, gamma=kernel["gamma"].cpu(),
+                            beta=kernel["beta"].cpu())
 
 
 def test_quantized_vunet_serves_through_the_kernel(cuda):
@@ -565,17 +660,26 @@ def test_quantized_vunet_serves_through_the_kernel(cuda):
     c = (torch.rand(6, 64, 64, 3, generator=g, device=cuda) * 2 - 1).to(
         torch.bfloat16)
     app = (torch.rand(2, 64, 64, 3, generator=g, device=cuda) * 2 - 1)
+    calls = []
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out: calls.append(mod.quant_active(args[0])))
+        for m in net.modules() if isinstance(m, pnn.NormConv2d)]
     with torch.inference_mode():
         means, _ = plain.eval().encode_means(app, generator=g)
         means = [m.repeat_interleave(3, 0) for m in means]
         from behavior_driven_video_synthesis_tpu_torch.models.vunet import (
             calibrate_quant)
         scales = calibrate_quant(net.eval(), means, c)
+        calls.clear()
         before = CI.conv_int8_launches
         out = net.transfer_cached(means, c)
         launches = CI.conv_int8_launches - before
         ref = plain.transfer_cached(means, c)
-    # one launch a scale: x's, and aux's where a conv has one
-    assert scales and launches == len(scales)
+    for h in hooks:
+        h.remove()
+    # one launch an int8 NormConv2d call, aux included; x's scale, and
+    # aux's where a call has one
+    assert scales and launches == sum(calls)
+    assert sum(calls) <= len(scales) <= 2 * sum(calls)
     rel = (out.float() - ref.float()).norm() / ref.float().norm()
     assert float(rel) < 5e-2
