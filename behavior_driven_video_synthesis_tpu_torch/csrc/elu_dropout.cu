@@ -14,6 +14,15 @@
 // from the same seed, so no mask is ever stored.  The plain PyTorch version
 // in ops/cuda/elu_dropout.py computes the identical stream.
 //
+// Element offset: element i of a launch takes the bits of element offset + i
+// of the stream, so that a data-parallel rank holding rows of a global batch
+// (offset = rank x its element count) draws its slice of the mask one launch
+// over the global batch would draw (dropout_impl: pallas_sharded).  Any
+// offset >= 0 is taken, also one inside a Philox block of 4: the kernel is
+// instantiated for offset mod 4 (kShift); a thread's vector then starts at
+// word kShift of its first block and, where kShift > 0, takes one more
+// block than the V / 4 it takes at offset 0.
+//
 // What bounds it: device memory.  Each element is read once (x; and ct in the
 // backward) and written once, 2 bytes each in bf16: 4 bytes an element
 // forward, 6 backward, against ~15 integer operations of Philox and a few
@@ -83,13 +92,15 @@ struct Bwd {
 };
 
 // x, ct (Bwd only) and out are 16-byte aligned (the wrapper checks).
-template <typename Op, typename T>
+template <typename Op, typename T, int kShift>
 __global__ void __launch_bounds__(kThreads)
     elu_dropout_kernel(const T* __restrict__ x, const T* __restrict__ ct,
                        T* __restrict__ out, const int* __restrict__ seed,
-                       long long n, uint32_t thresh, float scale) {
+                       long long n, long long offset, uint32_t thresh,
+                       float scale) {
   constexpr int V = 16 / sizeof(T);  // elements per 16-byte vector
   static_assert(V % 4 == 0, "a vector holds whole Philox groups");
+  constexpr int G = V / 4 + (kShift ? 1 : 0);  // Philox blocks a vector
   const uint32_t k0 = static_cast<uint32_t>(__ldg(seed));
   const uint32_t k1 = static_cast<uint32_t>(__ldg(seed + 1));
   const long long n_vec = (n + V - 1) / V;
@@ -98,20 +109,23 @@ __global__ void __launch_bounds__(kThreads)
                      threadIdx.x;
        v < n_vec; v += stride) {
     const long long base = v * V;
-    uint32_t bits[V];
+    // words[kShift + i] decides element base + i: its stream index
+    // offset + base + i lies in block (offset + base) / 4 + (kShift + i) / 4
+    uint32_t words[4 * G];
+    const long long g0 = (offset + base) >> 2;
 #pragma unroll
-    for (int q = 0; q < V / 4; ++q) {
-      const unsigned long long g =
-          static_cast<unsigned long long>(base / 4 + q);
+    for (int q = 0; q < G; ++q) {
+      const unsigned long long g = static_cast<unsigned long long>(g0 + q);
       const uint4 b = philox4x32_10(
           make_uint4(static_cast<uint32_t>(g), static_cast<uint32_t>(g >> 32),
                      0u, 0u),
           k0, k1);
-      bits[4 * q + 0] = b.x;
-      bits[4 * q + 1] = b.y;
-      bits[4 * q + 2] = b.z;
-      bits[4 * q + 3] = b.w;
+      words[4 * q + 0] = b.x;
+      words[4 * q + 1] = b.y;
+      words[4 * q + 2] = b.z;
+      words[4 * q + 3] = b.w;
     }
+    const uint32_t* bits = words + kShift;
     if (base + V <= n) {
       alignas(16) T xv[V];
       alignas(16) T cv[V];
@@ -138,11 +152,47 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <typename Op, typename T, int kShift>
+void launch_shift(const T* x, const T* ct, T* out, const int* seed,
+                  long long n, long long offset, unsigned int thresh,
+                  float scale, long long blocks, cudaStream_t s) {
+  elu_dropout_kernel<Op, T, kShift>
+      <<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+          x, ct, out, seed, n, offset, thresh, scale);
+}
+
+template <typename Op, typename T>
+void launch_typed(const void* x, const void* ct, void* out, const int* seed,
+                  long long n, long long offset, unsigned int thresh,
+                  float scale, long long blocks, cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  const T* ctt = static_cast<const T*>(ct);
+  T* ot = static_cast<T*>(out);
+  switch (offset & 3) {
+    case 0:
+      launch_shift<Op, T, 0>(xt, ctt, ot, seed, n, offset, thresh, scale,
+                             blocks, s);
+      break;
+    case 1:
+      launch_shift<Op, T, 1>(xt, ctt, ot, seed, n, offset, thresh, scale,
+                             blocks, s);
+      break;
+    case 2:
+      launch_shift<Op, T, 2>(xt, ctt, ot, seed, n, offset, thresh, scale,
+                             blocks, s);
+      break;
+    default:
+      launch_shift<Op, T, 3>(xt, ctt, ot, seed, n, offset, thresh, scale,
+                             blocks, s);
+  }
+}
+
 template <typename Op>
 int launch(const void* x, const void* ct, void* out, const void* seed,
-           long long n, int dtype, unsigned int thresh, float scale,
-           void* stream) {
+           long long n, long long offset, int dtype, unsigned int thresh,
+           float scale, void* stream) {
   if (n <= 0) return 0;
+  if (offset < 0) return static_cast<int>(cudaErrorInvalidValue);
   const int vec = dtype == 1 ? 8 : 4;
   const long long n_vec = (n + vec - 1) / vec;
   long long blocks = (n_vec + kThreads - 1) / kThreads;
@@ -150,16 +200,11 @@ int launch(const void* x, const void* ct, void* out, const void* seed,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* sd = static_cast<const int*>(seed);
   if (dtype == 0) {
-    elu_dropout_kernel<Op, float><<<static_cast<unsigned>(blocks), kThreads,
-                                    0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(ct),
-        static_cast<float*>(out), sd, n, thresh, scale);
+    launch_typed<Op, float>(x, ct, out, sd, n, offset, thresh, scale, blocks,
+                            s);
   } else if (dtype == 1) {
-    elu_dropout_kernel<Op, __nv_bfloat16>
-        <<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-            static_cast<const __nv_bfloat16*>(x),
-            static_cast<const __nv_bfloat16*>(ct),
-            static_cast<__nv_bfloat16*>(out), sd, n, thresh, scale);
+    launch_typed<Op, __nv_bfloat16>(x, ct, out, sd, n, offset, thresh, scale,
+                                    blocks, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -168,17 +213,22 @@ int launch(const void* x, const void* ct, void* out, const void* seed,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  Returns the cudaError_t of the launch.
+// dtype: 0 float32, 1 bfloat16; offset: the stream index of element 0
+// (>= 0).  Returns the cudaError_t of the launch.
 extern "C" int bdvs_elu_dropout_fwd(const void* x, void* out,
-                                    const void* seed, long long n, int dtype,
+                                    const void* seed, long long n,
+                                    long long offset, int dtype,
                                     unsigned int thresh, float scale,
                                     void* stream) {
-  return launch<Fwd>(x, nullptr, out, seed, n, dtype, thresh, scale, stream);
+  return launch<Fwd>(x, nullptr, out, seed, n, offset, dtype, thresh, scale,
+                     stream);
 }
 
 extern "C" int bdvs_elu_dropout_bwd(const void* x, const void* ct, void* dx,
-                                    const void* seed, long long n, int dtype,
+                                    const void* seed, long long n,
+                                    long long offset, int dtype,
                                     unsigned int thresh, float scale,
                                     void* stream) {
-  return launch<Bwd>(x, ct, dx, seed, n, dtype, thresh, scale, stream);
+  return launch<Bwd>(x, ct, dx, seed, n, offset, dtype, thresh, scale,
+                     stream);
 }

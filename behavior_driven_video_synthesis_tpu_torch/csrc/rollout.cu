@@ -45,11 +45,20 @@
 //     the whole K chain, alternating two accumulator sets so that dependent
 //     products do not wait on each other.  n8 tiles wholly past B are
 //     skipped.
-//   * x' needs all of h'.  Instead of a second barrier, each block adds its
-//     units' share of h' W_out into delta[t] (B x K f32) with atomics; after
-//     the barrier every block rebuilds x_{t+1} = x_t + (delta[t] + b_out)
-//     identically, and block 0 writes it out.  The atomics make the f32
-//     summation order, and so the last bits, vary from run to run.
+//   * x' needs all of h', summed in an order that does not change from run
+//     to run, so that a rollout repeated on the same operands is bit-equal.
+//     Each block writes its units' share of h' W_out (B x K f32) into its
+//     own row of partial (blocks, B, K: 491 KB at B=20, 6.3 MB at B=256 on
+//     128 blocks at H=1024, L2-resident).  After the step's grid barrier,
+//     block j sums a contiguous slice of the B x K elements: its threads
+//     take (element, run of blocks) pairs, consecutive threads on
+//     consecutive elements so that the partials' rows are read coalesced,
+//     each adds its run's partials in block order, and the runs' sums are
+//     added in run order through shared memory into delta[t].  A second
+//     barrier publishes delta[t]; then every block rebuilds x_{t+1} = x_t +
+//     (delta[t] + b_out) identically, and block 0 writes it out.  The
+//     second barrier costs about one more barrier floor a rollout (50
+//     barriers: 0.060 ms at B=20; NVIDIA H100 80GB HBM3, 700.00 W, PERF.md).
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,7 +81,8 @@ struct Params {
   const __nv_bfloat16* w_out;   // (H, K)
   const float* b_out;           // (K,)
   __nv_bfloat16* h;             // (2, B, H); h[0] holds bf16(b) on entry
-  float* delta;                 // (T, B, K) zero on entry: h' W_out sums
+  float* partial;               // (gridDim.x, B, K): each block's h' W_out
+  float* delta;                 // (T, B, K): the sums of partial, by step
   float* out;                   // (B, T, K)
   int B, K, H, T, U;
   int Hp, KW;                   // H padded to 16; Hp + (K padded to 16)
@@ -89,7 +99,7 @@ __host__ __device__ inline size_t align16(size_t n) {
 // Byte offsets of the dynamic shared-memory pieces, shared by host and
 // device so the two cannot disagree.
 struct Layout {
-  size_t w, hx, gates, hn, wout, bias, total;
+  size_t w, hx, gates, hn, wout, bias, red, total;
 };
 
 __host__ __device__ inline Layout make_layout(int B, int K, int KW, int U,
@@ -106,6 +116,7 @@ __host__ __device__ inline Layout make_layout(int B, int K, int KW, int U,
   L.hn = off;    off += align16(rows * U * 4);
   L.wout = off;  off += align16(static_cast<size_t>(U) * K * 2);
   L.bias = off;  off += align16(R * 4);
+  L.red = off;   off += align16(kThreads * 4);
   L.total = off;
   return L;
 }
@@ -191,6 +202,7 @@ __global__ void __launch_bounds__(kThreads, 1) rollout_kernel(Params p) {
   float* hn_s = reinterpret_cast<float*>(smem + L.hn);
   __nv_bfloat16* wout_s = reinterpret_cast<__nv_bfloat16*>(smem + L.wout);
   float* bias_s = reinterpret_cast<float*>(smem + L.bias);
+  float* red_s = reinterpret_cast<float*>(smem + L.red);
   const int tile_rows = round_up(min(B, kRowTile), 8);
 
   // ---- this block's weight rows, loaded once for all T steps ------------
@@ -233,6 +245,7 @@ __global__ void __launch_bounds__(kThreads, 1) rollout_kernel(Params p) {
     const __nv_bfloat16* h_cur = p.h + static_cast<size_t>(t & 1) * B * H;
     __nv_bfloat16* h_next = p.h + static_cast<size_t>((t + 1) & 1) * B * H;
     float* delta_t = p.delta + static_cast<size_t>(t) * B * K;
+    float* part = p.partial + static_cast<size_t>(blockIdx.x) * B * K;
 
     for (int b0 = 0; b0 < B; b0 += kRowTile) {
       const int nb = min(kRowTile, B - b0);
@@ -321,15 +334,48 @@ __global__ void __launch_bounds__(kThreads, 1) rollout_kernel(Params p) {
       }
       __syncthreads();
 
-      // this block's units' share of h' W_out
+      // this block's units' share of h' W_out, into its row of partial
       for (int i = tid; i < nb * K; i += kThreads) {
         const int r = i / K, k = i % K;
         float s = 0.f;
         for (int ul = 0; ul < U; ++ul)
           s = fmaf(hn_s[r * U + ul], __bfloat162float(wout_s[ul * K + k]), s);
-        atomicAdd(delta_t + static_cast<size_t>(b0 + r) * K + k, s);
+        __stcg(part + static_cast<size_t>(b0 + r) * K + k, s);
       }
       __syncthreads();  // the next tile overwrites hx_s, gates_s and hn_s
+    }
+    grid.sync();
+
+    // delta[t] = the sum of every block's partial, in a fixed order: this
+    // block's slice [e0, e1) of the B x K elements, in groups of at most
+    // kThreads elements; thread (el, run) adds the partials of the run's
+    // blocks in order, then the runs' sums are added in run order
+    {
+      const int nblocks = gridDim.x, BK = B * K;
+      const int per = (BK + nblocks - 1) / nblocks;
+      const int e0 = blockIdx.x * per, e1 = min(BK, e0 + per);
+      for (int g0 = e0; g0 < e1; g0 += kThreads) {
+        const int m = min(kThreads, e1 - g0);      // elements of the group
+        const int runs = min(nblocks, kThreads / m);
+        const int span = (nblocks + runs - 1) / runs;
+        const int el = tid % m, run = tid / m;
+        if (run < runs) {
+          const float* src = p.partial + g0 + el;
+          const int j1 = min(nblocks, (run + 1) * span);
+          float s = 0.f;
+#pragma unroll 8
+          for (int j = run * span; j < j1; ++j)
+            s += __ldcg(src + static_cast<size_t>(j) * BK);
+          red_s[run * m + el] = s;
+        }
+        __syncthreads();
+        if (tid < m) {
+          float s = red_s[tid];
+          for (int r = 1; r < runs; ++r) s += red_s[r * m + tid];
+          __stcg(delta_t + g0 + tid, s);
+        }
+        __syncthreads();
+      }
     }
     grid.sync();
   }
@@ -414,12 +460,13 @@ extern "C" int bdvs_rollout_config(int B, int K, int H, int* out) {
 
 // Launches the rollout on `stream`; returns a cudaError_t (0 on success).
 // Does not synchronise.  The caller prepares the operands (see the top of
-// this file), c = b, h[0] = bf16(b) and a zeroed delta, and keeps every
-// buffer alive until the stream reaches it.
+// this file), c = b and h[0] = bf16(b), allocates partial as (blocks, B, K)
+// with the block count of bdvs_rollout_config and delta as (T, B, K), and
+// keeps every buffer alive until the stream reaches it.
 extern "C" int bdvs_residual_lstm_rollout(
     const float* x0, float* c, const void* w, const float* bias,
-    const void* w_out, const float* b_out, void* h, float* delta, float* out,
-    int B, int K, int H, int T, void* stream) {
+    const void* w_out, const float* b_out, void* h, float* partial,
+    float* delta, float* out, int B, int K, int H, int T, void* stream) {
   if (T < 1) return static_cast<int>(cudaErrorInvalidValue);
   Config cfg;
   cudaError_t err = make_config(B, K, H, &cfg);
@@ -432,6 +479,7 @@ extern "C" int bdvs_residual_lstm_rollout(
   p.w_out = static_cast<const __nv_bfloat16*>(w_out);
   p.b_out = b_out;
   p.h = static_cast<__nv_bfloat16*>(h);
+  p.partial = partial;
   p.delta = delta;
   p.out = out;
   p.B = B;

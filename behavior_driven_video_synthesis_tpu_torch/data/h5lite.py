@@ -1,4 +1,4 @@
-"""Flat HDF5 files of named arrays, read without h5py.
+"""Flat HDF5 files of named arrays, read and written without h5py.
 
 Human3.6M's ``annot_export.h5`` is a flat file: one group holding one
 dataset per column, each a contiguous array of fixed-point, floating-point
@@ -11,10 +11,21 @@ default: superblock version 0 or 1, a root group stored as a symbol table
 version 3 data-layout messages, contiguous or compact storage.  Anything
 else (chunked or compressed data, nested groups, new-style groups)
 raises ``ValueError``.
+
+:func:`write_columns` writes such a file for exactly that subset (the
+Human3.6M export of ``data/prep/process.py`` on a machine without h5py):
+superblock version 0 with 8-byte offsets and lengths, the root group as a
+symbol table (one version 1 B-tree leaf over symbol-table nodes of at
+most 8 names, the names in a local heap), a version 1 object header a
+column (dataspace, datatype, version 3 contiguous layout) and its data
+stored contiguously, little-endian.  The columns are integers, floats or
+fixed-length byte strings; they arrive one at a time from an iterable, and
+each is on disk before the next is made.
 """
 from __future__ import annotations
 
-from typing import Dict
+import struct
+from typing import Dict, Iterable, List, Tuple
 
 import numpy as np
 
@@ -152,3 +163,145 @@ def read_columns(path: str) -> Dict[str, np.ndarray]:
     with open(path, "rb") as f:
         r = _Reader(f.read())
     return {name: r.dataset(h) for name, h in r.group(r.root_header).items()}
+
+
+# Symbol-table node entries are at most 2 * _LEAF_K, B-tree children at
+# most 2 * _NODE_K (the superblock's "group leaf / internal node K", the
+# HDF5 library's defaults).
+_LEAF_K, _NODE_K = 4, 16
+
+
+def _pad8(b: bytes) -> bytes:
+    return b + bytes(-len(b) % 8)
+
+
+def _message(mtype: int, body: bytes) -> bytes:
+    body = _pad8(body)
+    return struct.pack("<HHB3x", mtype, len(body), 0) + body
+
+
+def _object_header(messages: List[bytes]) -> bytes:
+    """A version 1 object header holding ``messages``."""
+    body = b"".join(messages)
+    return struct.pack("<BxHII4x", 1, len(messages), 1, len(body)) + body
+
+
+def _datatype(dt: np.dtype) -> bytes:
+    """The datatype message of a little-endian integer, float or
+    fixed-length byte-string dtype."""
+    size = dt.itemsize
+    if dt.kind in "iu":
+        signed = 0x08 if dt.kind == "i" else 0
+        return struct.pack("<BBBBIHH", 0x10, signed, 0, 0, size, 0,
+                           8 * size)
+    if dt.kind == "f" and size in (4, 8):
+        exp, mant, bias = (8, 23, 127) if size == 4 else (11, 52, 1023)
+        return struct.pack("<BBBBIHHBBBBI", 0x11, 0x20, 8 * size - 1, 0,
+                           size, 0, 8 * size, mant, exp, 0, mant, bias)
+    if dt.kind == "S":
+        return struct.pack("<BBBBI", 0x13, 0x01, 0, 0, size)  # null-padded
+    raise ValueError(f"h5lite writes integer, float32/64 and byte-string "
+                     f"columns, not {dt}")
+
+
+def _column_header(shape, dt: np.dtype, addr: int, nbytes: int) -> bytes:
+    space = struct.pack("<BBBx4x", 1, len(shape), 0) + b"".join(
+        struct.pack("<Q", n) for n in shape)
+    layout = struct.pack("<BBQQ", 3, 1, addr, nbytes)
+    return _object_header([_message(0x01, space),
+                           _message(0x03, _datatype(dt)),
+                           _message(0x08, layout)])
+
+
+def _little_endian(a: np.ndarray) -> np.ndarray:
+    if a.dtype.kind in "iuf" and a.dtype.byteorder == ">":
+        a = a.astype(a.dtype.newbyteorder("<"))
+    return np.ascontiguousarray(a)
+
+
+def write_columns(path: str,
+                  columns: Iterable[Tuple[str, np.ndarray]]) -> str:
+    """Write (name, array) pairs as the root group's datasets of a new
+    HDF5 file at ``path``, which :func:`read_columns` and h5py read.  Each
+    array is written before the next is taken from ``columns``.  Returns
+    ``path``."""
+    entries = {}
+    with open(path, "wb") as f:
+        f.write(bytes(96))                    # the superblock, written last
+        for name, a in columns:
+            if not name or "/" in name or "\0" in name:
+                raise ValueError(f"bad column name {name!r}")
+            if name in entries:
+                raise ValueError(f"column {name!r} given twice")
+            a = np.asarray(a)
+            if a.ndim == 0:
+                raise ValueError(f"column {name!r} is 0-d: h5lite writes "
+                                 f"arrays of one or more dimensions")
+            a = _little_endian(a)
+            _datatype(a.dtype)                # refuse before writing
+            f.write(bytes(-f.tell() % 8))
+            addr = f.tell()
+            f.write(a.tobytes())
+            f.flush()
+            entries[name] = (a.shape, a.dtype, addr, a.nbytes)
+            del a
+        if not entries:
+            raise ValueError("no columns to write")
+        f.write(bytes(-f.tell() % 8))
+        names = sorted(entries, key=str.encode)   # the library's strcmp
+
+        # the columns' object headers
+        headers = {}
+        for name in names:
+            headers[name] = f.tell()
+            f.write(_column_header(*entries[name]))
+
+        # the local heap of the names: offset 0 holds the empty name
+        heap_data, offsets = bytearray(8), {}
+        for name in names:
+            offsets[name] = len(heap_data)
+            heap_data += _pad8(name.encode() + b"\0")
+        heap = f.tell()
+        # free list offset 1: none (the library's end-of-list mark)
+        f.write(b"HEAP" + struct.pack("<B3xQQQ", 0, len(heap_data), 1,
+                                      heap + 32))
+        f.write(heap_data)
+
+        # symbol-table nodes of at most 2 * _LEAF_K names, in name order
+        per = 2 * _LEAF_K
+        groups = [names[i:i + per] for i in range(0, len(names), per)]
+        if len(groups) > 2 * _NODE_K:
+            raise ValueError(f"h5lite writes at most {2 * _NODE_K * per} "
+                             f"columns")
+        snods = []
+        for grp in groups:
+            snods.append(f.tell())
+            node = bytearray(b"SNOD" + struct.pack("<BxH", 1, len(grp)))
+            for name in grp:
+                node += struct.pack("<QQI4x16x", offsets[name],
+                                    headers[name], 0)
+            node += bytes(8 + 40 * per - len(node))
+            f.write(node)
+
+        # one B-tree leaf over them: key 0 the empty name, key i + 1 the
+        # last name of node i
+        btree = f.tell()
+        node = bytearray(b"TREE" + struct.pack("<BBHQQ", 0, 0, len(snods),
+                                               _UNDEF, _UNDEF))
+        node += struct.pack("<Q", 0)
+        for grp, child in zip(groups, snods):
+            node += struct.pack("<QQ", child, offsets[grp[-1]])
+        node += bytes(24 + 8 * (2 * _NODE_K + 1) + 8 * 2 * _NODE_K
+                      - len(node))
+        f.write(node)
+
+        root = f.tell()
+        f.write(_object_header([_message(0x11, struct.pack(
+            "<QQ", btree, heap))]))
+        eof = f.tell()
+        f.seek(0)
+        f.write(_SIGNATURE + struct.pack(
+            "<BBBBBBBBHHI", 0, 0, 0, 0, 0, 8, 8, 0, _LEAF_K, _NODE_K, 0))
+        f.write(struct.pack("<QQQQ", 0, _UNDEF, eof, _UNDEF))
+        f.write(struct.pack("<QQI4xQQ", 0, root, 1, btree, heap))
+    return path

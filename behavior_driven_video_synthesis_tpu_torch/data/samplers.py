@@ -136,6 +136,28 @@ class EntireSequenceSampler:
             yield anchors.tolist()
 
 
+class ShardSampler:
+    """This rank's slice of each batch of a batch sampler, for data
+    parallelism (``parallel/mesh.py``): every rank draws the same global
+    order (samplers seeded alike) and fetches only its own rows.  A batch
+    that does not split evenly raises."""
+
+    def __init__(self, batch_sampler, rank: int, world_size: int):
+        self.batch_sampler = batch_sampler
+        self.rank, self.world_size = rank, world_size
+
+    def __len__(self):
+        return len(self.batch_sampler)
+
+    def __iter__(self):
+        for batch in self.batch_sampler:
+            if len(batch) % self.world_size:
+                raise ValueError(f"batch of {len(batch)} items does not "
+                                 f"split over {self.world_size} ranks")
+            per = len(batch) // self.world_size
+            yield batch[self.rank * per:(self.rank + 1) * per]
+
+
 class SequenceSampler:
     """Batch sampler yielding lists of [idx, seq_len] with one seq_len per
     batch (keeps shapes static within a batch for scan/jit)."""

@@ -60,9 +60,23 @@ an error of the render; a frame without an image file gets a zero
 appearance, as there.  Every draw of the figures comes from a generator
 of their own (seeded ``general.seed + 2``), so a run's training metrics
 are the same with and without ``-v`` (the JAX figures take their keys
-from the training key sequence).  Not ported: ``training.fsdp`` (ROADMAP
-A14b).  ``metrics/sequence.py:mse_euler_per_action`` is ported; like the
-JAX experiment, this one does not call it.
+from the training key sequence).  ``metrics/sequence.py:
+mse_euler_per_action`` is ported; like the JAX experiment, this one does
+not call it.
+
+Under data parallelism (``parallel/mesh.py``, a ``torchrun`` launch)
+each rank trains on its rows of every global batch (the step's noise its
+rows of the global batch's draw, gamma following the global KL, every
+optimizer averaging its gradients over the ranks); ActNorm is set from the
+global sample batch on every rank, as the JAX flow state is made from one
+host batch; every rank evaluates the whole test batches; rank 0 alone
+logs, writes checkpoints and ``behavior.npz`` and draws the figures.
+``training.fsdp`` shards the flow's parameters and Adam moments over the
+ranks (``parallel/sharding_rules.py``: every leaf, on its largest
+dimension that the world size divides, else unevenly on dimension 0; JAX's
+``training.fsdp_min_size`` is ignored) and saves full tensors; without a
+process group it keeps the replicated layout, as the JAX experiment does
+on one device.
 """
 from __future__ import annotations
 
@@ -84,6 +98,7 @@ from ..models.flows import LatentFlow
 from ..models.init import init_like_jax_
 from ..models.probes import (ClassifierAction, ClassifierActionBeta,
                              RegressorFly)
+from ..parallel import mesh, sharding_rules
 from ..train.behavior import (BehaviorTrainState, make_behavior_eval_step,
                               make_behavior_train_step)
 from ..train.flow import FlowTrainState, make_flow_train_step
@@ -123,9 +138,6 @@ class InferenceDraws:
 class BehaviorNetExperiment(Experiment):
     def __init__(self, config, dirs, device):
         super().__init__(config, dirs, device)
-        if config.get("training", {}).get("fsdp", False):
-            raise NotImplementedError("training.fsdp (ROADMAP A14b): not "
-                                      "ported yet")
         tr = config.get("training", {})
         self.only_flow = bool(tr.get("only_flow", False))
         self.dtype = (torch.bfloat16 if bool(tr.get("bf16", False))
@@ -189,7 +201,7 @@ class BehaviorNetExperiment(Experiment):
         behavior.npz."""
         cfg = self.config
         tr = cfg["training"]
-        train_loader, meta = build_sequence_data(cfg, "train")
+        train_loader, meta = build_sequence_data(cfg, "train", shard=True)
         test_loader, _ = build_sequence_data(cfg, "test")
         seq_len = meta["seq_len"]
         n_epochs = int(tr["n_epochs"])
@@ -206,13 +218,16 @@ class BehaviorNetExperiment(Experiment):
                                               n_epochs * steps_per_epoch),
             gamma=torch.full((), float(tr.get("gamma_init", 0.0)),
                              device=self.device))
-        # a new epoch of the loader, as the JAX experiment's sample batch is
-        sample_batch = self._prep_batch(next(iter(train_loader)), meta)
+        # a new epoch of the loader, as the JAX experiment's sample batch is;
+        # the global batch on every rank
+        sample_batch = mesh.gather_rows(self._prep_batch(
+            next(iter(train_loader)), meta))
         mgr, start_step = self.restore(
             "reg_ckpt", lambda p: self._load(state, p))
         if self.only_flow:
             if start_step == 0:
                 self._fallback_ckpt(state)
+            mesh.replicate(modules.values())
         else:
             self._train_cvae(state, train_loader, test_loader, meta, mgr,
                              start_step, n_epochs, steps_per_epoch)
@@ -220,23 +235,28 @@ class BehaviorNetExperiment(Experiment):
 
         flow = self._build_flow()
         flow.initialize_(self._infer_b(net, sample_batch))
+        fsdp = self._shard_flow(flow)
         fstate = FlowTrainState(flow, make_flow_optimizer(flow, tr))
+        mesh.sync_gradients(fstate.optimizer)
         fmgr, fstart = self.restore(
-            "flow_ckpt", lambda p: self._load(fstate, p))
+            "flow_ckpt", lambda p: self._load_flow(fstate, p, fsdp))
+        if not fsdp:
+            mesh.replicate([flow])
         flow_step = make_flow_train_step(net)
         for epoch in range(fstart // steps_per_epoch, n_flow_epochs):
             for batch in prefetch_iter(iter(train_loader),
                                        lambda b: self._prep_batch(b, meta)):
-                self.collect(flow_step(fstate, batch,
-                                       generator=self.generator))
+                with mesh.batch_shard():
+                    self.collect(flow_step(fstate, batch,
+                                           generator=self.generator))
             with torch.no_grad():
                 z, _ = flow(self._infer_b(net, sample_batch))
             self.log(fstate.step, prefix="flow/", extra={
                 "flow_ks_p": ks_test_flow_gaussianity(z.cpu().numpy())})
-            fmgr.save(fstate.step, self._payload(fstate))
+            fmgr.save(fstate.step, self._flow_payload(fstate, fsdp))
         path = self.export_behavior(net, flow)
         return {"modules": modules, "state": state, "flow": flow,
-                "flow_state": fstate, "behavior_params": path,
+                "flow_state": fstate, "behavior_params": path, "fsdp": fsdp,
                 "n_params": {k: sum(p.numel() for p in m.parameters())
                              for k, m in dict(modules, flow=flow).items()}}
 
@@ -252,13 +272,18 @@ class BehaviorNetExperiment(Experiment):
         # the figures' batches come from a test loader of their own, so the
         # eval's batches are those of a run without them
         figure_loader = (build_sequence_data(self.config, "test")[0]
-                         if self.visualization else None)
+                         if self.visualization and mesh.is_main() else None)
+        mesh.replicate(state.modules.values())
+        for opt in state.optimizers.values():
+            if isinstance(opt, torch.optim.Optimizer):
+                mesh.sync_gradients(opt)
         for epoch in range(start_step // steps_per_epoch, n_epochs):
             enable = epoch < n_epochs - 10 or n_epochs <= 10
             for batch in prefetch_iter(iter(train_loader),
                                        lambda b: self._prep_batch(b, meta)):
-                self.collect(step_fn(state, batch, enable,
-                                     generator=self.generator))
+                with mesh.batch_shard():
+                    self.collect(step_fn(state, batch, enable,
+                                         generator=self.generator))
             self.log(state.step, prefix="train/")
             if (epoch + 1) % n_epoch_eval == 0:
                 self._run_eval(eval_fn, test_loader, meta, state.step)
@@ -604,6 +629,47 @@ class BehaviorNetExperiment(Experiment):
         state.load_state_dict(payload["state"])
         self.generator.set_state(payload["generator"])
 
+    def _shard_flow(self, flow) -> bool:
+        """Shard the flow over the process group with ``training.fsdp``
+        (JAX ``experiments/behavior_net.py:219-241``); True if it did."""
+        tr = self.config.get("training", {})
+        if not bool(tr.get("fsdp", False)):
+            return False
+        if not mesh.initialized():
+            print("flow stage: training.fsdp requested but only one "
+                  "device is visible — falling back to the replicated "
+                  "layout")
+            return False
+        if "fsdp_min_size" in tr:
+            print("flow stage: training.fsdp_min_size is ignored: every "
+                  "flow leaf is sharded, since PyTorch's multi-tensor Adam "
+                  "takes no mix of sharded and whole parameters")
+        sharding_rules.shard_fsdp(flow)
+        n = mesh.world_size()
+        print(f"flow stage: FSDP sharding of flow params + optimizer "
+              f"moments over {n} devices (each leaf on its largest "
+              f"dimension that {n} divides, else unevenly on dimension 0)")
+        return True
+
+    def _flow_payload(self, fstate, fsdp: bool) -> dict:
+        """The flow stage's save, full tensors also when sharded (every
+        rank calls it)."""
+        if not fsdp:
+            return self._payload(fstate)
+        msd, osd = sharding_rules.full_state(fstate.flow, fstate.optimizer)
+        return {"state": {"flow": msd, "optimizer": osd,
+                          "step": fstate.step},
+                "generator": self.generator.get_state()}
+
+    def _load_flow(self, fstate, payload, fsdp: bool) -> None:
+        if not fsdp:
+            return self._load(fstate, payload)
+        sd = payload["state"]
+        sharding_rules.load_full_state(fstate.flow, sd["flow"],
+                                       fstate.optimizer, sd["optimizer"])
+        fstate.step = int(sd["step"])
+        self.generator.set_state(payload["generator"])
+
     @staticmethod
     def _load_modules(modules, payload) -> None:
         """The cVAE stage's modules of a ``reg_ckpt`` save, without its
@@ -652,11 +718,16 @@ class BehaviorNetExperiment(Experiment):
         self.log(step, prefix="eval/")
 
     def export_behavior(self, net, flow=None) -> str:
-        """Write behavior.npz + behavior.json; returns the .npz path."""
+        """Write behavior.npz + behavior.json (rank 0; every rank calls it,
+        which gathers a sharded flow); returns the .npz path."""
+        path = os.path.join(self.dirs["ckpt"], "behavior.npz")
+        flow_sd = (sharding_rules.full_state(flow)[0] if flow is not None
+                   else None)
+        if not mesh.is_main():
+            return path
         tree = {"net": convert.behavior_net_to_flax(net.state_dict())}
         if flow is not None:
-            tree["flow"] = convert.latent_flow_to_flax(flow.state_dict())
-        path = os.path.join(self.dirs["ckpt"], "behavior.npz")
+            tree["flow"] = convert.latent_flow_to_flax(flow_sd)
         tmp = os.path.join(self.dirs["ckpt"], "behavior.tmp.npz")
         convert.save_flax_npz(tmp, tree)
         os.replace(tmp, path)

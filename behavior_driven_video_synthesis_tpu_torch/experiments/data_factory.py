@@ -9,6 +9,11 @@ Human3.6M sequence path (``human3.6m``, ``human36m``, ``h36m``, and
 ``SequenceSampler`` over an unseeded ``RandomSampler`` and a ``Loader``,
 as the JAX factory builds it.  One difference: for Human3.6M ``n_actions``
 is the span of the action ids, not their count (ROADMAP C5).
+
+With ``shard`` under data parallelism (``parallel/mesh.py``) the loader
+yields this rank's rows of each global batch: the synthetic batches are
+sliced, the Human3.6M loader fetches the rank's items alone, its samplers
+seeded with ``general.seed`` on every rank so that all draw one order.
 """
 from __future__ import annotations
 
@@ -18,9 +23,10 @@ import numpy as np
 
 from ..data.human36m import Human36mDataset
 from ..data.loader import Loader
-from ..data.samplers import RandomSampler, SequenceSampler
+from ..data.samplers import RandomSampler, SequenceSampler, ShardSampler
 from ..data.synthetic import (SyntheticSequenceDataset,
                               synthetic_h36m_columns)
+from ..parallel import mesh
 
 H36M_NAMES = ("human3.6m", "human36m", "h36m", "h36m_synthetic")
 
@@ -60,17 +66,20 @@ def normalize_action_labels(action: np.ndarray,
     return (action - offset).astype(np.int64)
 
 
-def build_sequence_data(config: dict,
-                        mode: str = "train") -> Tuple[object, Dict]:
+def build_sequence_data(config: dict, mode: str = "train",
+                        shard: bool = False) -> Tuple[object, Dict]:
     """(loader, meta) of a run config's keypoint-sequence data; ``mode``
     "train" or "test" (for synthetic data another seed and 512 sequences
-    by default; for Human3.6M the test split)."""
+    by default; for Human3.6M the test split); with ``shard`` the rank's
+    rows of each batch under data parallelism."""
+    shard = shard and mesh.world_size() > 1
     dcfg = config.get("data", {})
     batch_size = int(config["training"]["batch_size"])
     name = str(dcfg.get("dataset", "synthetic")).lower()
     seq_length = tuple(dcfg.get("seq_length", (50, 51)))
     if name in H36M_NAMES:
-        return _human36m_data(config, mode, name, seq_length, batch_size)
+        return _human36m_data(config, mode, name, seq_length, batch_size,
+                              shard)
     if name != "synthetic":
         raise ValueError(f"unsupported sequence dataset: {name}")
     n_kps = int(dcfg.get("n_kps", 51))
@@ -84,11 +93,12 @@ def build_sequence_data(config: dict,
     meta = {"n_kps": n_kps, "n_actions": n_actions, "dataset": ds,
             "norm_stats": None, "seq_len": seq_length[0],
             "action_offset": 0}
-    return SyntheticLoaderAdapter(ds, batch_size), meta
+    loader = SyntheticLoaderAdapter(ds, batch_size)
+    return (mesh.ShardedBatches(loader) if shard else loader), meta
 
 
 def _human36m_data(config: dict, mode: str, name: str, seq_length,
-                   batch_size: int) -> Tuple[Loader, Dict]:
+                   batch_size: int, shard: bool) -> Tuple[Loader, Dict]:
     dcfg = config.get("data", {})
     kwargs = {k: v for k, v in dcfg.items()
               if k not in ("dataset", "seq_length")}
@@ -110,8 +120,13 @@ def _human36m_data(config: dict, mode: str, name: str, seq_length,
             f"Human3.6M annot_export.h5 not found under "
             f"{dcfg.get('datapath')}: use dataset: synthetic or "
             f"h36m_synthetic, or provide the processed dataset")
-    sampler = SequenceSampler(ds, RandomSampler(ds), batch_size,
-                              drop_last=True)
+    # unseeded as in JAX, but alike on every rank under data parallelism
+    kw = ({"seed": int(config.get("general", {}).get("seed", 42))}
+          if shard else {})
+    sampler = SequenceSampler(ds, RandomSampler(ds, **kw), batch_size,
+                              drop_last=True, **kw)
+    if shard:
+        sampler = ShardSampler(sampler, mesh.rank(), mesh.world_size())
     loader = Loader(ds, sampler,
                     num_workers=int(dcfg.get("n_data_workers", 8)))
     # the heads span the label range: the JAX factory counts the distinct

@@ -34,7 +34,10 @@ infer``, ``mtvae_eval_<i>.png`` of the first test batch (filmstrips of a
 prior sample, the reconstruction, the transfer and the ground truth)
 under the run's ``generated`` directory.  The figures draw from a
 generator of their own (seeded ``general.seed + 2``), so training's
-metrics are the same with and without ``-v``.
+metrics are the same with and without ``-v``.  Under data parallelism
+(``parallel/mesh.py``) each rank trains on its rows of every global
+batch, with its rows of the step's noise, and the gradients averaged
+over the ranks; rank 0 logs, saves and draws the figures.
 """
 from __future__ import annotations
 
@@ -49,6 +52,7 @@ from ..data.loader import prefetch_iter
 from ..metrics.sequence import sequence_sample_metrics
 from ..models.init import init_like_jax_
 from ..models.mtvae import MTVAE
+from ..parallel import mesh
 from ..train.mtvae_exp import MTVAETrainState, make_mtvae_train_step
 from ..train.state import make_mtvae_optimizer
 from . import visualize
@@ -106,7 +110,7 @@ class MTVAEExperiment(Experiment):
         """Returns the model, its train state and its parameter count."""
         cfg = self.config
         tr = cfg["training"]
-        train_loader, meta = build_sequence_data(cfg, "train")
+        train_loader, meta = build_sequence_data(cfg, "train", shard=True)
         n_epochs = int(tr["n_epochs"])
         if self.debug:
             n_epochs = min(n_epochs, 2)
@@ -116,15 +120,18 @@ class MTVAEExperiment(Experiment):
         # a new epoch of the loader, as the JAX experiment's sample batch is
         next(iter(train_loader))
         mgr, start = self.restore("reg_ckpt", lambda p: self._load(state, p))
+        mesh.replicate([model])
+        mesh.sync_gradients(state.optimizer)
         step_fn = make_mtvae_train_step(
             cfg, steps_per_epoch * max(1, n_epochs - 10))
         for epoch in range(start // steps_per_epoch, n_epochs):
             enable = epoch < n_epochs - 10 or n_epochs <= 10
             for batch in prefetch_iter(iter(train_loader), self._prep_batch):
-                self.collect(step_fn(state, batch, enable,
-                                     generator=self.generator))
+                with mesh.batch_shard():
+                    self.collect(step_fn(state, batch, enable,
+                                         generator=self.generator))
             self.log(state.step, prefix="train/")
-            if self.visualization:
+            if self.visualization and mesh.is_main():
                 visualize.visualize_mtvae(
                     model, batch, self.dirs["generated"],
                     norm_stats=meta.get("norm_stats"),

@@ -14,7 +14,14 @@ on the device) or a real one through ``data/__init__.py:get_dataset``:
 ``PerPersonSampler`` where the dataset has persons, else a
 ``RandomSampler``, under a ``SequenceSampler``) and whose batches go to
 the device from pinned memory without blocking, a batch ahead, the part
-stacks made there.  With ``data.inplane_normalize`` the appearance is the
+stacks made there.  Under data parallelism (``parallel/mesh.py``, a
+``torchrun`` launch) each rank trains on its rows of every global batch of
+the train split (its items alone fetched from files, the samplers seeded
+with ``general.seed`` on every rank), its optimizers average their
+gradients over the ranks, the step's noise and dropout masks are its rows
+of the global batch's, and gamma follows the KL of the global batch;
+every rank evaluates the whole test split, and rank 0 writes.  With
+``data.inplane_normalize`` the appearance is the
 30-channel part stack, and the VUNet's appearance encoder takes 30
 channels:
 
@@ -79,7 +86,8 @@ from ..core.checkpoint import CheckpointManager
 from ..data import get_dataset
 from ..data.loader import Loader, prefetch_iter
 from ..data.parts import PART_SUFFIXES, finish_part_stacks
-from ..data.samplers import PerPersonSampler, RandomSampler, SequenceSampler
+from ..data.samplers import (PerPersonSampler, RandomSampler,
+                             SequenceSampler, ShardSampler)
 from ..data.synthetic_images import SyntheticImageDataset
 from ..metrics.fid import fid_from_features
 from ..metrics.inception_score import inception_score_from_logits
@@ -90,6 +98,7 @@ from ..models.inception import (InceptionV3Features, inception_features,
 from ..models.init import init_like_jax_
 from ..models.perceptual import perceptual_from_config
 from ..models.vunet import VunetRegressor, latent_widths, vunet_from_config
+from ..parallel import mesh
 from ..train.gan import build_discriminator, create_gan_state
 from ..train.state import make_vunet_optimizers
 from ..train.vunet_exp import (VunetTrainState, make_cvbae_train_step,
@@ -159,7 +168,9 @@ class ShapePoseExperiment(Experiment):
         """(batches, dataset) of the train or test split, built once a
         split: the synthetic dataset (seed 0 or 1) rendered on the device,
         or a real dataset's batches placed on it (:class:`_DeviceBatches`).
-        """
+        Under data parallelism the train split's batches are the rank's
+        rows of the global batches."""
+        sharded = mode == "train" and mesh.world_size() > 1
         if mode in self._datasets:
             return self._datasets[mode]
         dcfg = self.config.get("data", {})
@@ -176,7 +187,8 @@ class ShapePoseExperiment(Experiment):
                 inplane_normalize=self.inplane,
                 box_factor=int(dcfg.get("box_factor", 2)),
                 device=self.device)
-            out = (_Epochs(ds, bs, 1 if mode == "train" else 1000), ds)
+            batches = _Epochs(ds, bs, 1 if mode == "train" else 1000)
+            out = (mesh.ShardedBatches(batches) if sharded else batches, ds)
         else:
             kwargs = {k: v for k, v in dcfg.items()
                       if k not in ("dataset", "seq_length")}
@@ -189,9 +201,15 @@ class ShapePoseExperiment(Experiment):
                 raise ValueError(f"the {name} dataset at data.datapath "
                                  f"{dcfg.get('datapath')!r} holds no {mode} "
                                  f"images")
-            ids = (PerPersonSampler(ds) if getattr(ds, "person_ids", None)
-                   else RandomSampler(ds))
-            loader = Loader(ds, SequenceSampler(ds, ids, bs),
+            kw = {"seed": self.seed} if sharded else {}
+            ids = (PerPersonSampler(ds, **kw)
+                   if getattr(ds, "person_ids", None)
+                   else RandomSampler(ds, **kw))
+            sampler = SequenceSampler(ds, ids, bs)
+            if sharded:
+                sampler = ShardSampler(sampler, mesh.rank(),
+                                       mesh.world_size())
+            loader = Loader(ds, sampler,
                             num_workers=int(dcfg.get("n_data_workers", 8)))
             part = ds.spatial_size // 2 ** ds.box_factor
             out = (_DeviceBatches(loader, self.device, part), ds)
@@ -274,6 +292,10 @@ class ShapePoseExperiment(Experiment):
         state = VunetTrainState(gamma=torch.zeros((), device=self.device))
         mgr, _ = self.restore("reg_ckpt", lambda p: self._load(
             p, modules, optimizers, state, gens[1:]))
+        mesh.replicate(modules.values())
+        for opt in optimizers.values():
+            if isinstance(opt, torch.optim.Optimizer):
+                mesh.sync_gradients(opt)
 
         end_iteration = int(tr.get("end_iteration", 1000))
         if self.debug:
@@ -293,8 +315,9 @@ class ShapePoseExperiment(Experiment):
 
         while state.step < end_iteration:
             for batch in loader:
-                self.collect(step_fn(state, batch, generator=gens[1],
-                                     dropout_generator=gens[2]))
+                with mesh.batch_shard():
+                    self.collect(step_fn(state, batch, generator=gens[1],
+                                         dropout_generator=gens[2]))
                 it = state.step
                 if it % 50 == 0 or it == end_iteration:
                     self.log(it)
@@ -337,14 +360,16 @@ class ShapePoseExperiment(Experiment):
             g.set_state(s)
 
     def save_synth(self, vunet, regressor) -> str:
-        """Write synth.npz + synth.json; returns the .npz path."""
+        """Write synth.npz + synth.json (rank 0); returns the .npz path."""
+        path = os.path.join(self.dirs["ckpt"], "synth.npz")
+        if not mesh.is_main():
+            return path
         to_flax = (convert.vunet_org_to_flax if self.variant == "org"
                    else convert.vunet_alter_to_flax)
         tree = {"vunet": to_flax(vunet.state_dict())}
         if regressor is not None:
             tree["regressor"] = convert.vunet_regressor_to_flax(
                 regressor.state_dict())
-        path = os.path.join(self.dirs["ckpt"], "synth.npz")
         tmp = os.path.join(self.dirs["ckpt"], "synth.tmp.npz")
         convert.save_flax_npz(tmp, tree)
         os.replace(tmp, path)
@@ -356,7 +381,9 @@ class ShapePoseExperiment(Experiment):
 
     def _record_metric_ckpt(self, step: int, ssim_val: float) -> None:
         """The step's SSIM in ``<ckpt dir>/metric_ckpts.json`` (the JAX
-        driver's sidecar beside its integer-stepped saves)."""
+        experiment's sidecar beside its integer-stepped saves; rank 0)."""
+        if not mesh.is_main():
+            return
         path = os.path.join(self.dirs["ckpt"], "metric_ckpts.json")
         records = {}
         if os.path.exists(path):
@@ -370,7 +397,11 @@ class ShapePoseExperiment(Experiment):
     def _log_image_grids(self, vunet, batch, step: int,
                          n: int = N_GRID_IMAGES) -> str:
         """Target, stickman, transfer and prior sample of the first ``n``
-        items side by side, one item a row, under the generated dir."""
+        items side by side, one item a row, under the generated dir (by
+        rank 0; every rank draws the noise, which keeps the ranks'
+        generators alike)."""
+        batch = mesh.gather_rows({k: batch[k] for k in
+                                  ("app_img", "stickman", "pose_img")})
         app, stick = batch["app_img"][:n], batch["stickman"][:n]
         target = batch["pose_img"][:n]
         recon = vunet.transfer(app, stick, self._eps(len(app)),
@@ -378,9 +409,11 @@ class ShapePoseExperiment(Experiment):
         prior = vunet.test_forward(stick, generator=self.generator)
         rows = torch.cat([target[..., :3].float(), stick.float(),
                           recon.float(), prior.float()], dim=2)
+        path = os.path.join(self.dirs["generated"], f"grid_{step:07d}.png")
+        if not mesh.is_main():
+            return path
         grid = make_img_grid(frames_to_uint8(rows.cpu().numpy()), n_cols=1)
-        return write_image(grid, os.path.join(self.dirs["generated"],
-                                              f"grid_{step:07d}.png"))
+        return write_image(grid, path)
 
     # -- evaluation ---------------------------------------------------------
     def _batch_keypoints(self, batch, ds) -> torch.Tensor:
@@ -490,7 +523,7 @@ class ShapePoseExperiment(Experiment):
                     torch.cat(feats[logits]))[0]
         if compute_fid:
             gt = torch.cat([g.to(self.device) for g in feats["gt"]])
-            if not have_gt_cache:
+            if not have_gt_cache and mesh.is_main():
                 np.save(fid_cache, gt.cpu().numpy())
             metrics["fid"] = fid_from_features(torch.cat(feats["recon"]), gt)
         self.log(step, prefix="eval/", extra=metrics, collected=False)

@@ -43,6 +43,19 @@ directory) whose VUNet renders behavior_net's RGB figures.  Neither is
 dumped with the config.
 ``training.dropout_rng`` is accepted and has no effect (the TPU's rng-bit
 generator has no counterpart here).
+
+A plain launch trains on one device, where the JAX CLI takes every local
+device.  For data parallelism over N GPUs, launch one process per GPU::
+
+    torchrun --nproc_per_node=N -m behavior_driven_video_synthesis_tpu_torch.main -c ...
+
+With ``WORLD_SIZE`` set (torchrun sets it) the CLI joins the process group
+(NCCL, or gloo with ``--device cpu``), each rank on ``cuda:LOCAL_RANK``;
+an existing group of the caller's is used as it is.  The global batch
+stays ``training.batch_size`` (``parallel/mesh.py``).  Rank 0 writes the
+run's config, logs and checkpoints; every rank restores; ``-m infer`` runs
+on rank 0 alone, while the other ranks return at once (no collective
+follows the split, so no collective's timeout bounds the evaluation).
 """
 from __future__ import annotations
 
@@ -58,6 +71,7 @@ import torch
 from .core.config import load_config, save_config
 from .core.precision import disable_tf32, tf32_enabled
 from .experiments import EXPERIMENTS, select_experiment
+from .parallel import mesh
 
 
 def create_dir_structure(config: dict, model_name: str):
@@ -208,6 +222,15 @@ def main(argv=None):
     args = parse_args(argv)
     disable_tf32()
     device = resolve_device(args.device)
+    rank_device = mesh.init_from_env(device)
+    try:
+        return _run(args, rank_device or device)
+    finally:
+        if rank_device is not None:
+            mesh.shutdown()
+
+
+def _run(args, device):
     config = load_config(args.config)
     experiment = config.get("general", {}).get("experiment")
     if experiment not in EXPERIMENTS:
@@ -222,8 +245,12 @@ def main(argv=None):
     config.setdefault("general", {})["tf32"] = tf32_enabled()
     if args.flow:
         config.setdefault("training", {})["only_flow"] = True
-    config, dirs = load_parameters(config, args.debug, args.restart,
-                                   args.pretrained_model)
+    if mesh.is_main():
+        config, dirs = load_parameters(config, args.debug, args.restart,
+                                       args.pretrained_model)
+    mesh.barrier()
+    if not mesh.is_main():    # the config rank 0 dumped into the run
+        config, dirs = load_parameters(config, args.debug, restart=True)
     if args.flow:   # also over a config reloaded from a run
         config.setdefault("training", {})["only_flow"] = True
     if args.visualization:
@@ -231,7 +258,12 @@ def main(argv=None):
     if args.synth_model:
         config.setdefault("logging", {})["synth_params"] = args.synth_model
     exp = select_experiment(config, dirs, device, args.restart)
-    return exp.run_inference() if args.mode == "infer" else exp.run_training()
+    if args.mode != "infer":
+        return exp.run_training()
+    if not mesh.is_main():
+        return None
+    with mesh.alone():
+        return exp.run_inference()
 
 
 if __name__ == "__main__":

@@ -16,6 +16,7 @@ from torch import nn
 from ..ops.cuda import rollout
 from ..ops.nn import NormDense
 from ..ops.recurrent import LSTM
+from ..ops import batch_draws
 
 
 class BehaviorEncoder(nn.Module):
@@ -47,8 +48,8 @@ class BehaviorEncoder(nn.Module):
         mu = self.mu_fn(pre)
         logstd = self.std_fn(pre)
         if eps is None:
-            eps = torch.randn(mu.shape, generator=generator, dtype=mu.dtype,
-                              device=mu.device)
+            eps = batch_draws.randn(mu.shape, generator=generator,
+                                    dtype=mu.dtype, device=mu.device)
         eps = eps.to(mu.dtype)
         b = eps if sample else mu + torch.exp(logstd) * eps
         return b, mu, logstd, pre

@@ -33,6 +33,7 @@ import torch
 from torch import nn
 
 from ..ops.recurrent import LSTM
+from ..ops import batch_draws
 from .probes import FCResnet, linear
 
 NOISE_SITES = ("h0", "c0", "z", "cycle")
@@ -61,7 +62,7 @@ class MTVAE(nn.Module):
 
     def draw_noise(self, batch: int, generator=None, device=None
                    ) -> Dict[str, torch.Tensor]:
-        return {k: torch.randn(s, generator=generator, device=device)
+        return {k: batch_draws.randn(s, generator=generator, device=device)
                 for k, s in self.noise_shapes(batch).items()}
 
     def _encode(self, seq, h0c0):

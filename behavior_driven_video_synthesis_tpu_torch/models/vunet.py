@@ -40,6 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops import batch_draws
 from ..ops.nn import (CONV_LAYERS, Downsample, NormConv2d, Upsample,
                       VunetRNB, checkpoint_with_generators, conv2d_nhwc,
                       depth_to_space, quant_calibration, quant_scales,
@@ -60,8 +61,8 @@ def _noise(eps: Optional[Sequence[torch.Tensor]], i: int, like: torch.Tensor,
            generator: Optional[torch.Generator]) -> torch.Tensor:
     if eps is not None:
         return eps[i].to(device=like.device, dtype=like.dtype)
-    return torch.randn(like.shape, generator=generator, dtype=like.dtype,
-                       device=like.device)
+    return batch_draws.randn(like.shape, generator=generator,
+                             dtype=like.dtype, device=like.device)
 
 
 class EncUp(nn.Module):

@@ -1,5 +1,6 @@
-"""int8 3x3 convolution (padding 1, stride 1 or 2): the CUDA kernel's
-wrapper, the weight preparation and the plain PyTorch version.
+"""int8 convolution: the CUDA kernel's wrapper (3x3, padding 1, stride 1
+or 2), the library route for every other kernel size, padding and stride,
+the weight preparation and the plain PyTorch version.
 
 Counterpart of the JAX package's ``ops/nn.py:_conv_int8`` (:111), which XLA
 lowers (no Pallas kernel).  For NHWC x in bf16 or f32 and a float kernel W
@@ -23,7 +24,12 @@ set of weights (:func:`quantize_weight`, :func:`pack_weights`;
 ``NormConv2d`` caches them).
 
 CUDA tensors launch the kernel or raise; CPU tensors take the plain
-version.
+version.  Shapes the kernel does not take (any kernel size, padding or
+stride but 3x3, padding 1, stride 1 or 2) go on the card through
+:func:`conv_int8_unfold`: ``F.unfold`` and one cuBLASLt int8 GEMM
+(``torch._int_mm``) for the same int32 sums, then the same epilogue.  JAX
+leaves every int8 conv to XLA; the kernel covers the shapes the VUNet
+quantizes.
 """
 from __future__ import annotations
 
@@ -38,6 +44,8 @@ from .build import load_library
 
 # Launches of the kernel since import (or since a caller last reset it).
 conv_int8_launches = 0
+# Calls of the library route (conv_int8_unfold) on the card since import.
+conv_int8_unfold_calls = 0
 
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 
@@ -80,13 +88,68 @@ def dequant_scale(ax: torch.Tensor, aw: torch.Tensor) -> torch.Tensor:
     return _true_div(ax.float() * aw, 127.0 * 127.0)
 
 
+def _sums_plain(x, w_q, ax, stride, padding):
+    """The int32 sums of the quantized conv, as a float64 conv of the int8
+    values (exact)."""
+    xq = quantize_act(x, ax).double().permute(0, 3, 1, 2)
+    acc = F.conv2d(xq, w_q.double(), None, stride, padding)
+    return acc.permute(0, 2, 3, 1).to(torch.int32)
+
+
+def _round8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def _sums_unfold(x, w_q, ax, stride, padding):
+    """The same int32 sums through the library: the quantized x unfolded
+    (in x's dtype, which holds int8 values exactly; unfold takes no int8),
+    the patches to int8, then one ``torch._int_mm``, whose operands are
+    zero-padded to what cuBLASLt takes (more than 16 rows, a depth and a
+    width that are multiples of 8)."""
+    B, H, W, Cin = x.shape
+    N, _, kh, kw = w_q.shape
+    Ho = (H + 2 * padding - kh) // stride + 1
+    Wo = (W + 2 * padding - kw) // stride + 1
+    xq = quantize_act(x, ax).permute(0, 3, 1, 2)
+    cols = F.unfold(xq, (kh, kw), padding=padding, stride=stride)
+    a = cols.transpose(1, 2).reshape(-1, Cin * kh * kw).to(torch.int8)
+    M, Kd = a.shape
+    a = F.pad(a, (0, _round8(Kd) - Kd, 0, max(17, _round8(M)) - M))
+    w = F.pad(w_q.reshape(N, Kd), (0, _round8(Kd) - Kd, 0,
+                                   _round8(N) - N))
+    acc = torch._int_mm(a, w.t())[:M, :N]
+    return acc.reshape(B, Ho, Wo, N)
+
+
+def _int8_call(sums, x, w_q, aw, ax, bias, stride, padding, dtype,
+               accumulators, aux, aux_w_q, aux_aw, ax_aux, gamma, beta):
+    """A NormConv2d's int8 call around ``sums`` (one of the functions
+    above): dequantize, bias, aux's conv added in ``dtype``, the affine."""
+    acc = sums(x, w_q, ax, stride, padding)
+    if accumulators:
+        if aux is None:
+            return acc
+        return acc, sums(aux, aux_w_q, ax_aux, stride, padding)
+    dtype = dtype or x.dtype
+    y = acc.float() * dequant_scale(ax, aw)
+    if bias is not None:
+        y = y + bias.float()
+    y = y.to(dtype)
+    if aux is not None:
+        y = y + (sums(aux, aux_w_q, ax_aux, stride, padding).float()
+                 * dequant_scale(ax_aux, aux_aw)).to(dtype)
+    if gamma is not None:
+        y = (gamma.reshape(-1).to(dtype) * y) + beta.reshape(-1).to(dtype)
+    return y
+
+
 def conv_int8_plain(x, w_q, aw, ax, bias=None, stride: int = 1,
-                    dtype=None, accumulators: bool = False, *, aux=None,
-                    aux_w_q=None, aux_aw=None, ax_aux=None, gamma=None,
-                    beta=None):
+                    dtype=None, accumulators: bool = False, *,
+                    padding: int = 1, aux=None, aux_w_q=None, aux_aw=None,
+                    ax_aux=None, gamma=None, beta=None):
     """The kernel's function in PyTorch.  x NHWC (bf16 or f32), w_q int8
-    OIHW (N, Cin, 3, 3), aw (N,) f32, ax a 0-d f32 tensor, bias (N,) f32 or
-    None.  Returns NHWC in ``dtype`` (default x's), or with
+    OIHW (N, Cin, kh, kw), aw (N,) f32, ax a 0-d f32 tensor, bias (N,) f32
+    or None.  Returns NHWC in ``dtype`` (default x's), or with
     ``accumulators`` the int32 sums.
 
     With ``aux`` (NHWC, its own int8 weights ``aux_w_q``, ``aux_aw`` and
@@ -95,25 +158,31 @@ def conv_int8_plain(x, w_q, aw, ax, bias=None, stride: int = 1,
     ``gamma * y + beta``, each op rounded to ``dtype``: a NormConv2d's int8
     call.  With ``accumulators`` and ``aux`` it returns (acc_x, acc_aux).
     """
-    xq = quantize_act(x, ax).double().permute(0, 3, 1, 2)
-    acc = F.conv2d(xq, w_q.double(), None, stride, 1).permute(0, 2, 3, 1)
-    if accumulators:
-        acc = acc.to(torch.int32)
-        if aux is None:
-            return acc
-        return acc, conv_int8_plain(aux, aux_w_q, aux_aw, ax_aux,
-                                    stride=stride, accumulators=True)
-    dtype = dtype or x.dtype
-    y = acc.float() * dequant_scale(ax, aw)
-    if bias is not None:
-        y = y + bias.float()
-    y = y.to(dtype)
-    if aux is not None:
-        y = y + conv_int8_plain(aux, aux_w_q, aux_aw, ax_aux, None, stride,
-                                dtype)
-    if gamma is not None:
-        y = (gamma.reshape(-1).to(dtype) * y) + beta.reshape(-1).to(dtype)
-    return y
+    return _int8_call(_sums_plain, x, w_q, aw, ax, bias, stride, padding,
+                      dtype, accumulators, aux, aux_w_q, aux_aw, ax_aux,
+                      gamma, beta)
+
+
+def conv_int8_unfold(x, w_q, aw, ax, bias=None, stride: int = 1,
+                     dtype=None, accumulators: bool = False, *,
+                     padding: int = 1, aux=None, aux_w_q=None, aux_aw=None,
+                     ax_aux=None, gamma=None, beta=None):
+    """:func:`conv_int8_plain`'s function with the int32 sums from
+    ``F.unfold`` + ``torch._int_mm``: the route on the card for the shapes
+    the kernel does not take.  Equal to the plain version, sums and
+    outputs."""
+    global conv_int8_unfold_calls
+    out = _int8_call(_sums_unfold, x, w_q, aw, ax, bias, stride, padding,
+                     dtype, accumulators, aux, aux_w_q, aux_aw, ax_aux,
+                     gamma, beta)
+    if x.device.type == "cuda":
+        conv_int8_unfold_calls += 1
+    return out
+
+
+def kernel_takes(kernel_size: int, padding: int, stride: int) -> bool:
+    """Whether the int8 conv kernel computes a conv of this shape."""
+    return (kernel_size, padding) == (3, 1) and stride in (1, 2)
 
 
 # Output channels of one pass of the kernel (csrc/conv_int8.cu:
@@ -320,21 +389,25 @@ def conv_int8_plan(B, H, W, cin, n, *, stride=1, aux_cin=0,
 
 
 def conv_int8(x, w_q, aw, ax, bias=None, stride: int = 1, dtype=None,
-              packed: Optional[PackedWeights] = None, *, aux=None,
-              aux_w_q=None, aux_aw=None, ax_aux=None,
+              packed: Optional[PackedWeights] = None, *, padding: int = 1,
+              aux=None, aux_w_q=None, aux_aw=None, ax_aux=None,
               aux_packed: Optional[PackedWeights] = None, gamma=None,
               beta=None):
     """The int8 conv of NHWC x with prepared weights (w_q, aw), with the
-    optional aux input and affine of :func:`conv_int8_plain`: the kernel
-    for a CUDA tensor, which needs ``packed`` (and ``aux_packed``;
-    :func:`pack_weights` of them, made once by the caller), the plain
-    version for a CPU tensor."""
+    optional aux input and affine of :func:`conv_int8_plain`: for a CUDA
+    tensor the kernel where it takes the shape (:func:`kernel_takes`),
+    which needs ``packed`` (and ``aux_packed``; :func:`pack_weights` of
+    them, made once by the caller), else :func:`conv_int8_unfold`; the
+    plain version for a CPU tensor."""
+    kw = dict(padding=padding, aux=aux, aux_w_q=aux_w_q, aux_aw=aux_aw,
+              ax_aux=ax_aux, gamma=gamma, beta=beta)
     if x.device.type == "cpu":
-        return conv_int8_plain(x, w_q, aw, ax, bias, stride, dtype, aux=aux,
-                               aux_w_q=aux_w_q, aux_aw=aux_aw,
-                               ax_aux=ax_aux, gamma=gamma, beta=beta)
+        return conv_int8_plain(x, w_q, aw, ax, bias, stride, dtype, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"no int8 conv for device {x.device}")
+    if not kernel_takes(w_q.shape[-1], padding, stride) \
+            or w_q.shape[-2] != w_q.shape[-1]:
+        return conv_int8_unfold(x, w_q, aw, ax, bias, stride, dtype, **kw)
     if packed is None or (aux is not None and aux_packed is None):
         raise ValueError("a CUDA int8 conv needs its packed weights "
                          "(pack_weights, made once per set of weights)")

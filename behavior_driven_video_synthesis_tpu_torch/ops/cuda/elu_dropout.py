@@ -14,7 +14,11 @@ device tensor, drawn from the caller's ``torch.Generator``, so a site never
 syncs with the host); element ``4g + j`` takes word ``j`` of the block for
 counter ``(g mod 2**32, g div 2**32, 0, 0)``.  :func:`philox4x32_10` computes
 the same stream in torch integer arithmetic, so the plain version and the
-kernel (``csrc/elu_dropout.cu``) make identical keep decisions.
+kernel (``csrc/elu_dropout.cu``) make identical keep decisions.  Every
+function takes an element ``offset`` (any int >= 0): element i of x then
+takes the bits of element offset + i of the stream, so that a
+data-parallel rank holding rows of a global batch draws its slice of the
+global batch's mask (``dropout_impl: pallas_sharded``).
 
 CUDA tensors launch the kernels (f32 or bf16) or raise; CPU tensors take the
 plain version.
@@ -67,40 +71,45 @@ def philox4x32_10(c0, c1, c2, c3, k0, k1):
     return c0, c1, c2, c3
 
 
-def dropout_bits(seed: torch.Tensor, n: int) -> torch.Tensor:
-    """The kernels' 32 random bits for elements 0..n-1, as int64 in
-    [0, 2**32), computed on ``seed``'s device."""
-    g = torch.arange((n + 3) // 4, dtype=torch.int64, device=seed.device)
+def dropout_bits(seed: torch.Tensor, n: int, offset: int = 0) -> torch.Tensor:
+    """The kernels' 32 random bits for elements offset..offset+n-1 of the
+    stream, as int64 in [0, 2**32), computed on ``seed``'s device."""
+    if offset < 0:
+        raise ValueError(f"offset must be >= 0, got {offset}")
+    g = torch.arange(offset // 4, (offset + n + 3) // 4, dtype=torch.int64,
+                     device=seed.device)
     k = seed.to(torch.int64) & _MASK32
     zero = torch.zeros_like(g)
     words = philox4x32_10(g & _MASK32, g >> 32, zero, zero, k[0], k[1])
-    return torch.stack(words, dim=1).reshape(-1)[:n]
+    start = offset % 4
+    return torch.stack(words, dim=1).reshape(-1)[start:start + n]
 
 
-def _keep_mask(x, seed, rate):
+def _keep_mask(x, seed, rate, offset):
     thresh, _ = keep_params(rate)
-    return (dropout_bits(seed, x.numel()) < thresh).reshape(x.shape)
+    return (dropout_bits(seed, x.numel(), offset) < thresh).reshape(x.shape)
 
 
 def _compute_dtype(x):
     return torch.promote_types(x.dtype, torch.float32)
 
 
-def elu_dropout_plain(x, seed, rate: float):
+def elu_dropout_plain(x, seed, rate: float, offset: int = 0):
     """The forward kernel's function: ELU in f32 (f64 for f64 input), times
     scale where kept, rounded once to x's type."""
     xf = x.to(_compute_dtype(x))
     e = torch.where(xf > 0, xf, torch.expm1(xf))
-    out = torch.where(_keep_mask(x, seed, rate), e * keep_params(rate)[1],
+    out = torch.where(_keep_mask(x, seed, rate, offset),
+                      e * keep_params(rate)[1],
                       torch.zeros((), dtype=xf.dtype, device=x.device))
     return out.to(x.dtype)
 
 
-def elu_dropout_backward_plain(x, ct, seed, rate: float):
+def elu_dropout_backward_plain(x, ct, seed, rate: float, offset: int = 0):
     """The backward kernel's function: ct * scale * elu'(x) where kept."""
     xf = x.to(_compute_dtype(x))
     de = torch.where(xf > 0, torch.ones_like(xf), torch.exp(xf))
-    dx = torch.where(_keep_mask(x, seed, rate),
+    dx = torch.where(_keep_mask(x, seed, rate, offset),
                      ct.to(xf.dtype) * keep_params(rate)[1] * de,
                      torch.zeros((), dtype=xf.dtype, device=x.device))
     return dx.to(x.dtype)
@@ -111,9 +120,9 @@ def _lib():
     lib = load_library("elu_dropout")
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     u, f = ctypes.c_uint, ctypes.c_float
-    lib.bdvs_elu_dropout_fwd.argtypes = [p, p, p, ll, i, u, f, p]
+    lib.bdvs_elu_dropout_fwd.argtypes = [p, p, p, ll, ll, i, u, f, p]
     lib.bdvs_elu_dropout_fwd.restype = i
-    lib.bdvs_elu_dropout_bwd.argtypes = [p, p, p, p, ll, i, u, f, p]
+    lib.bdvs_elu_dropout_bwd.argtypes = [p, p, p, p, ll, ll, i, u, f, p]
     lib.bdvs_elu_dropout_bwd.restype = i
     return lib
 
@@ -129,7 +138,9 @@ def _kernel_operand(t, x):
     return t
 
 
-def _check_kernel_args(x, seed):
+def _check_kernel_args(x, seed, offset):
+    if offset < 0:
+        raise ValueError(f"offset must be >= 0, got {offset}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"the ELU+dropout kernel takes float32 or bfloat16, "
                         f"got {x.dtype}")
@@ -139,9 +150,9 @@ def _check_kernel_args(x, seed):
                          f"{seed.dtype}{list(seed.shape)} on {seed.device}")
 
 
-def _launch_fwd(x, seed, rate):
+def _launch_fwd(x, seed, rate, offset=0):
     global elu_dropout_fwd_launches
-    _check_kernel_args(x, seed)
+    _check_kernel_args(x, seed, offset)
     x = _kernel_operand(x, x)
     out = torch.empty_like(x)
     thresh, scale = keep_params(rate)
@@ -149,7 +160,7 @@ def _launch_fwd(x, seed, rate):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _lib().bdvs_elu_dropout_fwd(
             x.data_ptr(), out.data_ptr(), seed.contiguous().data_ptr(),
-            x.numel(), _DTYPES[x.dtype], thresh, scale, stream)
+            x.numel(), offset, _DTYPES[x.dtype], thresh, scale, stream)
     if err:
         raise RuntimeError(f"ELU+dropout forward launch failed: "
                            f"cudaError {err}")
@@ -157,9 +168,9 @@ def _launch_fwd(x, seed, rate):
     return out
 
 
-def _launch_bwd(x, ct, seed, rate):
+def _launch_bwd(x, ct, seed, rate, offset=0):
     global elu_dropout_bwd_launches
-    _check_kernel_args(x, seed)
+    _check_kernel_args(x, seed, offset)
     x = _kernel_operand(x, x)
     ct = _kernel_operand(ct, x)
     dx = torch.empty_like(x)
@@ -168,8 +179,8 @@ def _launch_bwd(x, ct, seed, rate):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _lib().bdvs_elu_dropout_bwd(
             x.data_ptr(), ct.data_ptr(), dx.data_ptr(),
-            seed.contiguous().data_ptr(), x.numel(), _DTYPES[x.dtype],
-            thresh, scale, stream)
+            seed.contiguous().data_ptr(), x.numel(), offset,
+            _DTYPES[x.dtype], thresh, scale, stream)
     if err:
         raise RuntimeError(f"ELU+dropout backward launch failed: "
                            f"cudaError {err}")
@@ -177,40 +188,43 @@ def _launch_bwd(x, ct, seed, rate):
     return dx
 
 
-def elu_dropout_forward(x, seed, rate: float):
+def elu_dropout_forward(x, seed, rate: float, offset: int = 0):
     """Forward pass without autograd: the kernel for CUDA tensors, the
     plain version for CPU tensors."""
     if x.device.type == "cpu":
-        return elu_dropout_plain(x, seed, rate)
+        return elu_dropout_plain(x, seed, rate, offset)
     if x.device.type != "cuda":
         raise ValueError(f"no ELU+dropout for device {x.device}")
-    return _launch_fwd(x, seed, rate)
+    return _launch_fwd(x, seed, rate, offset)
 
 
-def elu_dropout_backward(x, ct, seed, rate: float):
+def elu_dropout_backward(x, ct, seed, rate: float, offset: int = 0):
     """Backward pass without autograd, dispatched as the forward."""
     if x.device.type == "cpu":
-        return elu_dropout_backward_plain(x, ct, seed, rate)
+        return elu_dropout_backward_plain(x, ct, seed, rate, offset)
     if x.device.type != "cuda":
         raise ValueError(f"no ELU+dropout for device {x.device}")
-    return _launch_bwd(x, ct, seed, rate)
+    return _launch_bwd(x, ct, seed, rate, offset)
 
 
 class EluDropout(torch.autograd.Function):
     """dropout(elu(x)) whose backward regenerates the mask from the seed;
-    saves x and the seed words, never a mask."""
+    saves x and the seed words, never a mask.  ``apply(x, seed, rate[,
+    offset])``."""
 
     @staticmethod
-    def forward(ctx, x, seed, rate):
+    def forward(ctx, x, seed, rate, *offset):
         ctx.save_for_backward(x, seed)
-        ctx.rate = rate
-        return elu_dropout_forward(x, seed, rate)
+        ctx.rate, ctx.offset = rate, (offset[0] if offset else 0)
+        ctx.n_inputs = 3 + len(offset)
+        return elu_dropout_forward(x, seed, rate, ctx.offset)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, ct):
         x, seed = ctx.saved_tensors
-        return elu_dropout_backward(x, ct, seed, ctx.rate), None, None
+        dx = elu_dropout_backward(x, ct, seed, ctx.rate, ctx.offset)
+        return (dx,) + (None,) * (ctx.n_inputs - 1)
 
 
 def draw_seed(device, generator=None) -> torch.Tensor:
@@ -220,11 +234,12 @@ def draw_seed(device, generator=None) -> torch.Tensor:
                          device=device, generator=generator)
 
 
-def elu_dropout(x, rate: float, generator=None):
+def elu_dropout(x, rate: float, generator=None, offset: int = 0):
     """dropout(elu(x)) at dropout rate ``rate``, with seed words drawn from
-    ``generator``."""
+    ``generator``, x's elements at stream index ``offset`` on."""
     if rate <= 0.0:
         return F.elu(x)
     if rate >= 1.0:
         return torch.zeros_like(x)
-    return EluDropout.apply(x, draw_seed(x.device, generator), float(rate))
+    return EluDropout.apply(x, draw_seed(x.device, generator), float(rate),
+                            int(offset))

@@ -3,8 +3,9 @@ preparation and its plain version.
 
 Counterpart of ``behavior_driven_video_synthesis_tpu/ops/pallas/rollout.py``.
 The kernel (``csrc/rollout.cu``) runs all T steps in one launch with bf16
-weights and f32 state; :func:`residual_lstm_rollout_plain` is the same
-function as a loop of torch ops.  Weights come in torch layouts:
+weights and f32 state, and sums in a fixed order, so that two launches on
+the same operands give equal bits; :func:`residual_lstm_rollout_plain` is
+the same function as a loop of torch ops.  Weights come in torch layouts:
 ``weight_ih`` (4H, K), ``weight_hh`` (4H, H), ``weight_out`` (K, H).
 
 The kernel takes its weights prepared (:func:`pack_operands`): bf16, padded
@@ -180,13 +181,19 @@ def check_no_grad(tensors):
 def _lib():
     lib = load_library("rollout")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bdvs_residual_lstm_rollout.argtypes = [p] * 9 + [i] * 4 + [p]
+    lib.bdvs_residual_lstm_rollout.argtypes = [p] * 10 + [i] * 4 + [p]
     lib.bdvs_residual_lstm_rollout.restype = i
     lib.bdvs_rollout_config.argtypes = [i, i, i, ctypes.POINTER(i)]
     lib.bdvs_rollout_config.restype = i
     lib.bdvs_rollout_barrier_floor.argtypes = [i] * 4 + [p]
     lib.bdvs_rollout_barrier_floor.restype = i
     return lib
+
+
+@functools.cache
+def _blocks(B: int, K: int, H: int, device_index: int) -> int:
+    with torch.cuda.device(device_index):
+        return rollout_config(B, K, H)["blocks"]
 
 
 def rollout_config(B: int, K: int, H: int) -> dict:
@@ -210,7 +217,7 @@ def barrier_floor(B: int, K: int, H: int, length: int, device) -> None:
         raise RuntimeError(f"barrier kernel launch failed: cudaError {err}")
 
 
-def _launch(x0, c, operands, h, delta, out, length):
+def _launch(x0, c, operands, h, partial, delta, out, length):
     w, bias, w_out, b_out = operands
     (B, K), H = x0.shape, w_out.shape[0]
     with torch.cuda.device(x0.device):
@@ -218,7 +225,8 @@ def _launch(x0, c, operands, h, delta, out, length):
         return _lib().bdvs_residual_lstm_rollout(
             x0.data_ptr(), c.data_ptr(), w.data_ptr(), bias.data_ptr(),
             w_out.data_ptr(), b_out.data_ptr(), h.data_ptr(),
-            delta.data_ptr(), out.data_ptr(), B, K, H, length, stream)
+            partial.data_ptr(), delta.data_ptr(), out.data_ptr(), B, K, H,
+            length, stream)
 
 
 def residual_lstm_rollout_prepared(b, x0, operands, length: int):
@@ -248,9 +256,13 @@ def residual_lstm_rollout_prepared(b, x0, operands, length: int):
     c = b.detach().float().clone(memory_format=torch.contiguous_format)
     h = torch.empty(2, B, H, dtype=torch.bfloat16, device=b.device)
     h[0] = b.detach()
-    delta = torch.zeros(length, B, K, dtype=torch.float32, device=b.device)
+    # each block's share of h' W_out, summed into delta in a fixed order:
+    # the kernel's result does not vary from launch to launch
+    blocks = _blocks(B, K, H, b.device.index)
+    partial = torch.empty(blocks, B, K, dtype=torch.float32, device=b.device)
+    delta = torch.empty(length, B, K, dtype=torch.float32, device=b.device)
     out = torch.empty(B, length, K, dtype=torch.float32, device=b.device)
-    err = _launch(x0, c, operands, h, delta, out, length)
+    err = _launch(x0, c, operands, h, partial, delta, out, length)
     if err:
         raise RuntimeError(f"rollout kernel launch failed: cudaError {err}")
     rollout_launches += 1

@@ -27,8 +27,9 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from .cuda.conv_int8 import (act_scale, conv_int8, pack_weights,
-                             quantize_weight)
+from .cuda.conv_int8 import (act_scale, conv_int8, kernel_takes,
+                             pack_weights, quantize_weight)
+from . import batch_draws
 from .cuda.elu_dropout import elu_dropout
 from .cuda.fused_rnb import fused_rnb
 
@@ -89,12 +90,13 @@ class NormConv2d(nn.Module):
     gamma and beta cast to the compute dtype.
 
     ``quant`` (JAX ``ops/nn.py:155-282``): ``"int8"`` and ``"int8_static"``
-    run a 3x3 conv of at least 8 features, whose input is at most
-    ``quant_max_hw`` high (0: any), as the int8 conv (``ops/cuda/
-    conv_int8.py``): activations quantized with one symmetric scale a
-    tensor, W with one a output channel, the sum dequantized, then the
-    affine in the compute dtype.  ``"int8"`` takes max|x| of each call as
-    the scale; ``"int8_static"`` the running max stored in
+    run a conv of kernel size at least 3 and at least 8 features, whose
+    input is at most ``quant_max_hw`` high (0: any), as the int8 conv
+    (``ops/cuda/conv_int8.py``: the kernel at 3x3 with padding 1, the
+    library route at any other shape): activations quantized with one
+    symmetric scale a tensor, W with one a output channel, the sum
+    dequantized, then the affine in the compute dtype.  ``"int8"`` takes
+    max|x| of each call as the scale; ``"int8_static"`` the running max stored in
     :attr:`act_amax` (``"ax"``, and ``"ax_aux"`` for the aux input), which
     a call under :func:`quant_calibration` folds its own max into (and
     uses).  The scales stay out of the state dict, as the JAX package keeps
@@ -117,11 +119,6 @@ class NormConv2d(nn.Module):
         if quant not in QUANT_MODES:
             raise ValueError(f"unknown quant {quant!r}; expected one of "
                              f"{QUANT_MODES}")
-        if quant != "none" and kernel_size >= 3 and (
-                kernel_size, padding) != (3, 1):
-            raise NotImplementedError(
-                "the int8 conv takes 3x3 kernels with padding 1, got "
-                f"kernel_size {kernel_size}, padding {padding}")
         if d2s_transpose and not (stride == 1 and kernel_size == 3
                                   and padding == 1 and features % 4 == 0):
             raise ValueError("d2s_transpose supports the subpixel-upsample "
@@ -189,10 +186,12 @@ class NormConv2d(nn.Module):
             k = self.kernel().float()
             parts = [k] if cx is None else [k[:, :cx], k[:, cx:]]
             weights = []
+            packs = k.device.type == "cuda" and kernel_takes(
+                self.kernel_size, self.padding, self.stride)
             for w in parts:
                 w_q, aw = quantize_weight(w)
                 weights.append((w_q, aw, pack_weights(w_q, aw)
-                                if w.device.type == "cuda" else None))
+                                if packs else None))
         self._int8 = (key, weights)
         int8_weight_builds += 1
         return weights
@@ -211,7 +210,7 @@ class NormConv2d(nn.Module):
                       ax_aux=self._act_scale(aux, "ax_aux"),
                       aux_packed=aux_packed)
         return conv_int8(x, w_q, aw, ax, self.conv.bias.detach(), self.stride,
-                         self.dtype, packed,
+                         self.dtype, packed, padding=self.padding,
                          gamma=self.gamma.detach().reshape(-1),
                          beta=self.beta.detach().reshape(-1), **kw)
 
@@ -437,7 +436,7 @@ class Upsample(nn.Module):
         return y.permute(0, 2, 3, 1)
 
 
-DROPOUT_IMPLS = ("flax", "pallas")
+DROPOUT_IMPLS = ("flax", "pallas", "pallas_sharded")
 RNB_IMPLS = ("cudnn", "fused")
 
 
@@ -447,10 +446,6 @@ def check_dropout_impl(impl: str) -> None:
         raise NotImplementedError(
             f"dropout_impl {impl!r} is not ported (TPU-only mask "
             "representations, ROADMAP)")
-    if impl == "pallas_sharded":
-        raise NotImplementedError(
-            "dropout_impl 'pallas_sharded' is not ported yet (multi-device, "
-            "ROADMAP A14b)")
     if impl not in DROPOUT_IMPLS:
         raise ValueError(f"unknown dropout_impl {impl!r}; expected one of "
                          f"{DROPOUT_IMPLS}")
@@ -464,7 +459,7 @@ def dropout(x: torch.Tensor, rate: float,
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    keep = batch_draws.bernoulli(x, 1.0 - rate, generator=generator)
     return x * keep / (1.0 - rate)
 
 
@@ -504,9 +499,15 @@ class VunetRNB(nn.Module):
     ``aux_channels`` channels through the 1x1 ``nin`` conv; its main conv
     then sees 2*channels.  Dropout runs only with ``train=True`` and
     ``dropout_prob > 0``: ``dropout_impl="flax"`` is ELU then
-    :func:`dropout`; ``"pallas"`` is the fused ELU+dropout kernel
-    (``ops/cuda/elu_dropout.py``) at each branch.  The masks come from the
-    ``generator`` passed to :meth:`forward`.
+    :func:`dropout`; ``"pallas"`` and ``"pallas_sharded"`` are the fused
+    ELU+dropout kernel (``ops/cuda/elu_dropout.py``) at each branch.  The
+    masks come from the ``generator`` passed to :meth:`forward`.  Under
+    data parallelism (``ops/batch_draws.py:batch_rows``) each rank's masks
+    are its rows of the masks of the global batch: :func:`dropout` draws
+    them at the global shape, and the kernel starts at the rank's element
+    offset.  JAX's ``pallas_sharded`` takes its XLA composition so that
+    GSPMD can partition the step; here one process holds one shard, so
+    ``"pallas"`` and ``"pallas_sharded"`` are one route.
 
     The convs are ``conv_layer``'s (a :data:`CONV_LAYERS` class or a
     partial of one, JAX ``:565-672``).  A NormConv2d takes the aux branch
@@ -562,8 +563,10 @@ class VunetRNB(nn.Module):
         """The activation of a conv input, with dropout when training."""
         if not train or self.dropout_prob <= 0.0:
             return self._act
-        if self.dropout_impl == "pallas" and self.activate:
-            return lambda v: elu_dropout(v, self.dropout_prob, generator)
+        if self.dropout_impl != "flax" and self.activate:
+            return lambda v: elu_dropout(
+                v, self.dropout_prob, generator,
+                offset=batch_draws.element_offset(v.numel()))
         return lambda v: dropout(self._act(v), self.dropout_prob, generator)
 
     def forward(self, x: torch.Tensor, a: Optional[torch.Tensor] = None,

@@ -36,6 +36,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core import schedules
+from ..ops import batch_draws
+from ..parallel import mesh
 from .losses import (accuracy, cross_entropy, kl_loss, mse_loss,
                      recon_loss_per_seq)
 from .vunet_exp import global_norm
@@ -86,7 +88,8 @@ def draw_step(generator: Optional[torch.Generator], batch_size: int,
     """A step's draws on ``device``, without a host sync."""
     t = torch.randint(0, seq_len, (1 + N_REG_STEPS,), generator=generator,
                       device=device)
-    eps = torch.randn(batch_size, hidden, generator=generator, device=device)
+    eps = batch_draws.randn((batch_size, hidden), generator=generator,
+                            device=device)
     return StepDraws(t[0], list(t[1:]), eps)
 
 
@@ -153,8 +156,10 @@ def make_behavior_train_step(config: dict, seq_len: int,
             opt["net_lr"].step()
             imax_t = (0.0 if state.step == 0 else schedules.imax_schedule(
                 state.step, max(total_steps, 1), imax, imax_mode))
-            state.gamma = schedules.update_gamma(state.gamma, kl.detach(),
-                                                 imax_t, gamma_step)
+            # the KL of the global batch under data parallelism
+            state.gamma = schedules.update_gamma(
+                state.gamma, mesh.mean_over_ranks(kl.detach()), imax_t,
+                gamma_step)
         mu_sg = mu.detach()
 
         # the adversarial regressor, on the latents without gradient

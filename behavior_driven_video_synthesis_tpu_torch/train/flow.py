@@ -3,7 +3,10 @@
 Counterpart of ``behavior_driven_video_synthesis_tpu/train/flow.py``
 (``make_flow_train_step``).  One step infers b = mu + exp(logstd) * eps
 with the frozen net (no gradient; a bf16 net's b is cast to float32, the
-flow's dtype), takes the flow's NLL and one Adam update of the flow.
+flow's dtype), takes the flow's NLL and one Adam update of the flow.  The
+gradients come from ``backward``, which a flow sharded by FSDP
+(``parallel/sharding_rules.py``, ``training.fsdp``) needs to
+reduce-scatter them.
 """
 from __future__ import annotations
 
@@ -50,10 +53,10 @@ def make_flow_train_step(net: nn.Module) -> Callable:
             b, _, _, _ = net.infer_b(seq_b, generator=generator, eps=eps)
         z, logdet = state.flow(b.float())
         loss = flow_loss(z, logdet)
-        params = list(state.flow.parameters())
-        grads = torch.autograd.grad(loss, params)
-        for p, g in zip(params, grads):
-            p.grad = g
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        grads = [p.grad for p in state.flow.parameters()
+                 if p.grad is not None]
         state.optimizer.step()
         state.step += 1
         mean_logdet = torch.mean(logdet.detach())

@@ -27,6 +27,7 @@ import torch
 
 from ..core.schedules import linear_var
 from ..models.mtvae import MTVAE
+from ..ops import batch_draws
 from .losses import kl_loss, l1_loss
 from .vunet_exp import global_norm
 
@@ -53,8 +54,8 @@ def draw_step(model: MTVAE, batch_size: int, generator, device
               ) -> Dict[str, torch.Tensor]:
     """A step's draws: the model's noise, then the cycle target."""
     draws = model.draw_noise(batch_size, generator, device)
-    draws["target"] = torch.randn(draws["cycle"].shape, generator=generator,
-                                  device=device)
+    draws["target"] = batch_draws.randn(draws["cycle"].shape,
+                                        generator=generator, device=device)
     return draws
 
 

@@ -42,6 +42,7 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 
 from ..core import schedules
+from ..parallel import mesh
 from .losses import compute_kl_loss, compute_kl_with_prior, vgg_loss
 
 
@@ -52,8 +53,19 @@ class VunetTrainState:
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax.global_norm)."""
-    return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in tensors))
+    """sqrt of the sum of squares of every element (optax.global_norm).  A
+    tensor that FSDP shards (a DTensor) counts once with all its ranks'
+    shards: its local shard's squares are summed over the ranks."""
+    tensors = list(tensors)
+    whole = [t for t in tensors if not mesh.is_dtensor(t)]
+    sq = sum(torch.sum(t.float() ** 2) for t in whole)
+    sharded = [t.to_local() for t in tensors if mesh.is_dtensor(t)]
+    if sharded:
+        part = sum(torch.sum(t.float() ** 2) for t in sharded)
+        if mesh.initialized():
+            torch.distributed.all_reduce(part)
+        sq = sq + part
+    return torch.sqrt(torch.as_tensor(sq))
 
 
 def _accumulate(loss_fn, params, tensors, grad_accum: int, eps):
@@ -175,14 +187,16 @@ def make_cvbae_train_step(vunet, regressor, perceptual, optimizers: dict,
             loss_reg = regressor_updates(batch, generator, reg_eps)
             loss = loss - torch.clamp(loss_reg, max=1.2) * w_reg
 
-        grad_norm = global_norm(grads)
         opt.step()
+        # after the step: under data parallelism the ranks' mean gradient
+        grad_norm = global_norm(grads)
         lr_schedule.step()
         imax_t = schedules.imax_schedule(state.step, imax_total, imax,
                                          imax_mode)
+        # the KL of the global batch under data parallelism
         state.gamma = schedules.update_gamma(
-            state.gamma.to(target.device), aux["kl_loss"], imax_t,
-            gamma_step)
+            state.gamma.to(target.device), mesh.mean_over_ranks(
+                aux["kl_loss"]), imax_t, gamma_step)
         state.step += 1
         metrics = {"loss": loss, "grad_norm": grad_norm,
                    "likelihood_loss": aux["likelihood_loss"],
@@ -238,8 +252,8 @@ def make_org_vunet_train_step(vunet, perceptual, optimizers: dict,
             partial(loss_fn, kl_weight, generator, dropout_generator),
             params, (batch["app_img"], batch["stickman"], target),
             grad_accum, eps)
-        grad_norm = global_norm(grads)
         opt.step()
+        grad_norm = global_norm(grads)
         lr_schedule.step()
         state.step += 1
         return {"loss": loss,

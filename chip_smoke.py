@@ -11,15 +11,19 @@ CUDA toolkit (nvcc) and PyTorch.  It imports no JAX.  Phases:
    started together), with nvcc's register, shared-memory and spill report;
 3. each kernel against its plain PyTorch version at its main path's
    shapes, both timed with CUDA events: the rollout at the serving path's
-   and at B=256 (bulk sampling), on prepared operands, beside the
-   ``decoder_rollout_kernel`` call with cached operands (the route), T grid
-   barriers alone on the kernel's grid (the floor of any serial rollout),
-   its bound, launch configuration and nvcc's registers and spills;
+   and at B=256 (bulk sampling), on prepared operands (two launches
+   bit-equal: the kernel sums in a fixed order), beside the
+   ``decoder_rollout_kernel`` call with cached operands (the route), T and
+   2T grid barriers alone on the kernel's grid (the floors of a serial
+   rollout of one and of two barriers a step), its bound, launch
+   configuration and nvcc's registers and spills;
    the ELU+dropout forward and backward at the VUNet's largest dropout
    site (12, 256, 256, 32) bf16 and at a ragged f32 size, with
-   ``F.dropout(F.elu(x))`` timed beside them as a yardstick; the fused RNB
-   checked at the VUNet's 125-frame chunk sites (256/128/64/32/4 px) and a
-   ragged shape, its nvcc report (registers, spills) and launch plan
+   ``F.dropout(F.elu(x))`` timed beside them as a yardstick, each half of
+   a batch at its element offset bit-equal to the rows of one launch over
+   the batch (``pallas_sharded``), and the launch timed at two offsets;
+   the fused RNB checked at the VUNet's 125-frame chunk sites
+   (256/128/64/32/4 px) and a ragged shape, its nvcc report (registers, spills) and launch plan
    (shared memory, blocks an SM) for each instantiation, and timed at
    every site of an org request (7 chunk sites, 5 ``encode_means`` sites)
    on prepared operands, beside the ``VunetRNB`` call under ``fused`` (the
@@ -219,18 +223,36 @@ CUDA toolkit (nvcc) and PyTorch.  It imports no JAX.  Phases:
     share of ``generate`` and of ``transfer_cached``), int8_static,
     dynamic int8 (each within a relative L2 of 5e-2 of the reference's
     frames, launching the kernel once for every int8 NormConv2d call its
-    VUNet's hooks count), the
-    transposed upsample (within 1e-2 of the subpixel VUNet's frames of
-    the same stickmen and appearance: two requests differ upstream, the
-    rollout kernel's atomics moving stickman pixels), and an org
-    request at phase [9]'s shape under int8_static; each with its wall
+    VUNet's hooks count, two servings bit-equal), the
+    transposed upsample (within 1e-2 of the subpixel request's frames,
+    the stickmen equal), and an org
+    request at phase [9]'s shape, twice bit-equal, then under int8_static;
+    each with its wall
     time, frames/s, ``transfer_cached`` stage and peak memory, the static
     ones calibrating on the request first; the scales of 125-frame chunks
-    against one calibration call; (c) ``bdvs-generate-torch --preset
+    against one calibration call, and of two calls on two servings (0);
+    the bf16 request served twice, bit-equal, and twice with the
+    rollout's plain version in place of the kernel, bit-equal (the VUNet
+    adds no run-to-run difference); (c) ``bdvs-generate-torch --preset
     tpu-serving`` and ``--upsample transpose`` in-process on a synth.npz
     of (b)'s VUNet; (d) an ``l2`` and an ``ln`` VUNet, each serving one
     (b) request and training two cvbae steps at phase [7]'s configuration
-    (finite losses, step times).
+    (finite losses, step times);
+25. quantized NormConv2d of kernel 5x5 padding 2, 7x7 padding 3 and 3x3
+    padding 0 at 20 x 64 px x 64 -> 64 (bf16): through the library route
+    (``F.unfold`` + ``torch._int_mm``), its int32 sums and outputs equal to
+    the plain version's, timed beside it and the cuDNN bf16 conv;
+26. multi-device training: phase [7]'s cvbae config with ``dropout_impl:
+    pallas_sharded`` and ``configs/behavior_net.yaml`` (3 flows, ``--debug``
+    on 192 sequences) with ``training.fsdp``, 3 steps each through
+    ``main``, without a process group and on a group of one rank (NCCL, a
+    ``file://`` store, in this process: the gradient, KL and metric
+    all-reduces and the FSDP flow stage run): the checkpoints equal within
+    tests/test_torch_parallel.py's tolerances, the step times of both;
+27. offline Human3.6M preparation: synthetic views through
+    ``data/prep/process.py``'s ``view_annotation_rows`` and
+    ``write_annot_export`` (``data/h5lite.py``, no h5py), read back
+    through ``Human36mDataset`` without h5py.
 
 The last two lines are a JSON object of kernel results and
 ``{"ok": true, "device": {...}}``; any failure exits non-zero before them.
@@ -238,8 +260,10 @@ All measured values also go to a JSON file, ``build/chip_smoke.json`` unless
 ``--out PATH`` names another.
 """
 import argparse
+import contextlib
 import copy
 import gc
+import io
 import json
 import os
 import re
@@ -249,6 +273,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -260,6 +285,8 @@ import yaml
 from behavior_driven_video_synthesis_tpu_torch import generate as cli
 from behavior_driven_video_synthesis_tpu_torch import main as train_cli
 from behavior_driven_video_synthesis_tpu_torch import pipeline as pipeline_mod
+from behavior_driven_video_synthesis_tpu_torch.core.checkpoint import (
+    CheckpointManager)
 from behavior_driven_video_synthesis_tpu_torch.core.config import (
     deep_merge, load_config)
 from behavior_driven_video_synthesis_tpu_torch.core.precision import (
@@ -272,7 +299,7 @@ from behavior_driven_video_synthesis_tpu_torch.flax_npz import (
     flatten_tree, unflatten_tree)
 from behavior_driven_video_synthesis_tpu_torch.data import parts
 from behavior_driven_video_synthesis_tpu_torch.data.human36m import (
-    detailed_joint_model)
+    Human36mDataset, detailed_joint_model)
 from behavior_driven_video_synthesis_tpu_torch.data.synthetic_images import (
     SyntheticImageDataset)
 from behavior_driven_video_synthesis_tpu_torch.geometry.stickman import (
@@ -491,7 +518,9 @@ def phase_kernel():
             registers=regs, spill_stores=st, spill_loads=ld)
     log("    times: the kernel on prepared operands (CUDA events), the "
         "decoder_rollout_kernel call with its operands cached (route), T "
-        "grid barriers alone on the same grid (floor)")
+        "and 2T grid barriers alone on the same grid (floors: the kernel "
+        "takes two barriers a step since it sums in a fixed order); two "
+        "launches on the same operands must be bit-equal")
     timed = {}
     for B, K, H, T in ROLLOUT_TIMED:
         args = rollout_args(B, K, H)
@@ -512,6 +541,10 @@ def phase_kernel():
             def route():
                 return decoder_rollout_kernel(decoder, b, x0, T)
             out = kernel()
+            again = kernel()
+            check(torch.equal(out, again), f"two rollout launches on the "
+                  f"same operands differ at {(B, K, H, T)}: max "
+                  f"{float((out - again).abs().max()):.3e}")
             ref = rollout.residual_lstm_rollout_prepared_plain(
                 b, x0, operands, T)
             e = float((out - ref).abs().max())
@@ -531,19 +564,23 @@ def phase_kernel():
                   "decoder_rollout_kernel rebuilt cached operands")
             floor_ms = cuda_ms(
                 lambda: rollout.barrier_floor(B, K, H, T, DEV), 20)
+            floor2_ms = cuda_ms(
+                lambda: rollout.barrier_floor(B, K, H, 2 * T, DEV), 20)
         ms = float(np.mean([t for n, t in times if n == "kernel"]))
         plain_ms = float(np.mean([t for n, t in times if n == "plain"]))
         bound, bound_by = rollout_bound_ms(B, K, H, T)
         log(f"    {(B, K, H, T)}: launch {cfg}; "
             + ", ".join(f"{n} {t:.4f} ms" for n, t in times)
             + f"; route {route_ms:.4f} ms; floor of {T} barriers "
-            f"{floor_ms:.4f} ms; bound {bound:.5f} ms ({bound_by}); "
-            f"{ms / T * 1e3:.2f} us a step, {floor_ms / T * 1e3:.2f} of "
-            f"them the barrier; max|kernel-plain| {e:.3e}")
+            f"{floor_ms:.4f} ms, of {2 * T} {floor2_ms:.4f} ms; bound "
+            f"{bound:.5f} ms ({bound_by}); {ms / T * 1e3:.2f} us a step, "
+            f"{floor2_ms / T * 1e3:.2f} of them the two barriers; two "
+            f"launches bit-equal; max|kernel-plain| {e:.3e}")
         timed[(B, K, H, T)] = dict(
             config=cfg, order=times, ms=ms, plain_ms=plain_ms,
-            route_ms=route_ms, floor_ms=floor_ms, bound_ms=bound,
-            bound_by=bound_by, max_abs_err=e)
+            route_ms=route_ms, floor_ms=floor_ms, floor_2t_ms=floor2_ms,
+            bound_ms=bound, bound_by=bound_by, max_abs_err=e,
+            repeat_bit_equal=True)
     RESULTS["rollout_times_ms"] = [dict(shape=list(k), **v)
                                    for k, v in timed.items()]
     serving = timed[ROLLOUT_TIMED[0]]
@@ -631,6 +668,7 @@ def phase_elu_dropout():
                   f"versions at {tuple(shape)} {dtype} rate {rate}")
             errs["fwd"] = max(errs["fwd"], e_fwd)
             errs["bwd"] = max(errs["bwd"], e_bwd)
+    offset_checks(g)
     # time at the largest dropout site of the training path
     shape, dtype = ELU_DROPOUT_SHAPES[0]
     rate = 0.05
@@ -662,11 +700,59 @@ def phase_elu_dropout():
             f"plain): " + ", ".join(f"{n} {t:.4f} ms" for n, t in times)
             + f"; library {lib_ms:.4f} ms; bound {bound:.4f} ms "
             f"({bound_by})")
+        # the same launch as rank 1 of a 2-rank batch (offset n, a whole
+        # number of Philox blocks) and at an offset inside a block
+        off_ms = {off: cuda_ms(lambda: (
+            elu_dropout.elu_dropout_forward(x, seed, rate, off) if d == "fwd"
+            else elu_dropout.elu_dropout_backward(x, ct, seed, rate, off)),
+            50) for off in (x.numel(), x.numel() + 1)}
+        log(f"    {d} with an element offset: n {off_ms[x.numel()]:.4f} ms, "
+            f"n + 1 {off_ms[x.numel() + 1]:.4f} ms")
         RESULTS[f"elu_dropout_{d}_times_ms"] = dict(
-            order=times, library=lib_ms, bound=bound)
+            order=times, library=lib_ms, bound=bound,
+            offset_n=off_ms[x.numel()], offset_n_plus_1=off_ms[x.numel() + 1])
         out[d] = dict(max_abs_err=errs[d], ms=ms, plain_ms=plain_ms,
                       library_ms=lib_ms, bound_ms=bound, bound_by=bound_by)
     return out
+
+
+def offset_checks(g):
+    """Each half of a batch run by the kernels at its element offset (rank
+    r of 2: r * n_local) is bit-equal to the same rows of one launch over
+    the whole batch, forward and backward (dropout_impl pallas_sharded),
+    and the plain version's slice agrees as in the checks above."""
+    for shape, dtype in ((ELU_DROPOUT_SHAPES[0][0], torch.bfloat16),
+                         ((6, 33, 17, 5), torch.float32)):
+        x = torch.randn(shape, generator=g, device=DEV).to(dtype)
+        ct = torch.randn(shape, generator=g, device=DEV).to(dtype)
+        seed = elu_dropout.draw_seed(DEV, g)
+        rate = 0.3
+        full = elu_dropout.elu_dropout_forward(x, seed, rate)
+        dfull = elu_dropout.elu_dropout_backward(x, ct, seed, rate)
+        rows = shape[0] // 2
+        n_local = x[:rows].numel()
+        for r in range(2):
+            sl = slice(r * rows, (r + 1) * rows)
+            part = elu_dropout.elu_dropout_forward(x[sl], seed, rate,
+                                                   r * n_local)
+            dpart = elu_dropout.elu_dropout_backward(x[sl], ct[sl], seed,
+                                                     rate, r * n_local)
+            torch.cuda.synchronize()
+            ref = elu_dropout.elu_dropout_plain(x[sl], seed, rate,
+                                                r * n_local)
+            check(torch.equal(part, full[sl]) and torch.equal(dpart,
+                                                              dfull[sl]),
+                  f"ELU+dropout at offset {r * n_local} is not the slice of "
+                  f"the whole launch at {tuple(shape)} {dtype}")
+            check(torch.equal(part == 0, ref == 0) and ulp_ok(part, ref),
+                  f"ELU+dropout at offset {r * n_local} disagrees with its "
+                  f"plain version at {tuple(shape)} {dtype}")
+        log(f"    offsets: each half of {tuple(shape)} {str(dtype)[6:]} at "
+            f"offset rank * {n_local} bit-equal to the whole launch's rows, "
+            f"forward and backward")
+        RESULTS.setdefault("elu_dropout_offset_halves", []).append(
+            dict(shape=list(shape), dtype=str(dtype), n_local=n_local,
+                 bit_equal=True))
 
 
 def fused_rnb_bound_ms(B, H, W, C):
@@ -1318,13 +1404,13 @@ def site_shapes(recorder):
     shapes = {"fwd": [], "bwd": []}
     fwd, bwd = elu_dropout._launch_fwd, elu_dropout._launch_bwd
 
-    def spy_fwd(x, seed, rate):
+    def spy_fwd(x, seed, rate, offset=0):
         shapes["fwd"].append((x.numel(), x.dtype))
-        return fwd(x, seed, rate)
+        return fwd(x, seed, rate, offset)
 
-    def spy_bwd(x, ct, seed, rate):
+    def spy_bwd(x, ct, seed, rate, offset=0):
         shapes["bwd"].append((x.numel(), x.dtype))
-        return bwd(x, ct, seed, rate)
+        return bwd(x, ct, seed, rate, offset)
     elu_dropout._launch_fwd, elu_dropout._launch_bwd = spy_fwd, spy_bwd
     try:
         step(state, batch, **kw)
@@ -4183,7 +4269,7 @@ def quantized_request(pipe, x, what, ref_frames, static, tol):
     int8_static VUNet), each holding its kernel launches to the hooks'
     count; the timed one's frames against ref_frames (rel-L2 <= tol) and
     its stage breakdown."""
-    rows = []
+    rows, previous = [], None
     for note in ("warm-up", "timed"):
         counts, remove = int8_launch_counter(pipe.vunet)
         before = conv_int8.conv_int8_launches
@@ -4206,6 +4292,11 @@ def quantized_request(pipe, x, what, ref_frames, static, tol):
         rel = rel_l2(frames, ref_frames)
         check(rel <= tol, f"{what}: rel-L2 {rel:.3e} to the reference "
               f"request > {tol}")
+        if previous is not None:
+            check(torch.equal(frames, previous), f"{what}: two servings "
+                  f"of the request differ (rel-L2 "
+                  f"{rel_l2(frames, previous):.3e})")
+        previous = frames
         B, T = SLICE["B"], SLICE["T"]
         req_ms = cal_ms + ms
         log(f"    {what:34s} {note:7s}: request {req_ms:9.2f} ms "
@@ -4229,12 +4320,31 @@ def quantized_request(pipe, x, what, ref_frames, static, tol):
     return rows, counts
 
 
+def served_twice_with_plain_rollout(pipe, x):
+    """C18's source: the request served twice with the rollout's plain
+    version on the kernel's bf16 operands in place of the kernel, the
+    VUNet unchanged.  (frames bit-equal, their rel-L2)."""
+    kernel = pipeline_mod.decoder_rollout_kernel
+
+    def plain(decoder, b, x_start, length):
+        return rollout.residual_lstm_rollout_prepared_plain(
+            b.float(), x_start.float(), rollout.prepared_operands(decoder),
+            length)
+    pipeline_mod.decoder_rollout_kernel = plain
+    try:
+        a = serve(pipe, x)[0]["frames"]
+        b = serve(pipe, x)[0]["frames"]
+    finally:
+        pipeline_mod.decoder_rollout_kernel = kernel
+    return torch.equal(a, b), rel_l2(a, b)
+
+
 def chunked_calibration_gap(pipe, x):
     """The scales of one calibration call over all B*T frames against
     those of 125-frame chunks on the same stickmen and latents, and
-    against one call on another serving of the same request (the rollout
-    kernel's atomics move stickman pixels): the largest relative
-    difference of a scale, each."""
+    against one call on another serving of the same request (0 since the
+    rollout kernel sums in a fixed order): the largest relative difference
+    of a scale, each."""
     args = (x["z"], x["x_start"], x["app_img"], x["extrinsics"],
             x["intrinsics"], x["image_size"])
 
@@ -4301,19 +4411,30 @@ def phase_quant_serving():
     B, T, S = SLICE["B"], SLICE["T"], SLICE["S"]
     x = request_inputs(B, g)
     base_vunet = pipe.vunet
+    plain_equal, plain_noise = served_twice_with_plain_rollout(pipe, x)
+    log(f"    the request served twice with the rollout's plain version "
+        f"(bf16 operands) and the VUNet unchanged: frames bit-equal "
+        f"{plain_equal} (rel-L2 {plain_noise:.3e})")
+    check(plain_equal, "the request served twice with the plain rollout "
+          "gives other frames: a source of run-to-run differences besides "
+          "the rollout kernel")
     first, _, _ = serve(pipe, x)
     ref, ref_ms, ref_peak = serve(pipe, x)
-    # the same request twice: the rollout kernel's atomics make the
-    # stickmen, and so the frames, differ from one request to the next
+    # the same request twice: the rollout kernel sums in a fixed order, so
+    # the frames are bit-equal
     noise = rel_l2(first["frames"], ref["frames"])
+    check(torch.equal(first["frames"], ref["frames"]),
+          f"the bf16 request served twice: frames differ (rel-L2 "
+          f"{noise:.3e})")
     del first
     log(f"    bf16 reference request B={B} T={T}: {ref_ms:.2f} ms, "
         f"{B * T * 1e3 / ref_ms:.1f} frames/s, peak {ref_peak / 2**30:.2f} "
-        f"GiB; rel-L2 to the same request served before it {noise:.3e}; "
-        f"QUANT_ABLATION.json (TPU, a trained checkpoint, rel-L2 vs f32, "
-        f"not this card's): {quant_ablation_line()}")
+        f"GiB; rel-L2 to the same request served before it {noise:.3e} "
+        f"(bit-equal); QUANT_ABLATION.json (TPU, a trained checkpoint, "
+        f"rel-L2 vs f32, not this card's): {quant_ablation_line()}")
     RESULTS["quant_reference"] = dict(ms=ref_ms, peak_gib=ref_peak / 2**30,
-                                      rel_l2_repeat=noise)
+                                      rel_l2_repeat=noise,
+                                      plain_rollout_repeat_equal=plain_equal)
     rollout.rollout_launches = 0     # counts start here: [24]'s requests
     conv_int8.conv_int8_launches = 0
     modes = [("--preset tpu-serving", dict(quant="int8_static",
@@ -4344,6 +4465,8 @@ def phase_quant_serving():
                 f"{B * T} frames, on the same stickmen: largest relative "
                 f"difference of a scale {gap:.3e} (one call vs one call on "
                 f"another serving of the request: {noise:.3e})")
+            check(noise == 0.0, f"calibration on another serving of the "
+                  f"request: scales differ by {noise:.3e}")
             RESULTS["chunked_calibration_gap"] = gap
             RESULTS["calibration_request_gap"] = noise
     pipe.vunet = served_copy(base_vunet, "alter", upsample_transpose=True)
@@ -4352,20 +4475,23 @@ def phase_quant_serving():
     check(out["frames"].shape == ref["frames"].shape
           and bool(torch.isfinite(out["frames"].float()).all()),
           "--upsample transpose: frames")
-    # two requests differ upstream of the VUNet too (the rollout kernel's
-    # atomics move stickman pixels), so the two upsample forms are held on
-    # this request's own stickmen and appearance
+    # two servings of the request have the same stickmen now, so the two
+    # upsample forms are held request against request (and, reported, on
+    # this request's own stickmen)
+    check(torch.equal(out["stickman"], ref["stickman"]),
+          "--upsample transpose: the request's stickmen differ from the "
+          "subpixel request's")
+    rel_requests = rel_l2(out["frames"], ref["frames"])
     stick = out["stickman"].reshape((B * T, S, S, 3))
     rel = rel_l2(vunet_frames(pipe, pipe.vunet, x["app_img"], stick),
                  vunet_frames(pipe, base_vunet, x["app_img"], stick))
-    rel_requests = rel_l2(out["frames"], ref["frames"])
-    check(rel <= TRANSPOSE_REL_L2,
-          f"--upsample transpose: rel-L2 {rel:.3e} to subpixel on the same "
-          f"stickmen")
+    check(rel_requests <= TRANSPOSE_REL_L2,
+          f"--upsample transpose: rel-L2 {rel_requests:.3e} to the subpixel "
+          f"request")
     log(f"    {'--upsample transpose':34s} timed  : request {ms:9.2f} ms, "
         f"{B * T * 1e3 / ms:8.1f} frames/s, peak {peak / 2**30:.2f} GiB; "
-        f"rel-L2 to the subpixel VUNet on its stickmen {rel:.3e} (to the "
-        f"subpixel request {rel_requests:.3e}, reported)")
+        f"rel-L2 to the subpixel request {rel_requests:.3e} (on its own "
+        f"stickmen {rel:.3e}, reported)")
     rows.append(dict(what="--upsample transpose", note="timed",
                      request_ms=ms, fps=B * T * 1e3 / ms,
                      peak_gib=peak / 2**30, rel_l2=rel,
@@ -4377,6 +4503,12 @@ def phase_quant_serving():
     org, g_org, _ = full_width_slice("org")
     xo = request_inputs(B, g_org, (S // 4, S // 4, 30))
     org_ref, _, _ = serve(org, xo)
+    org_again, _, _ = serve(org, xo)
+    check(torch.equal(org_ref["frames"], org_again["frames"]),
+          f"the org request served twice: frames differ (rel-L2 "
+          f"{rel_l2(org_again['frames'], org_ref['frames']):.3e})")
+    log("    the org request served twice: frames bit-equal")
+    del org_again
     org_base = org.vunet
     org.vunet = served_copy(org_base, "org", quant="int8_static")
     r, _ = quantized_request(org, xo, "org --quant int8_static",
@@ -4505,6 +4637,332 @@ def phase_conv_types():
     return launches
 
 
+# -- 25. int8 convs of any kernel size and padding ---------------------------
+# quantized NormConv2d shapes the int8 kernel does not take (it computes 3x3
+# with padding 1): F.unfold + torch._int_mm on the card, at 64 px x 64
+# channels of a 20-frame batch
+C19_SHAPES = [(5, 2), (7, 3), (3, 0)]
+C19_INPUT = (20, 64, 64, 64)
+
+
+def phase_any_kernel_int8():
+    log("[25] quantized NormConv2d of kernel 5x5 padding 2, 7x7 padding 3 "
+        "and 3x3 padding 0 (int8, bf16) on the card: the library route "
+        "(F.unfold + torch._int_mm, then the plain version's epilogue), "
+        "its int32 sums equal to the plain version's, its outputs equal; "
+        "no launch of the int8 kernel")
+    B, H, W, C = C19_INPUT
+    g = torch.Generator(device=DEV).manual_seed(25)
+    rows = []
+    for k, pad in C19_SHAPES:
+        conv = ops_nn.NormConv2d(C, C, k, padding=pad, quant="int8",
+                                 dtype=torch.bfloat16, device="meta")
+        conv = on_device(conv, g)
+        x = (torch.randn(B, H, W, C, generator=g, device=DEV) * 2).to(
+            torch.bfloat16)
+        calls, launches = (conv_int8.conv_int8_unfold_calls,
+                           conv_int8.conv_int8_launches)
+        with torch.no_grad():
+            check(conv.quant_active(x), f"{k}x{k}: the conv does not "
+                  f"quantize")
+            y = conv(x)
+            torch.cuda.synchronize()
+            check(conv_int8.conv_int8_unfold_calls == calls + 1
+                  and conv_int8.conv_int8_launches == launches,
+                  f"{k}x{k} padding {pad}: not one call of the library "
+                  f"route")
+            w_q, aw = conv_int8.quantize_weight(conv.kernel().float())
+            ax = conv_int8.act_scale(x)
+            bias = conv.conv.bias.detach()
+            gamma, beta = (conv.gamma.detach().reshape(-1),
+                           conv.beta.detach().reshape(-1))
+            kw = dict(padding=pad, gamma=gamma, beta=beta)
+            sums = conv_int8.conv_int8_unfold(x, w_q, aw, ax, bias, 1,
+                                              accumulators=True, **kw)
+            ref_sums = conv_int8.conv_int8_plain(x, w_q, aw, ax, bias, 1,
+                                                 accumulators=True, **kw)
+            ref = conv_int8.conv_int8_plain(x, w_q, aw, ax, bias, 1,
+                                            torch.bfloat16, **kw)
+            check(torch.equal(sums, ref_sums), f"{k}x{k} padding {pad}: "
+                  f"int32 sums differ from the plain version's")
+            check(torch.equal(y, ref), f"{k}x{k} padding {pad}: outputs "
+                  f"differ from the plain version's (max "
+                  f"{float((y.float() - ref.float()).abs().max()):.3e})")
+            route_ms = cuda_ms(lambda: conv(x), 5)
+            plain_ms = cuda_ms(lambda: conv_int8.conv_int8_plain(
+                x, w_q, aw, ax, bias, 1, torch.bfloat16, **kw), 2)
+            wb = conv.kernel().to(torch.bfloat16)
+            cudnn_ms = cuda_ms(lambda: ops_nn.conv2d_nhwc(
+                x, wb, bias.to(torch.bfloat16), 1, pad), 5)
+        log(f"    {k}x{k} padding {pad} at {C19_INPUT} -> {C}: output "
+            f"{tuple(y.shape)}, sums and outputs equal; library route "
+            f"{route_ms:.3f} ms, plain (float64 conv) {plain_ms:.3f} ms, "
+            f"cuDNN bf16 conv {cudnn_ms:.4f} ms")
+        rows.append(dict(kernel=k, padding=pad, input=list(C19_INPUT),
+                         out_shape=list(y.shape), route_ms=route_ms,
+                         plain_ms=plain_ms, cudnn_bf16_ms=cudnn_ms))
+        del conv, x, y, sums, ref_sums, ref
+        torch.cuda.empty_cache()
+    RESULTS["int8_any_kernel"] = rows
+
+
+# -- 26. multi-device training on a process group of one rank -----------------
+MULTI_STEPS = 3
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """Within: torch's deterministic algorithms (cuDNN's convolution
+    backward among them).  Yields a list that holds, on exit, the ops that
+    ran without a deterministic implementation."""
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    ops = []
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield ops
+        ops.extend(sorted({str(w.message).split("\n")[0][:160]
+                           for w in caught
+                           if "deterministic" in str(w.message)}))
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+
+
+@contextlib.contextmanager
+def recording(module, name):
+    """The steps that ``module.name`` (a ``make_*_train_step``) makes,
+    recorded by a StepRecorder while within."""
+    made = getattr(module, name)
+    recorder = StepRecorder(made)
+    setattr(module, name, recorder.make)
+    try:
+        yield recorder
+    finally:
+        setattr(module, name, made)
+
+
+def _flat_state(tree, prefix=""):
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flat_state(v, f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_flat_state(v, f"{prefix}{i}/"))
+    else:
+        out[prefix[:-1]] = tree
+    return out
+
+
+def same_checkpoints(dir_a, dir_b, what):
+    """The newest saves of two runs' roles: the same step, every tensor
+    and value equal; returns the largest parameter and Adam moment
+    differences, over 1 + the tensor's largest magnitude."""
+    (a, sa), (b, sb) = (CheckpointManager(d).restore_latest()
+                        for d in (dir_a, dir_b))
+    check(sa == sb, f"{what}: saves at steps {sa} and {sb}")
+    fa, fb = _flat_state(a), _flat_state(b)
+    check(fa.keys() == fb.keys(), f"{what}: the saves hold other keys")
+    worst = {"param": 0.0, "moment": 0.0}
+    for k, v in fb.items():
+        u = fa[k]
+        if isinstance(v, torch.Tensor):   # FSDP saves gathered on the host
+            u, v = u.cpu(), v.cpu()
+        if isinstance(v, torch.Tensor) and v.is_floating_point() \
+                and v.numel():
+            scale = 1 + float(v.float().abs().max())
+            d = float((u.float() - v.float()).abs().max()) / scale
+            kind = "moment" if "exp_avg" in k else "param"
+            check(torch.equal(u, v), f"{what}: {k} differs by {d:.3e} of "
+                  f"its scale")
+            worst[kind] = max(worst[kind], d)
+        elif isinstance(v, torch.Tensor):
+            check(torch.equal(u, v), f"{what}: {k} differs")
+        else:
+            check(u == v, f"{what}: {k} differs")
+    return worst
+
+
+def phase_multi_device():
+    """Phase [26]; returns the ELU+dropout launches of its cvbae runs."""
+    import torch.distributed as dist
+    from behavior_driven_video_synthesis_tpu_torch.parallel import mesh
+    log(f"[26] multi-device training on a process group of one rank (NCCL, "
+        f"a file:// store, in this process) against the same runs without "
+        f"one, {MULTI_STEPS} steps each through bdvs-train-torch's main, "
+        f"both with deterministic algorithms: every checkpoint bit-equal")
+    base = tempfile.mkdtemp(prefix="chip_smoke_multi_")
+    launches = [0, 0]
+    # Without deterministic algorithms two runs of this cvbae config differ
+    # by up to 9.7e-06 of a parameter's scale, group or none, on an H100
+    # (cuDNN's convolution backward; examples/torch_multi_device_probe.py);
+    # with them a group of one rank changes nothing.
+    stack = contextlib.ExitStack()
+    try:
+        nondeterministic = stack.enter_context(deterministic_algorithms())
+        runs = {}
+        for grouped in (False, True):
+            sub = os.path.join(base, "group" if grouped else "plain")
+            cvbae = deep_merge(train_config(sub), {"training": {
+                "dropout_impl": "pallas_sharded",
+                "end_iteration": MULTI_STEPS}})
+            behavior = deep_merge(behavior_config(sub), {
+                "data": {"n_samples": MULTI_STEPS * 64},
+                "architecture": {"n_flows": 3},
+                "training": {"n_epochs": 1, "fsdp": True}})
+            paths = {}
+            for name, cfg in (("cvbae", cvbae), ("behavior", behavior)):
+                paths[name] = os.path.join(sub, f"{name}.yaml")
+                os.makedirs(sub, exist_ok=True)
+                with open(paths[name], "w") as f:
+                    yaml.safe_dump(cfg, f)
+            if grouped:
+                dist.init_process_group(
+                    "nccl", init_method=f"file://{base}/pg", rank=0,
+                    world_size=1, device_id=torch.device("cuda", 0))
+            try:
+                check(mesh.initialized() == grouped, "the process group")
+                elu_dropout.elu_dropout_fwd_launches = 0
+                elu_dropout.elu_dropout_bwd_launches = 0
+                with recording(shape_and_pose_net,
+                               "make_cvbae_train_step") as t:
+                    train_cli.main(["-c", paths["cvbae"], "--device",
+                                    "cuda"])
+                fwd = elu_dropout.elu_dropout_fwd_launches
+                bwd = elu_dropout.elu_dropout_bwd_launches
+                check(fwd == DROPOUT_SITES * MULTI_STEPS
+                      and bwd == (DROPOUT_SITES - DEAD_BACKWARD_SITES)
+                      * MULTI_STEPS, f"pallas_sharded: ELU+dropout "
+                      f"launches {fwd}, {bwd}")
+                launches[0] += fwd
+                launches[1] += bwd
+                buf = io.StringIO()
+                with recording(behavior_net, "make_flow_train_step") as tf, \
+                        contextlib.redirect_stdout(buf):
+                    out = train_cli.main(["-c", paths["behavior"], "-d",
+                                          "--device", "cuda"])
+                printed = buf.getvalue()
+                check(out["fsdp"] == grouped, f"the flow stage's layout: "
+                      f"fsdp {out['fsdp']}")
+                want = ("FSDP sharding of flow params" if grouped
+                        else "falling back to the replicated layout")
+                check(want in printed, f"the flow stage did not say "
+                      f"{want!r}")
+                if grouped:    # the moments live sharded, as DTensors
+                    opt = out["flow_state"].optimizer
+                    sharded = [v for st in opt.state.values()
+                               for v in st.values() if mesh.is_dtensor(v)]
+                    check(sharded, "no flow Adam moment is sharded")
+            finally:
+                if grouped:
+                    dist.destroy_process_group()
+            runs[grouped] = dict(dir=sub,
+                                 cvbae_ms=[r["ms"] for r in t.steps],
+                                 flow_ms=[r["ms"] for r in tf.steps])
+            torch.cuda.empty_cache()
+        ck = lambda g, exp, role: os.path.join(  # noqa: E731
+            runs[g]["dir"], exp, "ckpt", "chip_smoke" if exp == "cvbae"
+            else "debug", role)
+        d_cvbae = same_checkpoints(ck(True, "cvbae", "reg_ckpt"),
+                                   ck(False, "cvbae", "reg_ckpt"),
+                                   "cvbae pallas_sharded")
+        d_cvae = same_checkpoints(ck(True, "behavior_net", "reg_ckpt"),
+                                  ck(False, "behavior_net", "reg_ckpt"),
+                                  "behavior cVAE")
+        d_flow = same_checkpoints(ck(True, "behavior_net", "flow_ckpt"),
+                                  ck(False, "behavior_net", "flow_ckpt"),
+                                  "behavior flow (FSDP)")
+        med = {g: {k: float(np.median(runs[g][k][1:]))
+                   for k in ("cvbae_ms", "flow_ms")} for g in runs}
+        log(f"    cvbae (256 px, B=12, pallas_sharded) step ms after the "
+            f"first: without a group {med[False]['cvbae_ms']:.2f}, on the "
+            f"NCCL group {med[True]['cvbae_ms']:.2f} (all-reduce of the "
+            f"gradients, the KL and the metrics); parameters and moments "
+            f"bit-equal; ELU+dropout launches {launches[0]} forward, "
+            f"{launches[1]} backward")
+        log(f"    behavior flow stage (dim_hidden_b 1024, 3 flows of mid "
+            f"width 2048, B=64) step ms after the first: replicated "
+            f"{med[False]['flow_ms']:.2f}, FSDP over the group "
+            f"{med[True]['flow_ms']:.2f}; the cVAE's and the flow's "
+            f"parameters and moments bit-equal")
+        RESULTS["multi_device"] = dict(
+            steps=MULTI_STEPS, step_ms=med,
+            cvbae_ms={str(g): runs[g]["cvbae_ms"] for g in runs},
+            flow_ms={str(g): runs[g]["flow_ms"] for g in runs},
+            max_diff=dict(cvbae=d_cvbae, cvae=d_cvae, flow=d_flow))
+    finally:
+        stack.close()
+        shutil.rmtree(base, ignore_errors=True)
+    log(f"    ops without a deterministic implementation: "
+        f"{nondeterministic or 'none'}")
+    return tuple(launches)
+
+
+# -- 27. offline Human3.6M preparation without h5py ---------------------------
+def phase_prep():
+    from behavior_driven_video_synthesis_tpu_torch.data.prep import process
+    log("[27] offline Human3.6M preparation on this machine: synthetic "
+        "views through view_annotation_rows and write_annot_export "
+        "(data/h5lite.py, no h5py), read back through Human36mDataset")
+    try:
+        import h5py  # noqa: F401
+        has_h5py = True
+    except ImportError:
+        has_h5py = False
+    rng = np.random.RandomState(27)
+    base = tempfile.mkdtemp(prefix="chip_smoke_prep_")
+    try:
+        rows = []
+        for pid in (1, 5, 9):
+            for act in (2, 4):
+                theta = 0.1 * pid
+                R = np.array([[np.cos(theta), 0, np.sin(theta)], [0, 1, 0],
+                              [-np.sin(theta), 0, np.cos(theta)]])
+                world = rng.randn(30, 32, 3) * 250 + np.array([0, 0, 2500.])
+                cam = world @ R.T + np.array([120., -40., 300.])
+                rows.append(process.view_annotation_rows(
+                    subject_id=pid, action_id=act, subaction_id=1,
+                    camera_id=54138969,
+                    frame_paths=[f"S{pid}/{act}/img_{i:06d}.jpg"
+                                 for i in range(30)],
+                    poses_3d_univ=cam, poses_3d_world=world,
+                    intrinsics=[1145.0, 512.0, 1143.0, 515.0]))
+        t0 = time.perf_counter()
+        out = process.write_annot_export(os.path.join(base,
+                                                      "annot_export.h5"),
+                                         rows)
+        write_ms = (time.perf_counter() - t0) * 1e3
+        saved = sys.modules.get("h5py")
+        sys.modules["h5py"] = None      # the port's reader, as without h5py
+        try:
+            ds = Human36mDataset(None, ["keypoints", "sample_ids"], (0, 0),
+                                 mode="train", datapath=base,
+                                 spatial_size=64,
+                                 keypoint_type="keypoints_3d_world")
+        finally:
+            if saved is None:
+                del sys.modules["h5py"]
+            else:
+                sys.modules["h5py"] = saved
+        world = np.concatenate([r["pose_3d_world"] for r in rows
+                                if r["subject"][0] in (1, 5)])
+        check(len(ds) == 2 * 2 * 30, f"prep: {len(ds)} train items")
+        check(np.allclose(ds.datadict["intrinsics_univ"][0],
+                          [1145.0, 512.0, 1143.0, 515.0]),
+              "prep: the intrinsics read back")
+        check(np.isfinite(ds[0]["keypoints"]).all(), "prep: an item")
+        log(f"    h5py on this machine: {has_h5py}; 6 views of 30 frames "
+            f"written in {write_ms:.1f} ms ({os.path.getsize(out):,} bytes),"
+            f" read back: {len(ds)} train items (subjects 1, 5), the "
+            f"intrinsics and {world.shape[0]} world poses' frames")
+        RESULTS["prep"] = dict(h5py=has_h5py, write_ms=write_ms,
+                               bytes=os.path.getsize(out), items=len(ds))
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch "
                                  "port on one NVIDIA GPU")
@@ -4516,47 +4974,61 @@ def main(argv=None):
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     disable_tf32()
-    name = phase_card()
-    phase_build()
-    max_err, ms, plain_ms = phase_kernel()
-    elu = phase_elu_dropout()
-    rnb = phase_fused_rnb()
-    launches = phase_slice()
-    phase_cli()
-    phase_golden()
-    phase_org_golden()
-    elu_launches, cvbae_base, cvbae_path = phase_train()
-    phase_train_golden()
-    rnb_launches = phase_org()
-    behavior_launches, behavior_base = phase_behavior()
+    phase_s = {}
+
+    def timed(label, fn, *a):
+        """fn(*a), its wall seconds kept under ``label``."""
+        t0 = time.perf_counter()
+        try:
+            return fn(*a)
+        finally:
+            phase_s[label] = round(time.perf_counter() - t0, 1)
+    name = timed("1", phase_card)
+    timed("2", phase_build)
+    max_err, ms, plain_ms = timed("3 rollout", phase_kernel)
+    elu = timed("3 elu_dropout", phase_elu_dropout)
+    rnb = timed("3 fused_rnb", phase_fused_rnb)
+    launches = timed("4", phase_slice)
+    timed("5", phase_cli)
+    timed("6", phase_golden)
+    timed("6 org", phase_org_golden)
+    elu_launches, cvbae_base, cvbae_path = timed("7", phase_train)
+    timed("8", phase_train_golden)
+    rnb_launches = timed("9", phase_org)
+    behavior_launches, behavior_base = timed("10", phase_behavior)
     launches += behavior_launches
     try:
-        phase_behavior_golden()
-        phase_behavior_rest(behavior_base)
+        timed("11", phase_behavior_golden)
+        timed("12", phase_behavior_rest, behavior_base)
     finally:
         shutil.rmtree(behavior_base, ignore_errors=True)
-    phase_infer_golden()
-    vunet_launches = phase_vunet(cvbae_base, cvbae_path)
+    timed("13", phase_infer_golden)
+    vunet_launches = timed("14", phase_vunet, cvbae_base, cvbae_path)
     elu_launches = tuple(a + b for a, b in zip(elu_launches, vunet_launches))
-    phase_org_train_golden()
-    phase_mtvae()
-    phase_mtvae_golden()
-    image_launches = phase_image_files()
+    timed("15", phase_org_train_golden)
+    timed("16", phase_mtvae)
+    timed("17", phase_mtvae_golden)
+    image_launches = timed("18", phase_image_files)
     elu_launches = tuple(a + b for a, b in zip(elu_launches, image_launches))
-    phase_image_golden()
-    gan_launches, gan_base, gan_synth = phase_gan()
+    timed("19", phase_image_golden)
+    gan_launches, gan_base, gan_synth = timed("20", phase_gan)
     elu_launches = tuple(a + b for a, b in zip(elu_launches, gan_launches))
     try:
-        phase_gan_golden()
-        launches += phase_bilinear()
-        launches += phase_from_dataset(gan_synth)
-        launches += phase_figures(gan_base)
+        timed("21", phase_gan_golden)
+        launches += timed("22 bilinear", phase_bilinear)
+        launches += timed("22 from_dataset", phase_from_dataset, gan_synth)
+        launches += timed("23", phase_figures, gan_base)
     finally:
         shutil.rmtree(gan_base, ignore_errors=True)
-    t0 = time.perf_counter()
-    int8_entry, quant_launches = phase_quant_serving()
-    launches += quant_launches + phase_conv_types()
-    log(f"    phase [24] {time.perf_counter() - t0:.1f} s")
+    int8_entry, quant_launches = timed("24", phase_quant_serving)
+    launches += quant_launches + timed("24 conv types", phase_conv_types)
+    timed("25", phase_any_kernel_int8)
+    multi_launches = timed("26", phase_multi_device)
+    elu_launches = tuple(a + b for a, b in zip(elu_launches, multi_launches))
+    timed("27", phase_prep)
+    log(f"    wall seconds by phase: {phase_s}; "
+        f"{sum(phase_s.values()):.1f} in all")
+    RESULTS["phase_s"] = phase_s
     bound, bound_by = rollout_bound_ms(*ROLLOUT_SHAPES[0])
     source = "behavior_driven_video_synthesis_tpu_torch/csrc/"
     pallas = "behavior_driven_video_synthesis_tpu/ops/pallas/"

@@ -7,8 +7,9 @@ has no JAX, which ``tests/conftest.py`` imports, so run them there with
 
 Tolerances.  Rollout: the kernel and the bf16-operand plain version round
 the same operands to bf16 and accumulate in f32; they differ only in
-summation order (atomics included) and in the rare bf16 rounding flip of h
-that this causes, so atol 1e-2, rtol 1e-2.  ELU+dropout: the plain version
+summation order and in the rare bf16 rounding flip of h that this causes,
+so atol 1e-2, rtol 1e-2; two launches of the kernel on the same operands
+are equal (it sums in a fixed order).  ELU+dropout: the plain version
 computes the kernel's Philox stream, so the keep decisions agree exactly;
 values within one bf16 ulp (bf16) or 1e-6 (f32), for expm1f/expf may
 differ from torch's in the last f32 bit.  Fused RNB: the kernel and its
@@ -19,6 +20,8 @@ plain version quantize alike and sum integers exactly, so the int32
 accumulators are equal and the outputs within one bf16 ulp (bf16; the
 epilogue's arithmetic is the same, aux and the affine included, but the
 cast of a sum on a bf16 midpoint may break either way) or equal (f32).
+The int8 library route (F.unfold + torch._int_mm, the shapes the kernel
+does not take) and the plain version: equal sums, equal outputs.
 """
 import os
 
@@ -246,6 +249,89 @@ def test_elu_dropout_kernels_match_plain(cuda, shape, dtype, rate):
     assert torch.equal(y == 0, (y_ref == 0)) and torch.equal(
         y != 0, keep & (y_ref != 0))
     assert _within_one_ulp(y, y_ref) and _within_one_ulp(dx, dx_ref)
+
+
+@pytest.mark.parametrize("B", [20, 256])
+def test_rollout_kernel_twice_is_bit_equal(cuda, B):
+    """The kernel sums the blocks' partials in a fixed order: two launches
+    on the same operands give the same bits (they varied with the
+    atomics that summed them before)."""
+    args = _args(B, 48, 1024, cuda, seed=B)
+    ops = R.pack_operands(*args[2:])
+    with torch.no_grad():
+        a = R.residual_lstm_rollout_prepared(args[0], args[1], ops, 50)
+        b = R.residual_lstm_rollout_prepared(args[0], args[1], ops, 50)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((12, 64, 64, 32), torch.bfloat16), ((6, 33, 17, 5), torch.bfloat16),
+    ((4, 7, 3), torch.float32), ((2, 1000003), torch.float32)])
+@pytest.mark.parametrize("world", [2, 3])
+def test_elu_dropout_kernels_with_an_offset_are_the_global_slice(
+        cuda, shape, dtype, world):
+    """Each rank's rows launched at offset rank * n_local (any offset,
+    also inside a Philox block of 4) equal the same rows of one launch
+    over the global batch and of the plain version, forward and
+    backward."""
+    rows = shape[0] // world
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn((rows * world,) + shape[1:], generator=g,
+                    device=cuda).to(dtype)
+    ct = torch.randn(x.shape, generator=g, device=cuda).to(dtype)
+    seed = E.draw_seed(cuda, g)
+    full = E.elu_dropout_forward(x, seed, 0.3)
+    dfull = E.elu_dropout_backward(x, ct, seed, 0.3)
+    n_local = x[:rows].numel()
+    for r in range(world):
+        sl = slice(r * rows, (r + 1) * rows)
+        off = r * n_local
+        part = E.elu_dropout_forward(x[sl], seed, 0.3, off)
+        dpart = E.elu_dropout_backward(x[sl], ct[sl], seed, 0.3, off)
+        torch.cuda.synchronize()
+        assert torch.equal(part, full[sl]) and torch.equal(dpart, dfull[sl])
+        ref = E.elu_dropout_plain(x[sl], seed, 0.3, off)
+        dref = E.elu_dropout_backward_plain(x[sl], ct[sl], seed, 0.3, off)
+        assert torch.equal(part == 0, ref == 0)
+        assert _within_one_ulp(part, ref) and _within_one_ulp(dpart, dref)
+    with pytest.raises(ValueError, match="offset"):
+        E.elu_dropout_forward(x, seed, 0.3, -4)
+
+
+@pytest.mark.parametrize("k,pad,stride", [(5, 2, 1), (7, 3, 1), (3, 0, 1),
+                                          (3, 1, 3)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv_int8_unfold_route_matches_plain(cuda, k, pad, stride, dtype):
+    """A quantized NormConv2d of a shape the kernel does not take runs
+    through F.unfold + torch._int_mm on the card: the plain version's
+    int32 sums and outputs, with aux and the affine, and no kernel
+    launch."""
+    g = torch.Generator(device=cuda).manual_seed(k + pad)
+    cin, ca, n = 64, 64, 64
+    x = (torch.randn(3, 64, 64, cin, generator=g, device=cuda) * 2).to(
+        dtype)
+    aux = torch.randn(3, 64, 64, ca, generator=g, device=cuda).to(dtype)
+    w_q, aw = CI.quantize_weight(torch.randn(n, cin, k, k, generator=g,
+                                             device=cuda))
+    aux_w_q, aux_aw = CI.quantize_weight(torch.randn(
+        n, ca, k, k, generator=g, device=cuda))
+    kw = dict(padding=pad, aux=aux, aux_w_q=aux_w_q, aux_aw=aux_aw,
+              ax_aux=CI.act_scale(aux),
+              gamma=torch.randn(n, generator=g, device=cuda),
+              beta=torch.randn(n, generator=g, device=cuda))
+    args = (x, w_q, aw, CI.act_scale(x),
+            torch.randn(n, generator=g, device=cuda), stride)
+    before = (CI.conv_int8_launches, CI.conv_int8_unfold_calls)
+    out = CI.conv_int8(*args[:6], **kw)
+    sums = CI.conv_int8_unfold(*args, accumulators=True, **kw)
+    torch.cuda.synchronize()
+    assert (CI.conv_int8_launches, CI.conv_int8_unfold_calls) == (
+        before[0], before[1] + 2)
+    ref_sums = CI.conv_int8_plain(*args, accumulators=True, **kw)
+    for u, v in zip(sums, ref_sums):
+        assert torch.equal(u, v)
+    assert torch.equal(out, CI.conv_int8_plain(*args, **kw))
 
 
 def test_elu_dropout_kernel_refuses_what_it_does_not_take(cuda):

@@ -188,6 +188,80 @@ def test_norm_conv_quant_matches_jax(quant, aux):
     assert conv.state_dict().keys() == plain.state_dict().keys()
 
 
+# kernel sizes and paddings the int8 kernel does not take: the plain
+# version on the CPU, F.unfold + torch._int_mm on the card
+ANY_KERNEL = [(5, 2), (7, 3), (3, 0)]
+
+
+@pytest.mark.parametrize("k,pad", ANY_KERNEL)
+@pytest.mark.parametrize("quant", ["int8", "int8_static"])
+@pytest.mark.parametrize("aux", [False, True])
+def test_norm_conv_quant_any_kernel_matches_jax(k, pad, quant, aux):
+    """A quantized NormConv2d of any kernel size and padding (JAX
+    ``_conv_int8`` takes them all) equals JAX's within 1e-5 * (1 +
+    max|ref|): one conv, the f32 rounding of the weight norm."""
+    cx, ca, cout = 8, 4, 16
+    conv, tree = _norm_conv_pair(cx + (ca if aux else 0), cout, k, pad,
+                                 quant=quant)
+    rng = np.random.RandomState(7)
+    x = rng.randn(2, 9, 9, cx).astype(np.float32)
+    a = (rng.randn(2, 9, 9, ca) * 4).astype(np.float32) if aux else None
+    jm = jnn.NormConv2d(cout, kernel_size=k, padding=pad, quant=quant)
+    args = (jnp.asarray(x), None if a is None else jnp.asarray(a))
+    targs = (torch.from_numpy(x), None if a is None else torch.from_numpy(a))
+    variables = {"params": tree}
+    if quant == "int8_static":
+        _, mut = jm.apply(variables, *args, mutable=["quant"])
+        variables = {**variables, **mut}
+        with pnn.quant_calibration(conv):
+            conv(*targs)
+    assert conv.quant_active(targs[0])
+    ref = jm.apply(variables, *args)
+    with torch.no_grad():
+        out = conv(*targs)
+    assert out.shape == tuple(ref.shape) == (2, 9 + 2 * pad - k + 1,
+                                             9 + 2 * pad - k + 1, cout)
+    np.testing.assert_allclose(_np(out), _np(ref), rtol=0,
+                               atol=1e-5 * (1 + np.abs(_np(ref)).max()))
+    plain = pnn.NormConv2d(cx + (ca if aux else 0), cout, k, padding=pad)
+    plain.load_state_dict(conv.state_dict())
+    with torch.no_grad():
+        assert 0 < _rel_l2(out, plain(*targs)) < 0.05
+
+
+@pytest.mark.parametrize("k,pad,stride", [
+    (k, pad, 1) for k, pad in ANY_KERNEL] + [(3, 1, 3), (5, 2, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unfold_route_equals_the_plain_version(k, pad, stride, dtype):
+    """The library route (``conv_int8_unfold``: F.unfold and one int8 GEMM,
+    its operands padded to what cuBLASLt takes) gives the plain version's
+    int32 sums and outputs, with aux and the affine; on the CPU it counts
+    no call of the card's route."""
+    g = torch.Generator().manual_seed(k * 10 + pad)
+    cin, ca, n = 5, 3, 11
+    x = (torch.randn(2, 10, 9, cin, generator=g) * 3).to(dtype)
+    aux = (torch.randn(2, 10, 9, ca, generator=g) * 2).to(dtype)
+    w_q, aw = ci8.quantize_weight(torch.randn(n, cin, k, k, generator=g))
+    aux_w_q, aux_aw = ci8.quantize_weight(torch.randn(n, ca, k, k,
+                                                      generator=g))
+    kw = dict(padding=pad, aux=aux, aux_w_q=aux_w_q, aux_aw=aux_aw,
+              ax_aux=ci8.act_scale(aux),
+              gamma=torch.randn(n, generator=g),
+              beta=torch.randn(n, generator=g))
+    args = (x, w_q, aw, ci8.act_scale(x), torch.randn(n, generator=g),
+            stride)
+    calls = ci8.conv_int8_unfold_calls
+    sums = ci8.conv_int8_unfold(*args, accumulators=True, **kw)
+    ref_sums = ci8.conv_int8_plain(*args, accumulators=True, **kw)
+    for u, v in zip(sums, ref_sums):
+        assert u.dtype == torch.int32 and torch.equal(u, v)
+    out = ci8.conv_int8_unfold(*args, **kw)
+    assert torch.equal(out, ci8.conv_int8_plain(*args, **kw))
+    assert out.dtype == dtype
+    assert ci8.conv_int8_unfold_calls == calls
+    assert ci8.kernel_takes(3, 1, 2) and not ci8.kernel_takes(k, pad, 3)
+
+
 @pytest.mark.parametrize("features,k,pad", [(8, 1, 0), (3, 3, 1)])
 def test_small_heads_stay_full_precision(features, k, pad):
     """1x1 convs and heads of fewer than 8 features do not quantize: bit

@@ -150,13 +150,35 @@ def test_dropout_is_live_in_training_only(nets, impl):
 @pytest.mark.parametrize("impl,match", [
     ("packed", "TPU-only mask representations"),
     ("bits", "TPU-only mask representations"),
-    ("pallas_sharded", "multi-device, ROADMAP A14")])
-def test_unported_dropout_impls_raise(impl, match):
-    with pytest.raises(NotImplementedError, match=match):
-        VUNet(spatial_size=S, nf_start=NF0, nf_max=NF1, dropout_prob=0.1,
-              dropout_impl=impl)
+    ("pallas_sharded", None)])
+def test_unported_dropout_impls_raise(nets, impl, match):
+    """The TPU-only mask representations raise.  ``pallas_sharded``, ported
+    with the multi-device training (A14b), is the ``pallas`` route on a
+    rank's shard: without a process group a training step through it
+    equals one through ``pallas``, forward and gradients."""
     with pytest.raises(ValueError, match="unknown dropout_impl"):
         pnn.VunetRNB(4, dropout_impl="nope")
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            VUNet(spatial_size=S, nf_start=NF0, nf_max=NF1,
+                  dropout_prob=0.1, dropout_impl=impl)
+        return
+    net, _, x, c, noise = nets
+    eps = [_t(n) for n in noise]
+    outs = []
+    for route in (impl, "pallas"):
+        drop = VUNet(spatial_size=S, nf_start=NF0, nf_max=NF1,
+                     dropout_prob=0.3, dropout_impl=route)
+        drop.load_state_dict(net.state_dict())
+        g = torch.Generator().manual_seed(0)
+        imgs = drop(_t(x), _t(c), train=True, eps=eps,
+                    dropout_generator=g)[0]
+        imgs.float().square().mean().backward()
+        outs.append((imgs.detach(), [p.grad for p in drop.parameters()]))
+    (a, ga), (b, gb) = outs
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for u, v in zip(ga, gb):
+        torch.testing.assert_close(u, v, rtol=0, atol=0)
 
 
 def test_regressor_matches_jax_and_converts():
