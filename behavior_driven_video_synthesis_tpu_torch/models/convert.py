@@ -95,6 +95,11 @@ def _rnn_l0(key: str, path: Tuple[str, ...]) -> Plan:
                                ("bias_hh", "b_hh", "id"))]
 
 
+def _dense(key: str, path: Tuple[str, ...]) -> Plan:
+    return [(f"{key}.weight", path + ("kernel",), "T"),
+            (f"{key}.bias", path + ("bias",), "id")]
+
+
 def _norm_conv(key: str, path: Tuple[str, ...], v_kind: str = "hwio") -> Plan:
     return [(f"{key}.conv.weight_v", path + ("v",), v_kind),
             (f"{key}.conv.weight_g", path + ("g",), "g"),
@@ -138,23 +143,39 @@ def behavior_net_to_flax(state_dict: Mapping) -> Dict[str, Any]:
 
 # -- latent flow ------------------------------------------------------------
 
-def latent_flow_plan(n_flows: int, n_dense: int) -> Plan:
+def _mlp(key: str, path: Tuple[str, ...], n_dense: int) -> Plan:
+    """A ``FullyConnectedNet``'s ``main.{2k}`` <-> flax ``Dense_{k}``."""
+    return [e for k in range(n_dense)
+            for e in _dense(f"{key}.main.{2 * k}", path + (f"Dense_{k}",))]
+
+
+# the MLPs of each coupling type, ``coupling.{net}.{j}`` <-> ``{net}_{j}``
+COUPLING_NETS = {"affine": ("s", "t"), "gin": ("s", "t"), "nice": ("t",),
+                 "rqs": ("nets",)}
+
+
+def _flow_blocks(key: str, path: Tuple[str, ...], n_flows: int,
+                 n_dense: int, nets: Tuple[str, ...] = ("s", "t")) -> Plan:
+    """``{key}sub_layers.{i}`` <-> ``params``/``buffers`` + path +
+    ``sub_layers_{i}``: ActNorm, the coupling's MLPs and the Shuffle
+    permutation (a buffer)."""
     plan: Plan = []
     for i in range(n_flows):
-        key, path = f"flow.sub_layers.{i}", ("flow", f"sub_layers_{i}")
-        plan += [(f"{key}.norm_layer.{n}", ("params",) + path
-                  + ("norm_layer", n), "c4") for n in ("loc", "scale")]
-        for net in ("s", "t"):
+        k, p = f"{key}sub_layers.{i}", path + (f"sub_layers_{i}",)
+        plan += [(f"{k}.norm_layer.{n}", ("params",) + p + ("norm_layer", n),
+                  "c4") for n in ("loc", "scale")]
+        for net in nets:
             for j in range(2):
-                for k in range(n_dense):
-                    dense = ("params",) + path + ("coupling", f"{net}_{j}",
-                                                  f"Dense_{k}")
-                    main = f"{key}.coupling.{net}.{j}.main.{2 * k}"
-                    plan += [(f"{main}.weight", dense + ("kernel",), "T"),
-                             (f"{main}.bias", dense + ("bias",), "id")]
-        plan.append((f"{key}.shuffle.forward_shuffle_idx",
-                     ("buffers",) + path + ("shuffle", "perm"), "perm"))
+                plan += _mlp(f"{k}.coupling.{net}.{j}",
+                             ("params",) + p + ("coupling", f"{net}_{j}"),
+                             n_dense)
+        plan.append((f"{k}.shuffle.forward_shuffle_idx",
+                     ("buffers",) + p + ("shuffle", "perm"), "perm"))
     return plan
+
+
+def latent_flow_plan(n_flows: int, n_dense: int) -> Plan:
+    return _flow_blocks("flow.", ("flow",), n_flows, n_dense)
 
 
 def latent_flow_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
@@ -423,11 +444,6 @@ def vunet_regressor_to_flax(state_dict: Mapping) -> Dict[str, Any]:
 
 # -- probes of the behavior experiment ----------------------------------------
 
-def _dense(key: str, path: Tuple[str, ...]) -> Plan:
-    return [(f"{key}.weight", path + ("kernel",), "T"),
-            (f"{key}.bias", path + ("bias",), "id")]
-
-
 def regressor_fly_plan() -> Plan:
     """``RegressorFly``: ``fc{i+1}`` <-> ``Dense_{i}`` (the mapping of the
     JAX package's ``convert_regressor_fly``)."""
@@ -647,3 +663,403 @@ def inception_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
 
 def inception_to_flax(state_dict: Mapping) -> Dict[str, Any]:
     return to_flax(state_dict, inception_plan("fc.weight" in state_dict))
+
+
+# -- the dormant modules: layers, flows, RIM, discriminators ------------------
+
+def _n(keys, prefix: str, suffix: str = "") -> int:
+    """The number of consecutive indices i from 0 with
+    ``prefix{i}suffix`` in keys."""
+    n = 0
+    while f"{prefix}{n}{suffix}" in keys:
+        n += 1
+    return n
+
+
+def basic_unconnected_net_plan(n_dense: int) -> Plan:
+    """``BasicUnConnectedNet``: ``net.main.{2k}`` <-> ``Dense_{k}``."""
+    return _mlp("net", (), n_dense)
+
+
+def basic_unconnected_net_from_flax(tree: Mapping
+                                    ) -> Dict[str, torch.Tensor]:
+    p = _params(tree)
+    return from_flax(p, basic_unconnected_net_plan(_count(p, "Dense_")))
+
+
+def basic_unconnected_net_to_flax(state_dict: Mapping) -> Dict[str, Any]:
+    return to_flax(state_dict, basic_unconnected_net_plan(
+        sum(1 for k in state_dict if k.endswith(".weight"))))
+
+
+def feature_layer_plan(key: str = "", path: Tuple[str, ...] = ()) -> Plan:
+    """``FeatureLayer``: ``conv.weight`` <-> ``Conv_0/kernel`` (HWIO),
+    ``loc`` and ``scale`` as they are."""
+    return [(f"{key}conv.weight", path + ("Conv_0", "kernel"), "hwio"),
+            (f"{key}loc", path + ("loc",), "id"),
+            (f"{key}scale", path + ("scale",), "id")]
+
+
+def feature_layer_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    return from_flax(_params(tree), feature_layer_plan())
+
+
+def feature_layer_to_flax(state_dict: Mapping) -> Dict[str, Any]:
+    return to_flax(state_dict, feature_layer_plan())
+
+
+def dense_encoder_layer_plan(key: str = "",
+                             path: Tuple[str, ...] = ()) -> Plan:
+    """``DenseEncoderLayer``: ``dense`` <-> ``Dense_0`` (the (H, W, C)
+    flatten of both sides is the same, so the kernel only transposes)."""
+    return _dense(f"{key}dense", path + ("Dense_0",))
+
+
+def dense_encoder_layer_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    return from_flax(_params(tree), dense_encoder_layer_plan())
+
+
+def dense_encoder_layer_to_flax(state_dict: Mapping) -> Dict[str, Any]:
+    return to_flax(state_dict, dense_encoder_layer_plan())
+
+
+def _coupling_type(has) -> str:
+    """The coupling type whose MLPs are there (``has(net)``); affine and
+    GIN share one layout, which :func:`unconditional_flow_plan` reads the
+    same either way."""
+    return next(t for t, nets in COUPLING_NETS.items()
+                if all(has(n) for n in nets))
+
+
+def _sd_flow(state_dict: Mapping, key: str):
+    """(n_flows, n_dense, coupling type) of a flow stack's state dict under
+    key."""
+    n_flows = _n(state_dict, f"{key}sub_layers.", ".norm_layer.loc")
+    coupling = f"{key}sub_layers.0.coupling."
+    ctype = _coupling_type(
+        lambda n: f"{coupling}{n}.0.main.0.weight" in state_dict)
+    net = f"{coupling}{COUPLING_NETS[ctype][0]}.0."
+    n_dense = sum(1 for k in state_dict
+                  if k.startswith(net) and k.endswith(".weight"))
+    return n_flows, n_dense, ctype
+
+
+def unconditional_flow_plan(n_flows: int, n_dense: int,
+                            coupling_type: str = "affine") -> Plan:
+    """``UnconditionalFlow`` of any coupling type <-> its flax variables
+    (``params`` and the Shuffles' ``buffers``); a spline coupling's MLPs
+    are ``coupling.nets.{j}`` <-> ``nets_{j}``, and NICE has t alone."""
+    return _flow_blocks("", (), n_flows, n_dense,
+                        COUPLING_NETS[coupling_type])
+
+
+def unconditional_flow_from_flax(variables: Mapping
+                                 ) -> Dict[str, torch.Tensor]:
+    p = variables["params"]
+    coupling = p["sub_layers_0"]["coupling"]
+    ctype = _coupling_type(lambda n: f"{n}_0" in coupling)
+    n_dense = _count(coupling[f"{COUPLING_NETS[ctype][0]}_0"], "Dense_")
+    return from_flax(variables, unconditional_flow_plan(
+        _count(p, "sub_layers_"), n_dense, ctype))
+
+
+def unconditional_flow_to_flax(state_dict: Mapping) -> Dict[str, Any]:
+    return to_flax(state_dict, unconditional_flow_plan(
+        *_sd_flow(state_dict, "")))
+
+
+def conditional_flow_plan(n_flows: int, n_dense: int, conditioned: bool,
+                          key: str = "", path: Tuple[str, ...] = ()) -> Plan:
+    """``ConditionalFlow``: the flow blocks as in
+    :func:`unconditional_flow_plan` (affine), and with a
+    ``conditioning_option`` other than "none" ``conditioning_layers.{i}``
+    <-> ``conditioning_layers_{i}``."""
+    plan = _flow_blocks(key, path, n_flows, n_dense)
+    if conditioned:
+        plan += [e for i in range(n_flows) for e in _dense(
+            f"{key}conditioning_layers.{i}",
+            ("params",) + path + (f"conditioning_layers_{i}",))]
+    return plan
+
+
+def _tree_conditional_flow(p: Mapping):
+    return (_count(p, "sub_layers_"),
+            _count(p["sub_layers_0"]["coupling"]["s_0"], "Dense_"),
+            "conditioning_layers_0" in p)
+
+
+def conditional_flow_from_flax(variables: Mapping
+                               ) -> Dict[str, torch.Tensor]:
+    return from_flax(variables, conditional_flow_plan(
+        *_tree_conditional_flow(variables["params"])))
+
+
+def _sd_conditional_flow(state_dict: Mapping, key: str = ""):
+    n_flows, n_dense, _ = _sd_flow(state_dict, key)
+    return (n_flows, n_dense,
+            f"{key}conditioning_layers.0.weight" in state_dict)
+
+
+def conditional_flow_to_flax(state_dict: Mapping) -> Dict[str, Any]:
+    return to_flax(state_dict, conditional_flow_plan(
+        *_sd_conditional_flow(state_dict)))
+
+
+def dense_embedder_plan(n_hidden: int, key: str = "",
+                        path: Tuple[str, ...] = ()) -> Plan:
+    """``DenseEmbedder`` with ``n_hidden`` hidden widths: ``net.{3l}`` <->
+    ``Dense_{l}``, ``net.{3l+1}`` (ActNorm) <-> ``ActNorm_{l}``, the last
+    ``net.{3 n_hidden}`` <-> ``Dense_{n_hidden}``."""
+    plan: Plan = []
+    for i in range(n_hidden):
+        plan += _dense(f"{key}net.{3 * i}", path + (f"Dense_{i}",))
+        plan += [(f"{key}net.{3 * i + 1}.{n}", path + (f"ActNorm_{i}", n),
+                  "c4") for n in ("loc", "scale")]
+    return plan + _dense(f"{key}net.{3 * n_hidden}",
+                         path + (f"Dense_{n_hidden}",))
+
+
+def dense_embedder_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    p = _params(tree)
+    return from_flax(p, dense_embedder_plan(_count(p, "ActNorm_")))
+
+
+def dense_embedder_to_flax(state_dict: Mapping) -> Dict[str, Any]:
+    return to_flax(state_dict, dense_embedder_plan(
+        sum(1 for k in state_dict if k.endswith(".loc"))))
+
+
+def embedder_plan(n_down: int, key: str = "",
+                  path: Tuple[str, ...] = ()) -> Plan:
+    """``Embedder``: ``feature_layers.{i}`` <-> ``FeatureLayer_{i}``,
+    ``dense_encode`` <-> ``DenseEncoderLayer_0``."""
+    plan: Plan = []
+    for i in range(n_down):
+        plan += feature_layer_plan(f"{key}feature_layers.{i}.",
+                                   path + (f"FeatureLayer_{i}",))
+    return plan + dense_encoder_layer_plan(f"{key}dense_encode.",
+                                           path + ("DenseEncoderLayer_0",))
+
+
+def embedder_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    p = _params(tree)
+    return from_flax(p, embedder_plan(_count(p, "FeatureLayer_")))
+
+
+def embedder_to_flax(state_dict: Mapping) -> Dict[str, Any]:
+    return to_flax(state_dict, embedder_plan(
+        _n(state_dict, "feature_layers.", ".loc")))
+
+
+def conditional_transformer_plan(n_flows: int, n_dense: int,
+                                 conditioned: bool, image: bool,
+                                 n_embed: int) -> Plan:
+    """``ConditionalTransformer``: ``flow`` <-> ``flow`` (variables, as
+    :func:`conditional_flow_plan`), ``embedder`` <-> ``params/embedder``:
+    an :func:`embedder_plan` of ``n_embed`` scales for an image
+    conditioning, else a :func:`dense_embedder_plan` of ``n_embed``
+    hidden widths."""
+    embed = embedder_plan if image else dense_embedder_plan
+    return (conditional_flow_plan(n_flows, n_dense, conditioned, "flow.",
+                                  ("flow",))
+            + embed(n_embed, "embedder.", ("params", "embedder")))
+
+
+def conditional_transformer_from_flax(variables: Mapping
+                                      ) -> Dict[str, torch.Tensor]:
+    p = variables["params"]
+    image = "FeatureLayer_0" in p["embedder"]
+    n_embed = _count(p["embedder"], "FeatureLayer_" if image
+                     else "ActNorm_")
+    return from_flax(variables, conditional_transformer_plan(
+        *_tree_conditional_flow(p["flow"]), image, n_embed))
+
+
+def conditional_transformer_to_flax(state_dict: Mapping) -> Dict[str, Any]:
+    image = "embedder.feature_layers.0.loc" in state_dict
+    n_embed = (_n(state_dict, "embedder.feature_layers.", ".loc") if image
+               else sum(1 for k in state_dict
+                        if k.startswith("embedder.") and k.endswith(".loc")))
+    return to_flax(state_dict, conditional_transformer_plan(
+        *_sd_conditional_flow(state_dict, "flow."), image, n_embed))
+
+
+def made_plan(n_layers: int, conditioned: bool) -> Plan:
+    """``ARFullyConnectedNet``: ``net.{i}`` (MaskedDense) <-> ``net_{i}``,
+    ``condnet.{i}`` <-> ``condnet_{i}``; the masks are not parameters."""
+    plan = [e for i in range(n_layers)
+            for e in _dense(f"net.{i}", (f"net_{i}",))]
+    if conditioned:
+        plan += [e for i in range(n_layers)
+                 for e in _dense(f"condnet.{i}", (f"condnet_{i}",))]
+    return plan
+
+
+def made_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    p = _params(tree)
+    return from_flax(p, made_plan(_count(p, "net_"), "condnet_0" in p))
+
+
+def made_to_flax(state_dict: Mapping) -> Dict[str, Any]:
+    return to_flax(state_dict, made_plan(_n(state_dict, "net.", ".weight"),
+                                         "condnet.0.weight" in state_dict))
+
+
+def rim_cell_plan(key: str = "", path: Tuple[str, ...] = ()) -> Plan:
+    """``RIMCell``: ``key_net`` and ``value_net`` <-> Dense, the
+    GroupDense ``w`` (units, din, dout) as it is; the grouped cell's
+    ``rnn.x2h`` and ``rnn.h2h`` <-> ``rnn/GroupDense_0`` and ``_1``."""
+    plan = (_dense(f"{key}key_net", path + ("key_net",))
+            + _dense(f"{key}value_net", path + ("value_net",)))
+    for name in ("query_net", "comm_query", "comm_key", "comm_value",
+                 "comm_out"):
+        plan.append((f"{key}{name}.w", path + (name, "w"), "id"))
+    for i, name in enumerate(("x2h", "h2h")):
+        plan.append((f"{key}rnn.{name}.w",
+                     path + ("rnn", f"GroupDense_{i}", "w"), "id"))
+    return plan
+
+
+def rim_cell_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    return from_flax(_params(tree), rim_cell_plan())
+
+
+def rim_cell_to_flax(state_dict: Mapping) -> Dict[str, Any]:
+    return to_flax(state_dict, rim_cell_plan())
+
+
+def rim_plan(n_cells: int) -> Plan:
+    """``RIM``: ``cells.{i}`` <-> ``cells_{i}/RIMCell_0`` (layer-major,
+    then direction)."""
+    return [e for i in range(n_cells)
+            for e in rim_cell_plan(f"cells.{i}.",
+                                   (f"cells_{i}", "RIMCell_0"))]
+
+
+def rim_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    p = _params(tree)
+    return from_flax(p, rim_plan(_count(p, "cells_")))
+
+
+def rim_to_flax(state_dict: Mapping) -> Dict[str, Any]:
+    return to_flax(state_dict, rim_plan(_n(state_dict, "cells.",
+                                           ".key_net.weight")))
+
+
+def _fc_head(n_hidden: int, hidden_key: str) -> Plan:
+    """``{hidden_key}.{i}`` <-> ``Dense_{i}``, ``out`` <-> the last
+    Dense."""
+    return [e for i in range(n_hidden)
+            for e in _dense(f"{hidden_key}.{i}", (f"Dense_{i}",))] \
+        + _dense("out", (f"Dense_{n_hidden}",))
+
+
+def sequence_disc_plan(n_layers_class: int) -> Plan:
+    """``SequenceDisc``: ``rnn`` <-> ``LSTM_0``, ``fc.{i}`` <->
+    ``Dense_{i}``, ``out`` <-> the last Dense."""
+    return _rnn_l0("rnn", ("LSTM_0",)) + _fc_head(n_layers_class, "fc")
+
+
+def sequence_disc_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    p = _params(tree)
+    return from_flax(p, sequence_disc_plan(_count(p, "Dense_") - 1))
+
+
+def sequence_disc_to_flax(state_dict: Mapping) -> Dict[str, Any]:
+    return to_flax(state_dict, sequence_disc_plan(
+        _n(state_dict, "fc.", ".weight")))
+
+
+def sequence_disc_conv_plan(n_layers_class: int) -> Plan:
+    """``SequenceDiscConv``: ``conv1`` and ``conv2`` <-> ``Conv_0`` and
+    ``Conv_1`` (HWIO), the head as in :func:`sequence_disc_plan`."""
+    return [e for i in (0, 1) for e in (
+        (f"conv{i + 1}.weight", (f"Conv_{i}", "kernel"), "hwio"),
+        (f"conv{i + 1}.bias", (f"Conv_{i}", "bias"), "id"))] \
+        + _fc_head(n_layers_class, "fc")
+
+
+def sequence_disc_conv_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    p = _params(tree)
+    return from_flax(p, sequence_disc_conv_plan(_count(p, "Dense_") - 1))
+
+
+def sequence_disc_conv_to_flax(state_dict: Mapping) -> Dict[str, Any]:
+    return to_flax(state_dict, sequence_disc_conv_plan(
+        _n(state_dict, "fc.", ".weight")))
+
+
+def midisc_plan(n_layers: int) -> Plan:
+    """``MIDisc``: ``net.{i}`` <-> ``Dense_{i}``, ``out`` <-> the last
+    Dense."""
+    return _fc_head(n_layers, "net")
+
+
+def midisc_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    p = _params(tree)
+    return from_flax(p, midisc_plan(_count(p, "Dense_") - 1))
+
+
+def midisc_to_flax(state_dict: Mapping) -> Dict[str, Any]:
+    return to_flax(state_dict, midisc_plan(_n(state_dict, "net.",
+                                              ".weight")))
+
+
+def midisc_conv_plan(n_layers: int) -> Plan:
+    """``MIDiscConv``: ``conv_in`` and ``conv_out`` <-> ``L2NormConv2d_0``
+    and ``_1``, ``blocks.{i}`` <-> ``VunetRNB_{i}`` (l2 convs)."""
+    plan = _vunet_conv("conv_in", (), 0, "l2")
+    for i in range(n_layers):
+        plan += _rnb(f"blocks.{i}", (f"VunetRNB_{i}",), False, "l2")
+    return plan + _vunet_conv("conv_out", (), 1, "l2")
+
+
+def midisc_conv_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    p = _params(tree)
+    return from_flax(p, midisc_conv_plan(_count(p, "VunetRNB_")))
+
+
+def midisc_conv_to_flax(state_dict: Mapping) -> Dict[str, Any]:
+    return to_flax(state_dict, midisc_conv_plan(
+        _n(state_dict, "blocks.", ".conv.weight")))
+
+
+def resnet_block_2d_plan(shortcut: bool) -> Plan:
+    """``ResnetBlock2D``: flax names its convs in creation order, the
+    shortcut (when there is one) first: ``shortcut``, ``conv1``, ``conv2``
+    <-> ``Conv_{0,1,2}`` (else ``conv1``, ``conv2`` <-> ``Conv_{0,1}``);
+    ``norm{1,2}`` <-> ``GroupNorm_{0,1}`` (weight <-> scale)."""
+    convs = (["shortcut"] if shortcut else []) + ["conv1", "conv2"]
+    plan: Plan = []
+    for i, name in enumerate(convs):
+        plan += [(f"{name}.weight", (f"Conv_{i}", "kernel"), "hwio"),
+                 (f"{name}.bias", (f"Conv_{i}", "bias"), "id")]
+    for i in (0, 1):
+        plan += [(f"norm{i + 1}.weight", (f"GroupNorm_{i}", "scale"), "id"),
+                 (f"norm{i + 1}.bias", (f"GroupNorm_{i}", "bias"), "id")]
+    return plan
+
+
+def resnet_block_2d_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    p = _params(tree)
+    return from_flax(p, resnet_block_2d_plan(_count(p, "Conv_") == 3))
+
+
+def resnet_block_2d_to_flax(state_dict: Mapping) -> Dict[str, Any]:
+    return to_flax(state_dict, resnet_block_2d_plan(
+        "shortcut.weight" in state_dict))
+
+
+def self_attention_2d_plan() -> Plan:
+    """``SelfAttention2D``: ``W{f,g,h,v}.weight`` <-> ``W{f,g,h,v}/kernel``
+    (1x1 HWIO), ``beta`` as it is."""
+    return [(f"{n}.weight", (n, "kernel"), "hwio")
+            for n in ("Wf", "Wg", "Wh", "Wv")] + [("beta", ("beta",), "id")]
+
+
+def self_attention_2d_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    return from_flax(_params(tree), self_attention_2d_plan())
+
+
+def self_attention_2d_to_flax(state_dict: Mapping) -> Dict[str, Any]:
+    return to_flax(state_dict, self_attention_2d_plan())

@@ -1,10 +1,13 @@
 """Invertible flow blocks over flat (B, C) behavior latents.
 
-Counterpart of ``behavior_driven_video_synthesis_tpu/models/flows/blocks.py``
-(affine coupling only): ActNorm -> DoubleCoupling -> Shuffle, with analytic
-log-determinants.  State-dict names are the reference's
-(``norm_layer.loc``, ``coupling.s.{j}.main.{2k}.weight``,
-``shuffle.forward_shuffle_idx``).
+Counterpart of ``behavior_driven_video_synthesis_tpu/models/flows/blocks.py``:
+ActNorm -> coupling -> Shuffle, with analytic log-determinants.  The
+coupling is one of :data:`COUPLING_TYPES`: ``affine`` (DoubleCoupling),
+the volume-preserving ``gin`` and ``nice``, and ``rqs`` (the spline
+coupling of ``spline.py``, registered by the package).  State-dict names
+are the reference's (``norm_layer.loc``, ``coupling.s.{j}.main.{2k}.weight``,
+``shuffle.forward_shuffle_idx``); the spline coupling's nets are
+``coupling.nets.{j}``.
 """
 from __future__ import annotations
 
@@ -43,22 +46,44 @@ class ActNorm(nn.Module):
 
 class DoubleCoupling(nn.Module):
     """Two affine couplings with a half rotation between them; odd C
-    splits as dim1 = ceil(C/2), dim2 = floor(C/2)."""
+    splits as dim1 = ceil(C/2), dim2 = floor(C/2).  Per coupling i:
+    xb' = xb * exp(s_i(xa)) + t_i(xa), logdet += sum(s_i(xa)).
+
+    The other coupling types override :meth:`_nets` (their MLPs) and
+    :meth:`_couple` (the map of xb given xa); with ``cond_channels`` the
+    MLPs also see a conditioning vector concatenated to xa
+    (``ConditionalCoupling``)."""
 
     def __init__(self, in_channels: int, hidden_dim: int,
-                 hidden_depth: int = 2, dtype=torch.float32, device=None):
+                 hidden_depth: int = 2, dtype=torch.float32, device=None,
+                 cond_channels: int = 0):
         super().__init__()
         c = in_channels
         self.dim1, self.dim2 = c // 2 + c % 2, c // 2
+        self._nets(self.dim1 + cond_channels, hidden_dim, hidden_depth,
+                   dtype, device)
 
-        def nets(use_tanh):
-            return nn.ModuleList(
-                FullyConnectedNet(self.dim1, hidden_depth, hidden_dim,
-                                  use_tanh=use_tanh, out_dim=self.dim2,
-                                  dtype=dtype, device=device)
-                for _ in range(2))
-        self.s = nets(True)
-        self.t = nets(False)
+    @staticmethod
+    def _mlps(in_dim, out_dim, use_tanh, hidden_dim, hidden_depth, dtype,
+              device):
+        return nn.ModuleList(
+            FullyConnectedNet(in_dim, hidden_depth, hidden_dim,
+                              use_tanh=use_tanh, out_dim=out_dim,
+                              dtype=dtype, device=device)
+            for _ in range(2))
+
+    def _nets(self, in_dim, hidden_dim, hidden_depth, dtype, device):
+        self.s = self._mlps(in_dim, self.dim2, True, hidden_dim,
+                            hidden_depth, dtype, device)
+        self.t = self._mlps(in_dim, self.dim2, False, hidden_dim,
+                            hidden_depth, dtype, device)
+
+    def _couple(self, i, h, xb, reverse):
+        """(xb', logdet of the map) given the MLPs' input h."""
+        scale = self.s[i](h)
+        if reverse:
+            return (xb - self.t[i](h)) * torch.exp(-scale), None
+        return xb * torch.exp(scale) + self.t[i](h), torch.sum(scale, dim=-1)
 
     def _swap(self, x):
         # rotate the first dim1 channels to the back
@@ -70,26 +95,80 @@ class DoubleCoupling(nn.Module):
         # wrong for odd C)
         return torch.cat([x[:, self.dim2:], x[:, :self.dim2]], dim=1)
 
-    def forward(self, x, reverse: bool = False):
+    def _run(self, x, cond, reverse):
         d1 = self.dim1
+
+        def mlp_input(xa):
+            return xa if cond is None else torch.cat([xa, cond], dim=1)
         if not reverse:
             logdet = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
             for i in range(2):
                 if i % 2 != 0:
                     x = self._swap(x)
                 xa, xb = x[:, :d1], x[:, d1:]
-                scale = self.s[i](xa)
-                xb = xb * torch.exp(scale) + self.t[i](xa)
+                xb, ld = self._couple(i, mlp_input(xa), xb, False)
                 x = torch.cat([xa, xb], dim=1)
-                logdet = logdet + torch.sum(scale, dim=-1)
+                if ld is not None:
+                    logdet = logdet + ld
             return x, logdet
         for i in reversed(range(2)):
             if i % 2 == 0:
                 x = self._unswap(x)
             xa, xb = x[:, :d1], x[:, d1:]
-            xb = (xb - self.t[i](xa)) * torch.exp(-self.s[i](xa))
+            xb, _ = self._couple(i, mlp_input(xa), xb, True)
             x = torch.cat([xa, xb], dim=1)
         return x
+
+    def forward(self, x, reverse: bool = False):
+        return self._run(x, None, reverse)
+
+
+class GINCoupling(DoubleCoupling):
+    """Volume-preserving affine coupling (GIN, JAX ``blocks.py:208``): the
+    last scale channel is minus the sum of the others, so each coupling's
+    logdet is 0.  Needs even C."""
+
+    def __init__(self, in_channels: int, hidden_dim: int,
+                 hidden_depth: int = 2, dtype=torch.float32, device=None):
+        if in_channels % 2:
+            raise ValueError(f"GIN coupling needs even channels, got "
+                             f"{in_channels}")
+        super().__init__(in_channels, hidden_dim, hidden_depth, dtype,
+                         device)
+
+    def _nets(self, in_dim, hidden_dim, hidden_depth, dtype, device):
+        self.s = self._mlps(in_dim, self.dim1 - 1, True, hidden_dim,
+                            hidden_depth, dtype, device)
+        self.t = self._mlps(in_dim, self.dim1, False, hidden_dim,
+                            hidden_depth, dtype, device)
+
+    def _couple(self, i, h, xb, reverse):
+        s = self.s[i](h)
+        scale = torch.cat([s, -torch.sum(s, dim=-1, keepdim=True)], dim=-1)
+        if reverse:
+            return (xb - self.t[i](h)) * torch.exp(-scale), None
+        return xb * torch.exp(scale) + self.t[i](h), None
+
+
+class NICECoupling(DoubleCoupling):
+    """Additive (volume-preserving) coupling, NICE (JAX ``blocks.py:258``):
+    xb' = xb + t_i(xa), logdet 0."""
+
+    def _nets(self, in_dim, hidden_dim, hidden_depth, dtype, device):
+        self.t = self._mlps(in_dim, self.dim2, False, hidden_dim,
+                            hidden_depth, dtype, device)
+
+    def _couple(self, i, h, xb, reverse):
+        t = self.t[i](h)
+        return (xb - t if reverse else xb + t), None
+
+
+# coupling_type -> coupling class; the package adds "rqs" (spline.py)
+COUPLING_TYPES = {
+    "affine": DoubleCoupling,
+    "gin": GINCoupling,
+    "nice": NICECoupling,
+}
 
 
 class Shuffle(nn.Module):
@@ -110,18 +189,20 @@ class Shuffle(nn.Module):
 
 
 class CouplingFlowBlock(nn.Module):
-    """ActNorm -> affine DoubleCoupling -> Shuffle (one flow step)."""
+    """ActNorm -> coupling of ``coupling_type`` (:data:`COUPLING_TYPES`)
+    -> Shuffle (one flow step)."""
 
     def __init__(self, in_channels: int, hidden_dim: int,
                  hidden_depth: int = 2, coupling_type: str = "affine",
                  dtype=torch.float32, device=None):
         super().__init__()
-        if coupling_type != "affine":
-            raise NotImplementedError(
-                f"coupling_type={coupling_type!r} is not ported yet")
+        if coupling_type not in COUPLING_TYPES:
+            raise ValueError(f"unknown coupling_type {coupling_type!r}; "
+                             f"expected one of {sorted(COUPLING_TYPES)}")
         self.norm_layer = ActNorm(in_channels, device=device)
-        self.coupling = DoubleCoupling(in_channels, hidden_dim, hidden_depth,
-                                       dtype=dtype, device=device)
+        self.coupling = COUPLING_TYPES[coupling_type](
+            in_channels, hidden_dim, hidden_depth, dtype=dtype,
+            device=device)
         self.shuffle = Shuffle(in_channels, device=device)
 
     def forward(self, x, reverse: bool = False):

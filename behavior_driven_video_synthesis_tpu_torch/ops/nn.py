@@ -514,6 +514,10 @@ class VunetRNB(nn.Module):
     as its split-kernel second input; any other conv layer takes the two
     branches concatenated.
 
+    ``act_fn`` replaces the ELU (JAX's ``act_fn``; ``MIDiscConv`` passes
+    a LeakyReLU): such a block takes neither the ELU+dropout kernel nor
+    the fused RNB kernel, both of which compute the ELU.
+
     ``rnb_impl="fused"`` runs a block without auxiliary input (activate,
     3x3 conv, not training) as one fused RNB kernel
     (``ops/cuda/fused_rnb.py``), unless its conv runs int8 at the input's
@@ -533,13 +537,15 @@ class VunetRNB(nn.Module):
                  aux_channels: Optional[int] = None, kernel_size: int = 3,
                  activate: bool = True, dropout_prob: float = 0.0,
                  dropout_impl: str = "flax", rnb_impl: str = "cudnn",
-                 conv_layer=NormConv2d, dtype=torch.float32, device=None):
+                 conv_layer=NormConv2d, act_fn=None, dtype=torch.float32,
+                 device=None):
         super().__init__()
         check_dropout_impl(dropout_impl)
         if rnb_impl not in RNB_IMPLS:
             raise ValueError(f"unknown rnb_impl {rnb_impl!r}; expected one "
                              f"of {RNB_IMPLS}")
         self.residual, self.activate = residual, activate
+        self.act_fn = act_fn
         self.dropout_prob, self.dropout_impl = dropout_prob, dropout_impl
         if residual:
             self.nin = conv_layer(aux_channels or channels, channels, 1,
@@ -553,17 +559,20 @@ class VunetRNB(nn.Module):
         # the blocks the fused kernel computes: no auxiliary input, which
         # only a residual block takes
         self.fused = (rnb_impl == "fused" and activate and kernel_size == 3
-                      and not residual)
+                      and not residual and act_fn is None)
         self.remat = False
 
     def _act(self, v):
-        return F.elu(v) if self.activate else v
+        if not self.activate:
+            return v
+        return F.elu(v) if self.act_fn is None else self.act_fn(v)
 
     def _act_dropout(self, train: bool, generator):
         """The activation of a conv input, with dropout when training."""
         if not train or self.dropout_prob <= 0.0:
             return self._act
-        if self.dropout_impl != "flax" and self.activate:
+        if (self.dropout_impl != "flax" and self.activate
+                and self.act_fn is None):
             return lambda v: elu_dropout(
                 v, self.dropout_prob, generator,
                 offset=batch_draws.element_offset(v.numel()))
@@ -620,3 +629,95 @@ class FullyConnectedNet(nn.Module):
             else:
                 h = layer(h)
         return h
+
+
+class BasicUnConnectedNet(nn.Module):
+    """Per-dimension MLP (JAX ``ops/nn.py:702``): every input scalar runs
+    through the same 1-in / ``factor``-out LeakyReLU net, as a batched
+    matmul over B * dim rows.  The output is factor-major,
+    ``out[b, f * dim + d]`` (the reference's (B, factor, dim) reshape).
+    ``main`` holds the Linear layers at even indices, as in
+    :class:`FullyConnectedNet`."""
+
+    def __init__(self, dim: int, depth: int, hidden_dim: int = 256,
+                 use_tanh: bool = False, out_dim: Optional[int] = None,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        out_dim = dim if out_dim is None else out_dim
+        if out_dim % dim:
+            raise ValueError(f"out_dim {out_dim} is not a multiple of dim "
+                             f"{dim}")
+        self.dim, self.out_dim = dim, out_dim
+        self.net = FullyConnectedNet(1, depth, hidden_dim, use_tanh=use_tanh,
+                                     out_dim=out_dim // dim, dtype=dtype,
+                                     device=device)
+
+    def forward(self, x):
+        h = self.net(x[..., None])                     # (B, dim, factor)
+        return h.transpose(1, 2).reshape(x.shape[0], self.out_dim)
+
+
+def feature_layer_width(scale: int, width_multiplier: float = 1) -> int:
+    """A :class:`FeatureLayer`'s output channels, wm * 64 * min(2**scale,
+    16)."""
+    return int(width_multiplier * 64 * min(2 ** scale, 16))
+
+
+class FeatureLayer(nn.Module):
+    """One encoder scale (JAX ``ops/nn.py:741``): a 4x4 stride-2 conv
+    without bias, a per-channel affine ``scale * (h + loc)``, then
+    LeakyReLU(0.2); NHWC in and out.  ``in_channels`` defaults to the
+    previous scale's width.  loc and scale come from data: a new layer
+    calls :meth:`initialize_` on its first batch, as JAX's init does.
+    State dict: ``conv.weight`` (OIHW), ``loc`` and ``scale`` (C,)."""
+
+    def __init__(self, scale: int, in_channels: Optional[int] = None,
+                 width_multiplier: float = 1, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        if in_channels is None:
+            if scale == 0:
+                raise ValueError("FeatureLayer(0) needs in_channels")
+            in_channels = feature_layer_width(scale - 1, width_multiplier)
+        out = feature_layer_width(scale, width_multiplier)
+        self.dtype = dtype
+        self.conv = nn.Conv2d(in_channels, out, 4, stride=2, padding=1,
+                              bias=False, device=device)
+        self.loc = nn.Parameter(torch.zeros(out, device=device))
+        self.scale = nn.Parameter(torch.ones(out, device=device))
+
+    def _conv(self, x):
+        dt = self.dtype
+        return conv2d_nhwc(x.to(dt), self.conv.weight.to(dt), None, 2, 1)
+
+    def forward(self, x):
+        dt = self.dtype
+        h = self.scale.to(dt) * (self._conv(x) + self.loc.to(dt))
+        return F.leaky_relu(h, 0.2)
+
+    @torch.no_grad()
+    def initialize_(self, x):
+        """loc = -mean, scale = 1 / (std(ddof=1) + 1e-6) of the conv's
+        output on x, per channel over (B, H, W)."""
+        h = self._conv(x).float()
+        self.loc.copy_(-h.mean(dim=(0, 1, 2)))
+        self.scale.copy_(1.0 / (h.std(dim=(0, 1, 2), unbiased=True) + 1e-6))
+
+
+class DenseEncoderLayer(nn.Module):
+    """Bottleneck-to-vector head (JAX ``ops/nn.py:772``): the reference's
+    conv over the whole spatial extent, as flatten + Linear.  The input
+    is NHWC and flattens (H, W, C) row-major, as the flax module's does,
+    so the converted Dense kernel applies as it is (``dense.weight``,
+    (out, H * W * C))."""
+
+    def __init__(self, in_features: int, out_size: int, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.dense = nn.Linear(in_features, out_size, device=device)
+
+    def forward(self, x):
+        dt = self.dtype
+        return F.linear(x.reshape(x.shape[0], -1).to(dt),
+                        self.dense.weight.to(dt), self.dense.bias.to(dt))

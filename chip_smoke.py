@@ -252,7 +252,29 @@ CUDA toolkit (nvcc) and PyTorch.  It imports no JAX.  Phases:
 27. offline Human3.6M preparation: synthetic views through
     ``data/prep/process.py``'s ``view_annotation_rows`` and
     ``write_annot_export`` (``data/h5lite.py``, no h5py), read back
-    through ``Human36mDataset`` without h5py.
+    through ``Human36mDataset`` without h5py;
+28. the modules no config reaches, at full width on seeded weights made
+    on the card (f32, TF32 off): ``UnconditionalFlow`` with the ``gin``,
+    ``nice`` and ``rqs`` (8 bins) couplings, ``ConditionalFlow``
+    (sequential) and ``ConditionalTransformer`` over a ``DenseEmbedder``
+    of a 15-way one-hot and over an ``Embedder`` of 256 px RGB (B=20,
+    n_down 4) at the behavior flow's width (1024 channels, mid width
+    2048, hidden depth 2, 15 flows, B=256, the coupling MLPs' output
+    layers scaled by 0.1); ``ARFullyConnectedNet`` (1024 -> 2048, 2048 ->
+    2048, with and without a 1024-d condition); ``RIM`` (153 inputs, 8
+    units of 128, k 4, B=64, T=50) as a 2-layer bidirectional LSTM and a
+    GRU; ``SequenceDisc`` (hidden 256, each input type) at the MT-VAE's
+    B=256, T=61, 153 inputs; ``SequenceDiscConv`` (153 keypoints, T=50,
+    B=64); ``MIDisc`` and ``MIDiscConv`` over a 1024-d latent at B=256;
+    ``ResnetBlock2D`` and ``SelfAttention2D`` (beta 0.5) at 20 x 64^2 x
+    128; ``BasicUnConnectedNet`` (1024, depth 2, hidden 256, B=64).  Each
+    against the same state dict on the CPU (4 rows of its batch) and each
+    flow's reverse(forward(x)) within rel-L2 1e-4, with its median ms by
+    CUDA events and peak memory; then a ``ConditionalTransformer``
+    placed by ``parallel/sharding_rules.py:shard_module_state`` on a
+    1-rank NCCL group's ("data", "model") mesh: its forward and one Adam
+    step bit-equal to the unplaced module's under deterministic
+    algorithms.  No hand-written kernel is on this path.
 
 The last two lines are a JSON object of kernel results and
 ``{"ok": true, "device": {...}}``; any failure exits non-zero before them.
@@ -405,12 +427,23 @@ def check(cond, msg):
         raise SystemExit(f"FAILED: {msg}")
 
 
-def cuda_ms(fn, iters):
-    """Mean device time of fn over iters warm calls, by CUDA events."""
+def cuda_ms(fn, iters, median=False):
+    """Device time of fn by CUDA events, warm: the mean over one loop of
+    iters calls, or (median) the median of iters calls each between two
+    events."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    if median:
+        times = []
+        for _ in range(iters):
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return float(np.median(times))
     start.record()
     for _ in range(iters):
         fn()
@@ -423,6 +456,277 @@ def on_device(module, g):
     """A module built on the meta device, materialized on the card and
     filled with seeded values there."""
     return init_random_(module.to_empty(device=DEV), g).eval()
+
+
+# -- 28. the dormant modules at full width -----------------------------------
+# No config names these modules (users import them); their widths come from
+# the configs beside them.  The flows run at the behavior flow's width
+# (configs/behavior_net.yaml: 1024 channels, mid width 2048, hidden depth
+# 2, 15 flows) at bulk sampling's B=256.
+DORMANT = dict(C=1024, MID=2048, DEPTH=2, N_FLOWS=15, B=256, BINS=8,
+               LABELS=15, IMG=256, IMG_B=20, N_DOWN=4, KPS=153, RIM_N=8,
+               RIM_H=128, RIM_K=4, RIM_B=64, T=50, MTVAE_B=256, MTVAE_T=61,
+               VUNET_HW=64, VUNET_C=128, MIN_DIM=128)
+# the CPU recomputes these rows of the card's batch (every module here
+# computes each row on its own)
+DORMANT_CPU_ROWS = 4
+DORMANT_TOL = 1e-4
+
+
+def _tame_couplings(factor=0.1):
+    """The coupling MLPs' output layers scaled by ``factor``: with weights
+    of N(0, 1/fan_in) a GIN scale channel sums 511 tanh values, and 15
+    flows of such maps overflow f32 or lose the reverse to rounding."""
+    def prepare(module):
+        from behavior_driven_video_synthesis_tpu_torch.ops.nn import (
+            FullyConnectedNet)
+        for m in module.modules():
+            if isinstance(m, FullyConnectedNet):
+                last = [x for x in m.main if isinstance(x, torch.nn.Linear)]
+                for p in last[-1].parameters():
+                    p.mul_(factor)
+    return prepare
+
+
+def _dormant_cases(g):
+    """(name, make(device), prepare, inputs on the card, call, is_flow)
+    of every module of phase [28]; call(module, *inputs) returns a tuple
+    of batch-first tensors."""
+    from behavior_driven_video_synthesis_tpu_torch.models import (
+        discriminators as disc, flows, rim)
+    from behavior_driven_video_synthesis_tpu_torch.ops import nn as pnn
+    d = DORMANT
+    C, MID, DEPTH, NF, B = d["C"], d["MID"], d["DEPTH"], d["N_FLOWS"], d["B"]
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=DEV)
+
+    def flat(out):
+        return tuple(out) if isinstance(out, (tuple, list)) else (out,)
+    cases = []
+    for kind in ("gin", "nice", "rqs"):
+        cases.append((
+            f"UnconditionalFlow {kind}", lambda dev, kind=kind:
+            flows.UnconditionalFlow(C, MID, DEPTH, NF, coupling_type=kind,
+                                    device=dev),
+            _tame_couplings(), [randn(B, C)],
+            lambda m, x: m(x), True))
+    onehot = F.one_hot(torch.randint(0, d["LABELS"], (B,), generator=g,
+                                     device=DEV), d["LABELS"]).float()
+    cases += [
+        ("ConditionalFlow sequential", lambda dev: flows.ConditionalFlow(
+            C, C, MID, DEPTH, NF, conditioning_option="sequential",
+            device=dev), _tame_couplings(), [randn(B, C), randn(B, C)],
+            lambda m, x, e: m(x, e), True),
+        ("ConditionalTransformer DenseEmbedder (15-way one-hot)",
+         lambda dev: flows.ConditionalTransformer(
+             C, MID, DEPTH, NF, conditioning_option="parallel",
+             conditioning_in_channels=d["LABELS"], device=dev),
+         _tame_couplings(), [randn(B, C), onehot],
+         lambda m, x, y: m(x, y), True),
+        ("ConditionalTransformer Embedder (256 px RGB)",
+         lambda dev: flows.ConditionalTransformer(
+             C, MID, DEPTH, NF, conditioning_spatial_size=d["IMG"],
+             conditioning_in_channels=3, embedder_down=d["N_DOWN"],
+             device=dev), _tame_couplings(),
+         [randn(d["IMG_B"], C),
+          torch.rand(d["IMG_B"], d["IMG"], d["IMG"], 3, generator=g,
+                     device=DEV) * 2 - 1],
+         lambda m, x, y: m(x, y), True)]
+    for ncond in (0, C):
+        cases.append((
+            f"ARFullyConnectedNet ncond {ncond}",
+            lambda dev, ncond=ncond: flows.ARFullyConnectedNet(
+                C, (MID, MID), 2 * C, ncond=ncond, device=dev), None,
+            [randn(B, C)] + ([randn(B, ncond)] if ncond else []),
+            lambda m, *a: flat(m(*a)), False))
+    RB, T, N, H = d["RIM_B"], d["T"], d["RIM_N"], d["RIM_H"]
+    for cell, layers, bi in (("LSTM", 2, True), ("GRU", 1, False)):
+        states = layers * (2 if bi else 1)
+        ins = [randn(RB, T, d["KPS"]), randn(RB, states, N * H)]
+        if cell == "LSTM":
+            ins.append(randn(RB, states, N * H))
+        cases.append((
+            f"RIM {cell} {layers} layer(s){' bidirectional' if bi else ''}",
+            lambda dev, cell=cell, layers=layers, bi=bi: rim.RIM(
+                d["KPS"], H, N, d["RIM_K"], rnn_cell=cell, n_layers=layers,
+                bidirectional=bi, device=dev), None, ins,
+            lambda m, x, *hc: tuple(o.transpose(0, 1) for o in m(
+                x.transpose(0, 1), *[s.transpose(0, 1) for s in hc])),
+            False))
+    seq = randn(d["MTVAE_B"], d["MTVAE_T"], d["KPS"])
+    for input_type in ("poses", "changes", "combined"):
+        cases.append((
+            f"SequenceDisc {input_type}",
+            lambda dev, it=input_type: disc.SequenceDisc(
+                d["KPS"], 256, input_type=it, device=dev), None, [seq],
+            lambda m, x: (lambda o: (o[0], *o[1]))(m(x)), False))
+    vhw, vc = d["VUNET_HW"], d["VUNET_C"]
+    cases += [
+        ("SequenceDiscConv", lambda dev: disc.SequenceDiscConv(
+            d["KPS"], T, device=dev), None, [randn(RB, T, d["KPS"])],
+         lambda m, x: flat(m(x)), False),
+        ("MIDisc", lambda dev: disc.MIDisc(C, device=dev), None,
+         [randn(B, C)], lambda m, x: flat(m(x)), False),
+        ("MIDiscConv", lambda dev: disc.MIDiscConv(C, device=dev), None,
+         [randn(B, C)], lambda m, x: flat(m(x)), False),
+        ("ResnetBlock2D", lambda dev: disc.ResnetBlock2D(vc, vc,
+                                                         device=dev),
+         None, [randn(20, vhw, vhw, vc)], lambda m, x: flat(m(x)), False),
+        ("SelfAttention2D (beta 0.5)", lambda dev: disc.SelfAttention2D(
+            vc, device=dev), lambda m: m.beta.fill_(0.5),
+         [randn(20, vhw, vhw, vc)], lambda m, x: flat(m(x)), False),
+        ("BasicUnConnectedNet", lambda dev: pnn.BasicUnConnectedNet(
+            C, 2, 256, device=dev), None, [randn(64, C)],
+         lambda m, x: flat(m(x)), False)]
+    return cases
+
+
+def dormant_module(name, make, prepare, inputs, call, is_flow, g):
+    """One module of phase [28] on the card against the CPU; returns its
+    record."""
+    card = on_device(make("meta"), g)
+    if prepare is not None:
+        with torch.no_grad():
+            prepare(card)
+    cpu = make("meta").to_empty(device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    cpu.eval()
+    rows = DORMANT_CPU_ROWS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        out = call(card, *inputs)
+        ms = cuda_ms(lambda: call(card, *inputs), 5, median=True)
+        peak = torch.cuda.max_memory_allocated()
+        ref = call(cpu, *[x[:rows].cpu() for x in inputs])
+        err = max(rel_l2(o[:rows].cpu(), r) for o, r in zip(out, ref))
+        for o in out:
+            check(bool(torch.isfinite(o).all()), f"[28] {name}: not finite")
+        check(err <= DORMANT_TOL, f"[28] {name}: card against the CPU, "
+              f"rel-L2 {err:.2e} > {DORMANT_TOL:.0e}")
+        rec = dict(ms=ms, peak_gib=peak / 2 ** 30, cpu_rel_l2=err,
+                   params=sum(p.numel() for p in card.parameters()))
+        if is_flow:
+            back = card.reverse(out[0], *inputs[1:])
+            rt = rel_l2(back, inputs[0])
+            check(rt <= DORMANT_TOL, f"[28] {name}: reverse(forward(x)) "
+                  f"rel-L2 {rt:.2e} > {DORMANT_TOL:.0e}")
+            rec["round_trip_rel_l2"] = rt
+            rec["reverse_ms"] = cuda_ms(
+                lambda: card.reverse(out[0], *inputs[1:]), 5, median=True)
+    shapes = ", ".join("x".join(map(str, x.shape)) for x in inputs)
+    extra = (f"; reverse {rec['reverse_ms']:.3f} ms, reverse(forward(x)) "
+             f"rel-L2 {rec['round_trip_rel_l2']:.2e}" if is_flow else "")
+    log(f"    {name} ({rec['params'] / 1e6:.1f} M parameters; {shapes}): "
+        f"{ms:.3f} ms (median of 5 by CUDA events), peak "
+        f"{rec['peak_gib']:.2f} GiB, card against the CPU on {rows} rows "
+        f"rel-L2 {err:.2e}{extra}")
+    return rec
+
+
+def dormant_model_axis(g):
+    """The "model"-axis rules on a 1-rank NCCL group's ("data", "model")
+    mesh: a full-width ConditionalTransformer placed by shard_module_state
+    against the same module unplaced, one forward and one Adam step each
+    under deterministic algorithms, all bit-equal."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from behavior_driven_video_synthesis_tpu_torch.models import flows
+    from behavior_driven_video_synthesis_tpu_torch.parallel import (
+        sharding_rules)
+    d = DORMANT
+    C, MID, DEPTH, NF, B = d["C"], d["MID"], d["DEPTH"], d["N_FLOWS"], d["B"]
+
+    def make(dev):
+        return flows.ConditionalTransformer(
+            C, MID, DEPTH, NF, conditioning_option="sequential",
+            conditioning_in_channels=d["LABELS"], device=dev)
+    seed = int(torch.randint(0, 2 ** 31, (1,), generator=g, device=DEV))
+    x = torch.randn(B, C, generator=g, device=DEV)
+    y = F.one_hot(torch.randint(0, d["LABELS"], (B,), generator=g,
+                                device=DEV), d["LABELS"]).float()
+    plan = convert.conditional_transformer_plan(NF, DEPTH + 2, True, False,
+                                                2)
+    base = tempfile.mkdtemp(prefix="chip_smoke_axis_")
+    runs = {}
+    dist.init_process_group("nccl", init_method=f"file://{base}/pg", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        # a data dimension beside "model": the backward's average over it
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        with deterministic_algorithms() as nondeterministic:
+            for placed in (False, True):
+                module = on_device(make("meta"),
+                                   torch.Generator(DEV).manual_seed(seed))
+                with torch.no_grad():
+                    _tame_couplings()(module)
+                module.train()
+                dims = (sharding_rules.shard_module_state(
+                    module, mesh, plan, min_dim=d["MIN_DIM"])
+                    if placed else None)
+                opt = torch.optim.Adam(module.parameters(), lr=1e-4)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                z, logdet = module(x, y)
+                loss = 0.5 * (z ** 2).sum() / B - logdet.mean()
+                loss.backward()
+                opt.step()
+                torch.cuda.synchronize()
+                step_ms = (time.perf_counter() - t0) * 1e3
+                params = {k: (v.full_tensor() if hasattr(v, "full_tensor")
+                              else v).detach().clone()
+                          for k, v in module.named_parameters()}
+                moments = [st for st in opt.state.values()]
+                runs[placed] = dict(z=z.detach(), logdet=logdet.detach(),
+                                    params=params, dims=dims, ms=step_ms,
+                                    moments=moments)
+                del module, opt
+                torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(base, ignore_errors=True)
+    a, b = runs[True], runs[False]
+    check(torch.equal(a["z"], b["z"]) and torch.equal(a["logdet"],
+                                                      b["logdet"]),
+          "[28] model axis: the placed forward differs")
+    differ = [k for k in b["params"] if not torch.equal(a["params"][k],
+                                                        b["params"][k])]
+    check(not differ, f"[28] model axis: the placed Adam step differs at "
+          f"{differ[:3]}")
+    sharded = sum(v is not None for v in a["dims"].values())
+    check(sharded > 0, "[28] model axis: no parameter sharded")
+    placed_moments = sum(
+        1 for st in a["moments"] for v in st.values()
+        if torch.is_tensor(v) and v.dim() > 0 and hasattr(v, "placements"))
+    check(placed_moments == 2 * len(a["dims"]),
+          f"[28] model axis: {placed_moments} Adam moments are DTensors")
+    log(f"    model axis: ConditionalTransformer (DenseEmbedder, "
+        f"sequential, {NF} flows) placed by shard_module_state on a 1-rank "
+        f"NCCL group's ('data', 'model') mesh ({sharded} of "
+        f"{len(a['dims'])} parameters sharded, every Adam moment a DTensor"
+        f"): forward and one Adam step bit-equal to the unplaced module's;"
+        f" step {a['ms']:.1f} ms placed, {b['ms']:.1f} ms unplaced (host "
+        f"clock, first step); ops without a deterministic implementation: "
+        f"{nondeterministic or 'none'}")
+    return dict(sharded=sharded, params=len(a["dims"]),
+                placed_step_ms=a["ms"], plain_step_ms=b["ms"])
+
+
+def phase_dormant():
+    log(f"[28] the dormant modules at full width on {RESULTS['card']}: "
+        f"each against the same state dict on the CPU "
+        f"({DORMANT_CPU_ROWS} rows) within rel-L2 {DORMANT_TOL:.0e}, each "
+        f"flow's reverse(forward(x)) too; f32, TF32 off")
+    g = torch.Generator(DEV).manual_seed(28)
+    records = {}
+    for name, make, prepare, inputs, call, is_flow in _dormant_cases(g):
+        records[name] = dormant_module(name, make, prepare, inputs, call,
+                                       is_flow, g)
+        torch.cuda.empty_cache()
+    records["model axis"] = dormant_model_axis(g)
+    RESULTS["dormant"] = records
 
 
 # -- 1. the card --------------------------------------------------------------
@@ -5026,6 +5330,7 @@ def main(argv=None):
     multi_launches = timed("26", phase_multi_device)
     elu_launches = tuple(a + b for a, b in zip(elu_launches, multi_launches))
     timed("27", phase_prep)
+    timed("28", phase_dormant)
     log(f"    wall seconds by phase: {phase_s}; "
         f"{sum(phase_s.values()):.1f} in all")
     RESULTS["phase_s"] = phase_s

@@ -87,6 +87,9 @@ def test_converter_round_trips_through_jax_converter():
 
 
 def test_unported_couplings_raise():
-    for kind in ("gin", "nice"):
-        with pytest.raises(NotImplementedError):
-            CouplingFlowBlock(8, 16, coupling_type=kind)
+    """Every coupling type of the JAX package is ported (gin, nice, rqs:
+    tests/test_torch_dormant_flows.py); an unknown one raises."""
+    for kind in ("gin", "nice", "rqs"):
+        CouplingFlowBlock(8, 16, coupling_type=kind)
+    with pytest.raises(ValueError):
+        CouplingFlowBlock(8, 16, coupling_type="glow")
