@@ -3,8 +3,9 @@
 Counterpart of ``behavior_driven_video_synthesis_tpu/core/schedules.py:
 27-88``: the clipped linear ramp ``linear_var``, the information-bottleneck
 controller ``update_gamma``, the ``imax_scaling`` target schedule, the
-behavior net's ``multistep_lr`` and the original VUNet's ``kl_ramp``.
-Each works on Python numbers; all but ``multistep_lr`` also on tensors.
+behavior net's ``multistep_lr``, ``linear_decay_lr`` (no config uses it)
+and the original VUNet's ``kl_ramp``.  Each works on Python numbers; all
+but the two learning-rate schedules also on tensors.
 """
 from __future__ import annotations
 
@@ -65,6 +66,18 @@ def multistep_lr(lr_init: float, n_steps: int, tau: Sequence[float],
             if count >= boundary:
                 v = v * scale
         return v
+    return schedule
+
+
+def linear_decay_lr(lr_init: float, start_it: int,
+                    end_it: int) -> Callable[[int], float]:
+    """The rate at a step: ``lr_init`` until ``start_it``, then linear down
+    to 0 at ``end_it`` and 0 after it.  With an optimizer whose lr is
+    ``lr_init``, ``torch.optim.lr_scheduler.LambdaLR(opt, lambda s:
+    schedule(s) / lr_init)`` applies it."""
+
+    def schedule(step):
+        return linear_var(step, start_it, end_it, lr_init, 0.0, 0.0, lr_init)
     return schedule
 
 

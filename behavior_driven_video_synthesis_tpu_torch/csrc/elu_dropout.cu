@@ -18,20 +18,36 @@
 // of the stream, so that a data-parallel rank holding rows of a global batch
 // (offset = rank x its element count) draws its slice of the mask one launch
 // over the global batch would draw (dropout_impl: pallas_sharded).  Any
-// offset >= 0 is taken, also one inside a Philox block of 4: the kernel is
-// instantiated for offset mod 4 (kShift); a thread's vector then starts at
-// word kShift of its first block and, where kShift > 0, takes one more
-// block than the V / 4 it takes at offset 0.
+// offset >= 0 is taken, also one inside a Philox block of 4 (kShift =
+// offset mod 4, a template argument).
 //
-// What bounds it: device memory.  Each element is read once (x; and ct in the
-// backward) and written once, 2 bytes each in bf16: 4 bytes an element
-// forward, 6 backward, against ~15 integer operations of Philox and a few
-// float operations an element.  The design therefore moves each byte once:
-// one thread takes one 16-byte vector (8 bf16 or 4 f32 elements), the bits
-// are made in registers, ELU and the mask are applied in registers, and the
-// result is stored as one 16-byte vector.  A grid-stride loop covers any
-// size; a ragged tail (size not a multiple of the vector) is masked per
-// element in the same kernel, so there is no padding and no size rule.
+// What bounds it.  Each element is read once (x; and ct in the backward) and
+// written once: 4 bytes an element forward, 6 backward, in bf16.  Against
+// that stand ~10 integer instructions of Philox an element and the ELU, so
+// the kernel is bound by its bytes only while those instructions hide under
+// the loads.  The first version issued so many that the forward took twice
+// its byte bound: libm's expm1f, with its range branches, cost more
+// than Philox.  This one keeps its layout (one 16-byte vector a thread, a
+// grid that walks memory in order, every byte moved once) and cuts the
+// instructions and registers:
+//   * ELU's negative side in bf16 is branch-free and libm-free (expm1_bf16,
+//     exp_bf16 below); f32 keeps libm, whose results the plain version
+//     matches to the last bit.
+//   * 32 registers a thread (__launch_bounds__), so 64 warps an SM keep
+//     loads in flight, and the ragged tail takes an element loop of its own
+//     rather than a copy of the vector path.
+//   * A Philox round's high and low words are one 32x32->64 product
+//     (IMAD.WIDE.U32; ptxas fuses __umulhi and the low product), and the
+//     counter's zero words fold away in round 1.
+//   * At an offset inside a Philox block a vector's V elements straddle
+//     NB + 1 blocks, and it computes them all.
+// examples/torch_elu_dropout_probe.py times the knock-outs, and the designs
+// tried against this one (examples/elu_dropout_designs.cu): a persistent
+// grid with a register double buffer, a shared-memory ring fed by bulk
+// copies, a grid with a block's vectors sharing shared memory, and the
+// stream-aligned shuffle that spares the third block; each was slower here.
+// A ragged tail (size not a multiple of the vector) is masked per element
+// in the same kernel, so there is no padding and no size rule.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,21 +58,88 @@ constexpr uint32_t kM0 = 0xD2511F53u;
 constexpr uint32_t kM1 = 0xCD9E8D57u;
 constexpr uint32_t kW0 = 0x9E3779B9u;
 constexpr uint32_t kW1 = 0xBB67AE85u;
+// 8 blocks of 256 threads an SM: ptxas keeps to 32 registers a thread, so
+// 64 warps an SM keep loads in flight (left free, it takes ~50 registers
+// and the forward slows by a fifth)
 constexpr int kThreads = 256;
+constexpr int kBlocks = 8;
 constexpr long long kMaxBlocks = 1 << 20;
 
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
-                                               uint32_t k1) {
+template <typename T>
+constexpr int kVec = 16 / sizeof(T);  // elements in a 16-byte vector
+template <typename T>
+constexpr bool kFastMath = sizeof(T) == 2;  // expm1_bf16, exp_bf16 below
+
+// The high and low words of a * m: ptxas makes the pair one 32x32->64
+// product (IMAD.WIDE.U32).
+__device__ __forceinline__ void mulhilo(uint32_t a, uint32_t m, uint32_t& hi,
+                                        uint32_t& lo) {
+  hi = __umulhi(m, a);
+  lo = m * a;
+}
+
+// NB Philox4x32-10 blocks in place, sharing one key schedule.
+template <int NB>
+__device__ __forceinline__ void philox(uint4 (&c)[NB], uint32_t k0,
+                                       uint32_t k1) {
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
-    const uint32_t hi0 = __umulhi(kM0, c.x), lo0 = kM0 * c.x;
-    const uint32_t hi1 = __umulhi(kM1, c.z), lo1 = kM1 * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      uint32_t hi0, lo0, hi1, lo1;
+      mulhilo(c[b].x, kM0, hi0, lo0);
+      mulhilo(c[b].z, kM1, hi1, lo1);
+      c[b] = make_uint4(hi1 ^ c[b].y ^ k0, lo1, hi0 ^ c[b].w ^ k1, lo0);
+    }
     k0 += kW0;
     k1 += kW1;
   }
-  return c;
 }
+
+__device__ __forceinline__ uint4 counter(unsigned long long g) {
+  return make_uint4(static_cast<uint32_t>(g), static_cast<uint32_t>(g >> 32),
+                    0u, 0u);
+}
+
+// expm1(x) for x <= 0 without branches, to bf16's precision: x + x^2 / 2
+// where |x| < 1e-3 (relative error < 2e-7; exact for -0 and denormals),
+// else __expf(x) - 1 (__expf within 2 ulps of exp there, so < 2.4e-7 of
+// absolute and < 2.4e-4 of relative error; -inf gives -1, NaN NaN).
+__device__ __forceinline__ float expm1_bf16(float x) {
+  const float near0 = x * fmaf(x, 0.5f, 1.f);
+  const float far = __expf(x) - 1.f;
+  return fabsf(x) < 1e-3f ? near0 : far;
+}
+
+// exp(x) for x <= 0 to bf16's precision: __expf(x / 2)^2, whose product
+// keeps exp's denormals (x down to ~-103), which __expf itself flushes.
+__device__ __forceinline__ float exp_bf16(float x) {
+  const float h = __expf(0.5f * x);
+  return h * h;
+}
+
+// kFast (bf16 operands): the few-ulp f32 errors of expm1_bf16 and exp_bf16
+// vanish in the rounding to bf16 or move it by one bf16 ulp at most; f32
+// operands take libm's expm1f and expf.
+struct Fwd {
+  static constexpr bool kHasCt = false;
+  template <bool kFast>
+  __device__ __forceinline__ static float apply(float x, float /*ct*/,
+                                                bool keep, float scale) {
+    const float e = x > 0.f ? x : (kFast ? expm1_bf16(x) : expm1f(x));
+    return keep ? e * scale : 0.f;
+  }
+};
+
+struct Bwd {
+  static constexpr bool kHasCt = true;
+  template <bool kFast>
+  __device__ __forceinline__ static float apply(float x, float ct, bool keep,
+                                                float scale) {
+    const float de = x > 0.f ? 1.f : (kFast ? exp_bf16(x) : expf(x));
+    return keep ? (ct * scale) * de : 0.f;
+  }
+};
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -71,119 +154,116 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-struct Fwd {
-  template <typename T>
-  __device__ __forceinline__ static T apply(T x, T /*unused*/, bool keep,
-                                            float scale) {
-    const float xf = to_f32(x);
-    const float e = xf > 0.f ? xf : expm1f(xf);
-    return from_f32<T>(keep ? e * scale : 0.f);
+// The NB Philox blocks from g, as the V words that decide V elements.
+template <int NB>
+__device__ __forceinline__ void group_bits(uint32_t* bits,
+                                           unsigned long long g, uint32_t k0,
+                                           uint32_t k1) {
+#pragma unroll
+  for (int q = 0; q < NB; ++q) {
+    uint4 c[1] = {counter(g + q)};
+    philox<1>(c, k0, k1);
+    bits[4 * q + 0] = c[0].x;
+    bits[4 * q + 1] = c[0].y;
+    bits[4 * q + 2] = c[0].z;
+    bits[4 * q + 3] = c[0].w;
   }
-};
+}
 
-struct Bwd {
-  template <typename T>
-  __device__ __forceinline__ static T apply(T x, T ct, bool keep,
-                                            float scale) {
-    const float xf = to_f32(x);
-    const float de = xf > 0.f ? 1.f : expf(xf);  // elu'(x)
-    return from_f32<T>(keep ? (to_f32(ct) * scale) * de : 0.f);
-  }
-};
+// Op on the V elements of x (and ct), element i kept iff bits[i] < thresh.
+template <typename Op, typename T>
+__device__ __forceinline__ uint4 apply_vec(const uint4& x, const uint4& ct,
+                                           const uint32_t* bits,
+                                           uint32_t thresh, float scale) {
+  constexpr int V = kVec<T>;
+  alignas(16) T xv[V];
+  alignas(16) T cv[V];
+  alignas(16) T ov[V];
+  *reinterpret_cast<uint4*>(xv) = x;
+  *reinterpret_cast<uint4*>(cv) = ct;
+#pragma unroll
+  for (int i = 0; i < V; ++i)
+    ov[i] = from_f32<T>(Op::template apply<kFastMath<T>>(
+        to_f32(xv[i]), to_f32(cv[i]), bits[i] < thresh, scale));
+  return *reinterpret_cast<const uint4*>(ov);
+}
 
-// x, ct (Bwd only) and out are 16-byte aligned (the wrapper checks).
+// The kernel.  Thread t takes the 16-byte vector t and the Philox blocks
+// its elements' bits lie in: NB at an offset 0 mod 4, else NB + 1, whose
+// words kShift ... decide its elements.  A grid-stride loop covers any size.
 template <typename Op, typename T, int kShift>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBlocks)
     elu_dropout_kernel(const T* __restrict__ x, const T* __restrict__ ct,
                        T* __restrict__ out, const int* __restrict__ seed,
                        long long n, long long offset, uint32_t thresh,
                        float scale) {
-  constexpr int V = 16 / sizeof(T);  // elements per 16-byte vector
-  static_assert(V % 4 == 0, "a vector holds whole Philox groups");
+  constexpr int V = kVec<T>;
   constexpr int G = V / 4 + (kShift ? 1 : 0);  // Philox blocks a vector
+  static_assert(V % 4 == 0, "a vector holds whole Philox groups");
   const uint32_t k0 = static_cast<uint32_t>(__ldg(seed));
   const uint32_t k1 = static_cast<uint32_t>(__ldg(seed + 1));
   const long long n_vec = (n + V - 1) / V;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long v = static_cast<long long>(blockIdx.x) * blockDim.x +
+  // one trip a thread up to 2^28 vectors: unrolling would only cost
+  // registers
+#pragma unroll 1
+  for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
-       v < n_vec; v += stride) {
-    const long long base = v * V;
-    // words[kShift + i] decides element base + i: its stream index
-    // offset + base + i lies in block (offset + base) / 4 + (kShift + i) / 4
+       t < n_vec; t += stride) {
+    const long long base = t * V;
     uint32_t words[4 * G];
-    const long long g0 = (offset + base) >> 2;
-#pragma unroll
-    for (int q = 0; q < G; ++q) {
-      const unsigned long long g = static_cast<unsigned long long>(g0 + q);
-      const uint4 b = philox4x32_10(
-          make_uint4(static_cast<uint32_t>(g), static_cast<uint32_t>(g >> 32),
-                     0u, 0u),
-          k0, k1);
-      words[4 * q + 0] = b.x;
-      words[4 * q + 1] = b.y;
-      words[4 * q + 2] = b.z;
-      words[4 * q + 3] = b.w;
-    }
+    group_bits<G>(words, static_cast<unsigned long long>((offset + base) >> 2),
+                  k0, k1);
     const uint32_t* bits = words + kShift;
     if (base + V <= n) {
-      alignas(16) T xv[V];
-      alignas(16) T cv[V];
-      alignas(16) T ov[V];
-      *reinterpret_cast<uint4*>(xv) =
-          __ldg(reinterpret_cast<const uint4*>(x + base));
-      if (ct != nullptr) {
-        *reinterpret_cast<uint4*>(cv) =
-            __ldg(reinterpret_cast<const uint4*>(ct + base));
-      }
-#pragma unroll
-      for (int i = 0; i < V; ++i) {
-        ov[i] = Op::apply(xv[i], ct != nullptr ? cv[i] : xv[i],
-                          bits[i] < thresh, scale);
-      }
-      *reinterpret_cast<uint4*>(out + base) = *reinterpret_cast<uint4*>(ov);
-    } else {
-      for (int i = 0; i < V && base + i < n; ++i) {
-        const T xi = x[base + i];
-        out[base + i] = Op::apply(xi, ct != nullptr ? ct[base + i] : xi,
-                                  bits[i] < thresh, scale);
-      }
+      const uint4 xa = __ldg(reinterpret_cast<const uint4*>(x + base));
+      const uint4 ca =
+          Op::kHasCt ? __ldg(reinterpret_cast<const uint4*>(ct + base))
+                     : make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(out + base) =
+          apply_vec<Op, T>(xa, ca, bits, thresh, scale);
+    } else {  // the ragged tail, element by element
+      for (int i = 0; i < V && base + i < n; ++i)
+        out[base + i] = from_f32<T>(Op::template apply<kFastMath<T>>(
+            to_f32(x[base + i]), Op::kHasCt ? to_f32(ct[base + i]) : 0.f,
+            bits[i] < thresh, scale));
     }
   }
 }
 
 template <typename Op, typename T, int kShift>
-void launch_shift(const T* x, const T* ct, T* out, const int* seed,
-                  long long n, long long offset, unsigned int thresh,
-                  float scale, long long blocks, cudaStream_t s) {
+int launch_shift(const T* x, const T* ct, T* out, const int* seed,
+                 long long n, long long offset, unsigned int thresh,
+                 float scale, cudaStream_t s) {
+  constexpr int V = kVec<T>;
+  long long blocks = ((n + V - 1) / V + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   elu_dropout_kernel<Op, T, kShift>
       <<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
           x, ct, out, seed, n, offset, thresh, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename Op, typename T>
-void launch_typed(const void* x, const void* ct, void* out, const int* seed,
-                  long long n, long long offset, unsigned int thresh,
-                  float scale, long long blocks, cudaStream_t s) {
+int launch_typed(const void* x, const void* ct, void* out, const int* seed,
+                 long long n, long long offset, unsigned int thresh,
+                 float scale, cudaStream_t s) {
   const T* xt = static_cast<const T*>(x);
   const T* ctt = static_cast<const T*>(ct);
   T* ot = static_cast<T*>(out);
   switch (offset & 3) {
     case 0:
-      launch_shift<Op, T, 0>(xt, ctt, ot, seed, n, offset, thresh, scale,
-                             blocks, s);
-      break;
+      return launch_shift<Op, T, 0>(xt, ctt, ot, seed, n, offset, thresh,
+                                    scale, s);
     case 1:
-      launch_shift<Op, T, 1>(xt, ctt, ot, seed, n, offset, thresh, scale,
-                             blocks, s);
-      break;
+      return launch_shift<Op, T, 1>(xt, ctt, ot, seed, n, offset, thresh,
+                                    scale, s);
     case 2:
-      launch_shift<Op, T, 2>(xt, ctt, ot, seed, n, offset, thresh, scale,
-                             blocks, s);
-      break;
+      return launch_shift<Op, T, 2>(xt, ctt, ot, seed, n, offset, thresh,
+                                    scale, s);
     default:
-      launch_shift<Op, T, 3>(xt, ctt, ot, seed, n, offset, thresh, scale,
-                             blocks, s);
+      return launch_shift<Op, T, 3>(xt, ctt, ot, seed, n, offset, thresh,
+                                    scale, s);
   }
 }
 
@@ -193,22 +273,15 @@ int launch(const void* x, const void* ct, void* out, const void* seed,
            float scale, void* stream) {
   if (n <= 0) return 0;
   if (offset < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int vec = dtype == 1 ? 8 : 4;
-  const long long n_vec = (n + vec - 1) / vec;
-  long long blocks = (n_vec + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* sd = static_cast<const int*>(seed);
-  if (dtype == 0) {
-    launch_typed<Op, float>(x, ct, out, sd, n, offset, thresh, scale, blocks,
-                            s);
-  } else if (dtype == 1) {
-    launch_typed<Op, __nv_bfloat16>(x, ct, out, sd, n, offset, thresh, scale,
-                                    blocks, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 0)
+    return launch_typed<Op, float>(x, ct, out, sd, n, offset, thresh, scale,
+                                   s);
+  if (dtype == 1)
+    return launch_typed<Op, __nv_bfloat16>(x, ct, out, sd, n, offset, thresh,
+                                           scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace

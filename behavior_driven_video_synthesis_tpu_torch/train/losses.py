@@ -1,18 +1,25 @@
 """Loss functions of the VUNet and behavior experiments.
 
-Counterpart of ``behavior_driven_video_synthesis_tpu/train/losses.py:22-100``:
+Counterpart of ``behavior_driven_video_synthesis_tpu/train/losses.py``:
 ``kl_loss`` (diagonal Gaussian to N(0, 1)), ``latent_kl`` and
 ``compute_kl_loss`` (the original VUNet's KL between per-scale means),
 ``compute_kl_with_prior`` (cvbae), ``vgg_loss`` (weighted L1 over a
 feature pyramid), the behavior step's ``mse_loss``,
 ``recon_loss_per_seq``, ``cross_entropy`` and ``accuracy``, the MT-VAE
-step's ``l1_loss``, and the GAN branch's ``bce_logits``.
+step's ``l1_loss``, and the GAN branch's ``bce_logits``; and the rest of
+the reference's loss library, which no config reaches: ``gan_loss``,
+``hinge_d_loss``, ``triplet_loss``, ``feature_matching_loss`` (the
+sequence discriminator's), ``weight_decay_loss``, ``mi_loss_terms`` (the
+MI discriminator's) and ``zoom_loss``.  Each runs on the device its
+inputs lie on.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Callable, Dict, Iterable, Mapping, Sequence, Union
 
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 
 def kl_loss(mu, logstd):
@@ -84,3 +91,79 @@ def cross_entropy(logits, labels):
 
 def accuracy(logits, labels):
     return torch.mean((torch.argmax(logits, dim=-1) == labels).float())
+
+
+def gan_loss(pred, target, loss_type: str = "mse"):
+    """"mse" (LSGAN) or "vanilla" (BCE with logits)."""
+    if loss_type == "mse":
+        return torch.mean((pred - target) ** 2)
+    if loss_type == "vanilla":
+        return bce_logits(pred, target)
+    raise ValueError(loss_type)
+
+
+def hinge_d_loss(pred, mode: str):
+    """Hinge loss of a discriminator on "real" or "fake" logits, or of the
+    generator ("gen")."""
+    if mode == "real":
+        return torch.mean(F.relu(1.0 - pred))
+    if mode == "fake":
+        return torch.mean(F.relu(1.0 + pred))
+    if mode == "gen":
+        return -torch.mean(pred)
+    raise ValueError(mode)
+
+
+def triplet_loss(anchor, positive, negative, margin: float = 0.2):
+    """Mean of relu(|a - p|^2 - |a - n|^2 + margin), squared L2 over dim
+    1."""
+    dp = torch.sum((anchor - positive) ** 2, dim=1)
+    dn = torch.sum((anchor - negative) ** 2, dim=1)
+    return torch.mean(F.relu(dp - dn + margin))
+
+
+def feature_matching_loss(feats_real: Sequence, feats_fake: Sequence):
+    """Mean over levels of each level's mean L1 (the reference's sequence
+    discriminator divides the summed level means by the level count)."""
+    if len(feats_real) != len(feats_fake):
+        raise ValueError(
+            f"feature list length mismatch: {len(feats_real)} real vs "
+            f"{len(feats_fake)} fake")
+    if not feats_real:
+        return torch.zeros(())
+    return sum(torch.mean(torch.abs(fr - ff))
+               for fr, ff in zip(feats_real, feats_fake)) / len(feats_real)
+
+
+def weight_decay_loss(params: Union[nn.Module, Mapping[str, torch.Tensor],
+                                    Iterable[torch.Tensor]]):
+    """Sum of squared L2 norms over a module's parameters, a state dict's
+    tensors or an iterable of tensors."""
+    if isinstance(params, nn.Module):
+        params = params.parameters()
+    elif isinstance(params, Mapping):
+        params = params.values()
+    return sum(torch.sum(w * w) for w in params)
+
+
+def mi_loss_terms(disc: Callable[[torch.Tensor], torch.Tensor], joint,
+                  marginal, seq_len: int = 1):
+    """The MI discriminator's terms as (disc_loss, gen_loss): ``disc`` (a
+    module or any callable to logits) is trained with BCE toward joint -> 1,
+    scaled by 1 / seq_len, and marginal -> 0; the generator's loss is the
+    negated unscaled sum."""
+    t_joint = disc(joint).reshape(-1)
+    t_marg = disc(marginal).reshape(-1)
+    bce_joint = bce_logits(t_joint, torch.ones_like(t_joint))
+    bce_marg = bce_logits(t_marg, torch.zeros_like(t_marg))
+    return bce_joint / seq_len + bce_marg, -(bce_joint + bce_marg)
+
+
+def zoom_loss(feats_fn, target, pred, kps, out_size: int, loss_weights):
+    """:func:`vgg_loss` between ``feats_fn(target)`` and the features of
+    ``pred``'s keypoint-centred crop at ``out_size`` (only ``pred`` is
+    cropped); kps (B, K, 2) pixels, images (B, H, W, C)."""
+    from ..utils.boxes import bounding_box_batch
+
+    pred_crop = bounding_box_batch(kps, pred, out_size)
+    return vgg_loss(feats_fn(target), feats_fn(pred_crop), loss_weights)

@@ -18,10 +18,15 @@ CUDA toolkit (nvcc) and PyTorch.  It imports no JAX.  Phases:
    rollout of one and of two barriers a step), its bound, launch
    configuration and nvcc's registers and spills;
    the ELU+dropout forward and backward at the VUNet's largest dropout
-   site (12, 256, 256, 32) bf16 and at a ragged f32 size, with
+   site (12, 256, 256, 32) bf16 and at a ragged f32 size, over every bf16
+   bit pattern and a sweep of f32 patterns with the ELU's edge values
+   (non-finite values as the plain version's), at element offsets 0-7, n
+   and n + 1 (keep decisions those of the plain version's bits), with
    ``F.dropout(F.elu(x))`` timed beside them as a yardstick, each half of
    a batch at its element offset bit-equal to the rows of one launch over
-   the batch (``pallas_sharded``), and the launch timed at two offsets;
+   the batch (``pallas_sharded``), the launch timed at two offsets against
+   its bound (bytes, Philox's integer multiplies), and both kernels timed
+   at every dropout site of [7]'s cvbae step with its launches a step;
    the fused RNB checked at the VUNet's 125-frame chunk sites
    (256/128/64/32/4 px) and a ragged shape, its nvcc report (registers, spills) and launch plan
    (shared memory, blocks an SM) for each instantiation, and timed at
@@ -282,6 +287,7 @@ All measured values also go to a JSON file, ``build/chip_smoke.json`` unless
 ``--out PATH`` names another.
 """
 import argparse
+import collections
 import contextlib
 import copy
 import gc
@@ -392,6 +398,17 @@ DEAD_BACKWARD_SITES = 2 * 2
 ELU_DROPOUT_SHAPES = [((12, 256, 256, 32), torch.bfloat16),
                       ((1000003,), torch.float32)]
 ELU_DROPOUT_RATES = (0.05, 0.5)
+# the sweeps' rates: 1e-12 keeps every element but one in 2**32 (thresh
+# 2**32 - 1), so every input value meets the ELU
+ELU_DROPOUT_SWEEP_RATES = (1e-12, 0.05, 0.5)
+# the cvbae step's dropout sites ([7]: configs/shape_and_pose_net.yaml at
+# 256 px, B=12, nf 32->128), each with its forward and backward launches a
+# step (DROPOUT_SITES and DROPOUT_SITES - DEAD_BACKWARD_SITES in all; [7]
+# checks them against the step's own launches)
+CVBAE_DROPOUT_SITES = {(12, 256, 256, 32): (8, 8), (12, 128, 128, 64): (8, 8),
+                       (12, 64, 64, 128): (8, 8), (12, 32, 32, 128): (8, 8),
+                       (12, 16, 16, 128): (10, 8), (12, 8, 8, 128): (14, 12),
+                       (12, 4, 4, 128): (14, 14)}
 # the fused RNB kernel held against its plain version: sites of a
 # 125-frame chunk (B=20, T=50 is 8 chunks of 125) and a ragged shape
 FUSED_RNB_SHAPES = [(125, 256, 256, 32), (125, 128, 128, 64),
@@ -415,6 +432,9 @@ ORG_PRIOR_RNB_LAUNCHES = 2 * 7 + 2
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
 F32_FLOPS = 67e12
+# the CUDA programming guide's arithmetic instruction throughput, compute
+# capability 9.0: 32-bit integer multiplies and multiply-adds a clock an SM
+INT32_MADS_PER_CLOCK_SM = 64
 RESULTS = {}
 
 
@@ -905,17 +925,48 @@ def rollout_bound_ms(B, K, H, T):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def elu_dropout_bound_ms(n, dtype, backward):
-    """Least time of one ELU+dropout pass over n elements: x (and ct) read
-    once, out written once, against ~4 f32 operations an element (the
-    compare, exp, product and select) at the f32 peak outside the tensor
-    cores; Philox's integer work has no entry in the data sheet's table
-    and is left out."""
+def sm_clock_hz():
+    """The card's SM clock: torch's device properties where they hold it,
+    else the H100 SXM's maximum boost clock, 1,980 MHz (NVIDIA's data
+    sheet)."""
+    khz = getattr(torch.cuda.get_device_properties(0), "clock_rate", None)
+    if khz:
+        return khz * 1e3, "device properties"
+    return 1.98e9, "stated (H100 SXM maximum boost)"
+
+
+def philox_floor_ms(n):
+    """Least time of the n / 4 Philox4x32-10 blocks that n elements need: 4
+    32-bit multiplies a round (the high and low words of two 32x32
+    products; the first round's second product is of a zero word), 38 a
+    block, at compute capability 9.0's 64 32-bit integer multiply-adds a
+    clock an SM (CUDA programming guide, arithmetic instruction throughput)
+    on every SM at the SM clock."""
+    blocks = (n + 3) // 4
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = INT32_MADS_PER_CLOCK_SM * sms * sm_clock_hz()[0]
+    return blocks * 38 / rate * 1e3
+
+
+def elu_dropout_bound_parts(n, dtype, backward):
+    """The three floors of one ELU+dropout pass over n elements, in ms:
+    x (and ct) read once and out written once over the HBM rate; ~4 f32
+    operations an element (the compare, exp, product and select) at the
+    f32 peak outside the tensor cores; Philox's integer multiplies
+    (philox_floor_ms)."""
     size = torch.tensor([], dtype=dtype).element_size()
-    t_bytes = (3 if backward else 2) * n * size / HBM_BYTES_PER_S
-    t_ops = 4 * n / F32_FLOPS
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    return {"bytes": (3 if backward else 2) * n * size / HBM_BYTES_PER_S
+            * 1e3,
+            "f32": 4 * n / F32_FLOPS * 1e3,
+            "philox": philox_floor_ms(n)}
+
+
+def elu_dropout_bound_ms(n, dtype, backward):
+    """The largest of elu_dropout_bound_parts, and whether bytes or
+    operations (f32 or Philox's integer work) set it."""
+    parts = elu_dropout_bound_parts(n, dtype, backward)
+    bound = max(parts.values())
+    return bound, "bytes" if parts["bytes"] >= bound else "operations"
 
 
 def ulp_ok(out, ref):
@@ -927,10 +978,177 @@ def ulp_ok(out, ref):
     return bool(((out - ref).abs() <= 1e-6).all())
 
 
+def sweep_ok(out, ref):
+    """ulp_ok where ref is finite; NaN exactly where ref is NaN and the
+    same infinities where ref is infinite."""
+    fin = torch.isfinite(ref)
+    inf = torch.isinf(ref)
+    return (torch.equal(torch.isnan(out), torch.isnan(ref))
+            and torch.equal(out[inf], ref[inf]) and ulp_ok(out[fin],
+                                                            ref[fin]))
+
+
+def keep_mismatches(out, ref, keep):
+    """Elements whose zero pattern differs from the plain version's, or
+    that are non-zero though dropped: an element is 0 where it is dropped
+    and where the plain version's value is 0."""
+    return int(((out == 0) != (ref == 0)).sum()
+               + ((out != 0) != (keep & (ref != 0))).sum())
+
+
+def elu_dropout_sweep(what, x, ct, g, offsets=(0, 3)):
+    """Forward and backward of the kernels over x against their plain
+    versions at ELU_DROPOUT_SWEEP_RATES and the element offsets: 0 keep
+    mismatches, values by sweep_ok."""
+    rows = []
+    for rate in ELU_DROPOUT_SWEEP_RATES:
+        for off in offsets:
+            seed = elu_dropout.draw_seed(DEV, g)
+            y = elu_dropout.elu_dropout_forward(x, seed, rate, off)
+            dx = elu_dropout.elu_dropout_backward(x, ct, seed, rate, off)
+            torch.cuda.synchronize()
+            y_ref = elu_dropout.elu_dropout_plain(x, seed, rate, off)
+            dx_ref = elu_dropout.elu_dropout_backward_plain(x, ct, seed,
+                                                            rate, off)
+            keep = elu_dropout.dropout_bits(seed, x.numel(), off) < \
+                elu_dropout.keep_params(rate)[0]
+            mism = (keep_mismatches(y, y_ref, keep)
+                    + keep_mismatches(dx, dx_ref, keep))
+            ok = mism == 0 and sweep_ok(y, y_ref) and sweep_ok(dx, dx_ref)
+            fin = torch.isfinite(y_ref) & torch.isfinite(dx_ref)
+            e_fwd = float((y.float() - y_ref.float())[fin].abs().max())
+            e_bwd = float((dx.float() - dx_ref.float())[fin].abs().max())
+            log(f"    sweep {what} rate {rate} offset {off}: keep "
+                f"mismatches {mism}, {int(keep.sum())} kept; max|fwd-plain| "
+                f"{e_fwd:.3e}, max|bwd-plain| {e_bwd:.3e} where finite; "
+                f"non-finite values as the plain version's "
+                f"({'ok' if ok else 'FAIL'})")
+            rows.append(dict(sweep=what, rate=rate, offset=off,
+                             keep_mismatches=mism, kept=int(keep.sum()),
+                             max_abs_err_fwd=e_fwd, max_abs_err_bwd=e_bwd,
+                             ok=ok))
+            check(ok, f"ELU+dropout sweep {what} at rate {rate}, offset "
+                  f"{off}: the kernels disagree with their plain versions")
+    RESULTS.setdefault("elu_dropout_sweeps", []).extend(rows)
+
+
+def elu_dropout_sweeps(g):
+    """Every bf16 bit pattern (65,536, the non-finite ones included), and
+    every 4,099th f32 bit pattern with the edge values of the ELU's two
+    sides, each beside random ct."""
+    x16 = torch.arange(65536, dtype=torch.int32, device=DEV).to(
+        torch.int16).view(torch.bfloat16)
+    ct16 = torch.randn(x16.shape, generator=g, device=DEV).to(torch.bfloat16)
+    elu_dropout_sweep("bf16 all 65,536", x16, ct16, g)
+    x32 = torch.arange(0, 2 ** 32, 4099, dtype=torch.int64, device=DEV)
+    x32 = torch.where(x32 >= 2 ** 31, x32 - 2 ** 32, x32).to(
+        torch.int32).view(torch.float32)
+    tiny = torch.finfo(torch.float32).tiny
+    edges = [0.0, -0.0, 1e-45, -1e-45, -tiny, -tiny / 2, -1e-30, -1e-7,
+             -0.25, float(np.nextafter(np.float32(-0.5), np.float32(0))),
+             -0.5, float(np.nextafter(np.float32(-0.5), np.float32(-1))),
+             -0.6931472, -1.0, -10.0, -87.3, -87.34, -88.0, -88.73, -89.0,
+             -103.0, -104.0, -1e30, -3.4028235e38, 3.4028235e38, 1e-30,
+             1.0, float("inf"), float("-inf"), float("nan")]
+    x32 = torch.cat([x32, torch.tensor(edges, device=DEV)])
+    ct32 = torch.randn(x32.shape, generator=g, device=DEV)
+    elu_dropout_sweep(f"f32 {x32.numel():,} (every 4,099th pattern and "
+                      f"{len(edges)} edges)", x32, ct32, g)
+
+
+def offset_bit_checks(g):
+    """At element offsets 0-7, n and n + 1 the kernels keep exactly the
+    elements that the plain version's bits keep (x and ct hold no zero, so
+    an output is 0 iff its element is dropped), with values as ulp_ok."""
+    for shape, dtype in ELU_DROPOUT_SHAPES:
+        x = torch.randn(shape, generator=g, device=DEV).to(dtype)
+        ct = torch.randn(shape, generator=g, device=DEV).to(dtype)
+        x[x == 0] = 1.0
+        ct[ct == 0] = 1.0
+        n = x.numel()
+        seed = elu_dropout.draw_seed(DEV, g)
+        rate = 0.3
+        thresh = elu_dropout.keep_params(rate)[0]
+        mism = 0
+        for off in list(range(8)) + [n, n + 1]:
+            y = elu_dropout.elu_dropout_forward(x, seed, rate, off)
+            dx = elu_dropout.elu_dropout_backward(x, ct, seed, rate, off)
+            torch.cuda.synchronize()
+            keep = (elu_dropout.dropout_bits(seed, n, off) < thresh
+                    ).reshape(shape)
+            mism_off = int(((y != 0) != keep).sum()
+                           + ((dx != 0) != keep).sum())
+            mism += mism_off
+            check(mism_off == 0
+                  and ulp_ok(y, elu_dropout.elu_dropout_plain(x, seed, rate,
+                                                              off))
+                  and ulp_ok(dx, elu_dropout.elu_dropout_backward_plain(
+                      x, ct, seed, rate, off)),
+                  f"ELU+dropout at offset {off} disagrees with its plain "
+                  f"version at {tuple(shape)} {dtype}: {mism_off} keep "
+                  f"mismatches")
+        log(f"    offsets 0-7, n and n + 1 at {tuple(shape)} "
+            f"{str(dtype)[6:]}: keep decisions those of the plain "
+            f"version's bits (mismatches {mism}), values within tolerance, "
+            f"forward and backward")
+        RESULTS.setdefault("elu_dropout_offset_bits", []).append(dict(
+            shape=list(shape), dtype=str(dtype), keep_mismatches=mism))
+
+
+def elu_dropout_site_times(g):
+    """Forward and backward at every distinct dropout site of [7]'s cvbae
+    step (bf16, rate 0.05), each with its launches a step: the kernel's
+    device time a launch (torch.profiler; at the small sites a call's CUDA
+    events time the host's launch rate instead, so both are kept), and the
+    step's sums of launches x time against launches x bound."""
+    rows, sums = [], {"device": 0.0, "call": 0.0, "bound": 0.0}
+    for shape, (n_fwd, n_bwd) in CVBAE_DROPOUT_SITES.items():
+        x = torch.randn(shape, generator=g, device=DEV).to(torch.bfloat16)
+        ct = torch.randn(shape, generator=g, device=DEV).to(torch.bfloat16)
+        seed = elu_dropout.draw_seed(DEV, g)
+        row = dict(shape=list(shape), fwd_launches=n_fwd,
+                   bwd_launches=n_bwd)
+        for d, launches, fn in (
+                ("fwd", n_fwd,
+                 lambda: elu_dropout.elu_dropout_forward(x, seed, 0.05)),
+                ("bwd", n_bwd,
+                 lambda: elu_dropout.elu_dropout_backward(x, ct, seed,
+                                                          0.05))):
+            dev = device_ms_per_launch(fn, 20, "elu_dropout_kernel")
+            call = cuda_ms(fn, 100)
+            bound = elu_dropout_bound_ms(x.numel(), torch.bfloat16,
+                                         d == "bwd")[0]
+            row.update({f"{d}_device_ms": dev, f"{d}_call_ms": call,
+                        f"{d}_bound_ms": bound})
+            sums["device"] += launches * (dev if dev is not None
+                                          else float("nan"))
+            sums["call"] += launches * call
+            sums["bound"] += launches * bound
+        log(f"    site {shape}: " + "; ".join(
+            f"{d} x {row[d + '_launches']} device "
+            + ("not measured" if row[d + "_device_ms"] is None
+               else f"{row[d + '_device_ms']:.4f} ms")
+            + f", call {row[d + '_call_ms']:.4f} ms, bound "
+            f"{row[d + '_bound_ms']:.4f} ms" for d in ("fwd", "bwd")))
+        rows.append(row)
+    log(f"    a cvbae step's {sum(f for f, _ in CVBAE_DROPOUT_SITES.values())}"
+        f" + {sum(b for _, b in CVBAE_DROPOUT_SITES.values())} launches: "
+        f"sum of launches x device time {sums['device']:.4f} ms, of "
+        f"launches x call time {sums['call']:.4f} ms, of launches x bound "
+        f"{sums['bound']:.4f} ms")
+    RESULTS["elu_dropout_sites"] = dict(
+        sites=rows, step_device_ms=sums["device"], step_call_ms=sums["call"],
+        step_bound_ms=sums["bound"])
+
+
 def phase_elu_dropout():
     log("[3] ELU+dropout kernels vs plain PyTorch (the same Philox stream: "
         "0 keep-decision mismatches; values within 1 bf16 ulp, or 1e-6 in "
-        "f32; drop fraction within 5 sigma of the rate)")
+        "f32, non-finite values as the plain version's; drop fraction "
+        "within 5 sigma of the rate)")
+    clock, clock_from = sm_clock_hz()
+    log(f"    SM clock for the Philox floor: {clock / 1e6:.0f} MHz "
+        f"({clock_from})")
     g = torch.Generator(device=DEV).manual_seed(0)
     errs = {"fwd": 0.0, "bwd": 0.0}
     for shape, dtype in ELU_DROPOUT_SHAPES:
@@ -972,7 +1190,9 @@ def phase_elu_dropout():
                   f"versions at {tuple(shape)} {dtype} rate {rate}")
             errs["fwd"] = max(errs["fwd"], e_fwd)
             errs["bwd"] = max(errs["bwd"], e_bwd)
+    elu_dropout_sweeps(g)
     offset_checks(g)
+    offset_bit_checks(g)
     # time at the largest dropout site of the training path
     shape, dtype = ELU_DROPOUT_SHAPES[0]
     rate = 0.05
@@ -1000,10 +1220,13 @@ def phase_elu_dropout():
         ms = float(np.mean([t for n, t in times if n == "kernel"]))
         plain_ms = float(np.mean([t for n, t in times if n == "plain"]))
         bound, bound_by = elu_dropout_bound_ms(x.numel(), dtype, d == "bwd")
+        parts = elu_dropout_bound_parts(x.numel(), dtype, d == "bwd")
         log(f"    {d} at {shape} bf16 rate {rate} (plain, kernel, kernel, "
             f"plain): " + ", ".join(f"{n} {t:.4f} ms" for n, t in times)
             + f"; library {lib_ms:.4f} ms; bound {bound:.4f} ms "
-            f"({bound_by})")
+            f"({bound_by}: bytes {parts['bytes']:.4f}, Philox's integer "
+            f"multiplies {parts['philox']:.4f}, f32 {parts['f32']:.4f}); "
+            f"{bound / ms:.1%} of the bound reached")
         # the same launch as rank 1 of a 2-rank batch (offset n, a whole
         # number of Philox blocks) and at an offset inside a block
         off_ms = {off: cuda_ms(lambda: (
@@ -1011,12 +1234,14 @@ def phase_elu_dropout():
             else elu_dropout.elu_dropout_backward(x, ct, seed, rate, off)),
             50) for off in (x.numel(), x.numel() + 1)}
         log(f"    {d} with an element offset: n {off_ms[x.numel()]:.4f} ms, "
-            f"n + 1 {off_ms[x.numel() + 1]:.4f} ms")
+            f"n + 1 {off_ms[x.numel() + 1]:.4f} ms "
+            f"({off_ms[x.numel() + 1] / ms - 1:+.1%} against offset 0)")
         RESULTS[f"elu_dropout_{d}_times_ms"] = dict(
-            order=times, library=lib_ms, bound=bound,
+            order=times, library=lib_ms, bound=bound, bound_parts=parts,
             offset_n=off_ms[x.numel()], offset_n_plus_1=off_ms[x.numel() + 1])
         out[d] = dict(max_abs_err=errs[d], ms=ms, plain_ms=plain_ms,
                       library_ms=lib_ms, bound_ms=bound, bound_by=bound_by)
+    elu_dropout_site_times(g)
     return out
 
 
@@ -1827,6 +2052,13 @@ def phase_train():
     shapes = site_shapes(recorder)
     check(len(shapes["fwd"]) == per_step and len(shapes["bwd"])
           == per_step_bwd, f"sites in one step: {shapes}")
+    if accum == 1:
+        for i, d in enumerate(("fwd", "bwd")):
+            want = {int(np.prod(k)): v[i] for k, v in
+                    CVBAE_DROPOUT_SITES.items()}
+            got = collections.Counter(n for n, _ in shapes[d])
+            check(got == want, f"the step's {d} sites {dict(got)} are not "
+                  f"CVBAE_DROPOUT_SITES' {want}")
     bound_ms = per_step_bound_ms(shapes)
     elems = sum(n for n, _ in shapes["fwd"])
     prof = profile_step(recorder, step_ms)

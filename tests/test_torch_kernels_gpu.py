@@ -11,8 +11,10 @@ summation order and in the rare bf16 rounding flip of h that this causes,
 so atol 1e-2, rtol 1e-2; two launches of the kernel on the same operands
 are equal (it sums in a fixed order).  ELU+dropout: the plain version
 computes the kernel's Philox stream, so the keep decisions agree exactly;
-values within one bf16 ulp (bf16) or 1e-6 (f32), for expm1f/expf may
-differ from torch's in the last f32 bit.  Fused RNB: the kernel and its
+values within one bf16 ulp (bf16) or 1e-6 (f32), for the kernel's
+expm1 (a polynomial near 0, __expf(x) - 1 below -0.5) and expf may differ
+from torch's in the last f32 bits; non-finite values as the plain
+version's.  Fused RNB: the kernel and its
 plain version round elu(x) and W to bf16 and accumulate in f32; they
 differ in summation order and, rarely, in a bf16 rounding of elu(x) or of
 the output, so atol 1e-2, rtol 1e-2.  int8 conv: the kernel and its
@@ -249,6 +251,88 @@ def test_elu_dropout_kernels_match_plain(cuda, shape, dtype, rate):
     assert torch.equal(y == 0, (y_ref == 0)) and torch.equal(
         y != 0, keep & (y_ref != 0))
     assert _within_one_ulp(y, y_ref) and _within_one_ulp(dx, dx_ref)
+
+
+def _sweep_ok(out, ref):
+    """_within_one_ulp where ref is finite; NaN exactly where ref is NaN,
+    the same infinities where ref is infinite."""
+    fin, inf = torch.isfinite(ref), torch.isinf(ref)
+    return (torch.equal(torch.isnan(out), torch.isnan(ref))
+            and torch.equal(out[inf], ref[inf])
+            and _within_one_ulp(out[fin], ref[fin]))
+
+
+def _sweep(x, ct, seed, rate, offset):
+    """Forward and backward against the plain versions: the zero patterns
+    equal, non-zero exactly where kept, values by _sweep_ok."""
+    y = E.elu_dropout_forward(x, seed, rate, offset)
+    dx = E.elu_dropout_backward(x, ct, seed, rate, offset)
+    torch.cuda.synchronize()
+    keep = E.dropout_bits(seed, x.numel(), offset) < E.keep_params(rate)[0]
+    for out, ref in ((y, E.elu_dropout_plain(x, seed, rate, offset)),
+                     (dx, E.elu_dropout_backward_plain(x, ct, seed, rate,
+                                                       offset))):
+        assert torch.equal(out == 0, ref == 0)
+        assert torch.equal(out != 0, keep & (ref != 0))
+        assert _sweep_ok(out, ref)
+
+
+@pytest.mark.parametrize("rate", [1e-12, 0.05, 0.5])
+@pytest.mark.parametrize("offset", [0, 3])
+def test_elu_dropout_kernels_every_bf16_pattern(cuda, rate, offset):
+    """All 65,536 bf16 bit patterns, the non-finite ones included (rate
+    1e-12 keeps all but one element in 2**32)."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.arange(65536, dtype=torch.int32, device=cuda).to(
+        torch.int16).view(torch.bfloat16)
+    ct = torch.randn(x.shape, generator=g, device=cuda).to(torch.bfloat16)
+    _sweep(x, ct, E.draw_seed(cuda, g), rate, offset)
+
+
+@pytest.mark.parametrize("rate", [1e-12, 0.5])
+def test_elu_dropout_kernels_f32_sweep_and_edges(cuda, rate):
+    """Every 4,099th f32 bit pattern and the edges of the ELU's negative
+    side: -0, denormals, the -0.5 switch, exp's underflow near -88,
+    infinities and NaN."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    bits = torch.arange(0, 2 ** 32, 4099, dtype=torch.int64, device=cuda)
+    x = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(
+        torch.int32).view(torch.float32)
+    below, above = (float(np.nextafter(np.float32(-0.5), np.float32(v)))
+                    for v in (-1, 0))
+    edges = torch.tensor([0.0, -0.0, 1e-45, -1e-45, -1e-39, -1e-30, -1e-7,
+                          above, -0.5, below, -1.0, -87.3, -88.0, -88.73,
+                          -103.0, -104.0, -3.4028235e38, 3.4028235e38,
+                          float("inf"), float("-inf"), float("nan")],
+                         device=cuda)
+    x = torch.cat([x, edges])
+    ct = torch.randn(x.shape, generator=g, device=cuda)
+    _sweep(x, ct, E.draw_seed(cuda, g), rate, 0)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((12, 64, 64, 32), torch.bfloat16), ((1000003,), torch.float32),
+    ((3, 37, 5), torch.bfloat16)])
+def test_elu_dropout_kernels_keep_the_plain_bits_at_every_offset(
+        cuda, shape, dtype):
+    """At offsets 0-7, n and n + 1 an output is non-zero exactly where the
+    plain version's bits keep its element (x and ct hold no zero)."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    ct = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    x[x == 0], ct[ct == 0] = 1.0, 1.0
+    seed = E.draw_seed(cuda, g)
+    n = x.numel()
+    for off in list(range(8)) + [n, n + 1]:
+        y = E.elu_dropout_forward(x, seed, 0.3, off)
+        dx = E.elu_dropout_backward(x, ct, seed, 0.3, off)
+        torch.cuda.synchronize()
+        keep = (E.dropout_bits(seed, n, off) < E.keep_params(0.3)[0]
+                ).reshape(shape)
+        assert torch.equal(y != 0, keep) and torch.equal(dx != 0, keep), off
+        assert _within_one_ulp(y, E.elu_dropout_plain(x, seed, 0.3, off))
+        assert _within_one_ulp(dx, E.elu_dropout_backward_plain(
+            x, ct, seed, 0.3, off))
 
 
 @pytest.mark.parametrize("B", [20, 256])
