@@ -14,6 +14,14 @@ stages and one calibration pass of ``transfer_cached`` over all its frames
 (in chunks only where one call would not fit the device's memory,
 :func:`calibration_fits`), and returns the scales, which ``generate`` and
 ``reenact`` take.
+
+Each request is one ``request`` span of ``core/trace.py``, tiled by the
+stage spans ``flow``, ``rollout``, ``pose``, ``stickman``, ``appearance``
+and ``vunet`` (one ``vunet.chunk`` a ``transfer_cached`` call), with
+``behavior.encode`` first in ``reenact`` and ``calibrate`` (one
+``calibrate.chunk`` a ``calibrate_quant`` call) in place of ``vunet`` in
+``calibrate``: every device operation of a request is launched inside a
+stage span.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from .core import trace
 from .geometry.camera import apply_affine_transform, camera_projection
 from .geometry.stickman import JointModel, render_stickman
 from .models.behavior import decoder_rollout_kernel
@@ -124,36 +133,50 @@ class BehaviorTransferPipeline:
         return px * scale[:, None, None, :]
 
     def _front_stages(self, z, x_start, app_img, extrinsics, intrinsics,
-                      image_size, length, use_flow, eps, generator):
+                      image_size, length, use_flow, eps, generator,
+                      quant_scales=None):
         """flow inverse -> rollout -> unnormalize -> camera -> raster ->
-        appearance encode (once per video)."""
-        B = z.shape[0]
+        appearance encode (once per video), each in its stage span, which
+        also takes the stage's inputs to the device."""
         if use_flow and self.flow_model is not None:
-            b = self.flow_model.reverse(z)
+            with trace.span("flow"):
+                b = self.flow_model.reverse(self._tensor(z))
         else:
             b = z
-        if self.use_rollout_kernel:
-            xs = decoder_rollout_kernel(self.behavior_model.decoder, b,
-                                        x_start, length)      # (B, T, Kn)
-        else:
-            xs, _ = self.behavior_model.generate_seq(b, x_start[:, None],
-                                                     length)
-        world = self._unnormalize(xs.float()).reshape(B, length, -1, 3)
-        px = self._project(world, extrinsics, intrinsics, image_size)
-        stick = render_stickman(px, self.joint_model, self.spatial_size,
-                                thickness=self.thickness,
-                                frames_per_chunk=self.vunet_chunk)
-        # bf16 from here on, as in the JAX pipeline: the VUNet serves in
-        # bf16, and at B*T frames this is the largest intermediate.  The
-        # JAX package writes stick / 127.5 - 1; for stick = 127 that lies
-        # within an f32 rounding error of a bf16 rounding midpoint, and
-        # CUDA divides by a scalar as a reciprocal multiply, which lands on
-        # the other side.  (stick - 127.5) / 127.5 gives the same bf16
-        # values as the JAX package either way.
-        stick = ((stick - 127.5) / 127.5).to(torch.bfloat16)
-        means, _ = self.vunet.encode_means(app_img, eps, generator)
-        means_tiled = [torch.repeat_interleave(m, length, dim=0)
-                       for m in means]
+        with trace.span("rollout"):
+            b, x_start = self._tensor(b), self._tensor(x_start)
+            if self.use_rollout_kernel:
+                xs = decoder_rollout_kernel(self.behavior_model.decoder, b,
+                                            x_start, length)  # (B, T, Kn)
+            else:
+                xs, _ = self.behavior_model.generate_seq(
+                    b, x_start[:, None], length)
+        with trace.span("pose"):
+            world = self._unnormalize(xs.float()).reshape(
+                b.shape[0], length, -1, 3)
+            px = self._project(world, self._tensor(extrinsics),
+                               self._tensor(intrinsics),
+                               self._tensor(image_size))
+        with trace.span("stickman"):
+            stick = render_stickman(px, self.joint_model, self.spatial_size,
+                                    thickness=self.thickness,
+                                    frames_per_chunk=self.vunet_chunk)
+            # bf16 from here on, as in the JAX pipeline: the VUNet serves
+            # in bf16, and at B*T frames this is the largest intermediate.
+            # The JAX package writes stick / 127.5 - 1; for stick = 127
+            # that lies within an f32 rounding error of a bf16 rounding
+            # midpoint, and CUDA divides by a scalar as a reciprocal
+            # multiply, which lands on the other side.  (stick - 127.5) /
+            # 127.5 gives the same bf16 values as the JAX package either
+            # way.
+            stick = ((stick - 127.5) / 127.5).to(torch.bfloat16)
+        with trace.span("appearance"):
+            if quant_scales is not None:
+                load_quant_scales(self.vunet, quant_scales)
+            means, _ = self.vunet.encode_means(self._tensor(app_img), eps,
+                                               generator)
+            means_tiled = [torch.repeat_interleave(m, length, dim=0)
+                           for m in means]
         return world, px, stick, means_tiled
 
     @torch.inference_mode()
@@ -175,21 +198,24 @@ class BehaviorTransferPipeline:
         padding; a conv then quantizes each chunk with that chunk's own
         max, so downstream maxima may differ from the one-call pass
         (ROADMAP, "Recorded")."""
-        z, x_start, app_img, extrinsics, intrinsics, image_size = (
-            self._tensor(v) for v in (z, x_start, app_img, extrinsics,
-                                      intrinsics, image_size))
-        _, _, stick, means_tiled = self._front_stages(
-            z, x_start, app_img, extrinsics, intrinsics, image_size,
-            length, use_flow, eps, generator)
-        n = z.shape[0] * length
-        flat_stick = stick.reshape((n,) + stick.shape[2:])
-        load_quant_scales(self.vunet, scales or {})
-        cs = (n if calibration_fits(self.vunet, flat_stick)
-              else self._chunk_size(n)[0])
-        for s in range(0, n, cs):
-            out = calibrate_quant(self.vunet,
-                                  [m[s:s + cs] for m in means_tiled],
-                                  flat_stick[s:s + cs])
+        B = len(z)
+        with trace.span("request", self.device, B=B, T=length,
+                        frames=B * length):
+            _, _, stick, means_tiled = self._front_stages(
+                z, x_start, app_img, extrinsics, intrinsics, image_size,
+                length, use_flow, eps, generator)
+            n = B * length
+            with trace.span("calibrate", frames=n):
+                flat_stick = stick.reshape((n,) + stick.shape[2:])
+                load_quant_scales(self.vunet, scales or {})
+                cs = (n if calibration_fits(self.vunet, flat_stick)
+                      else self._chunk_size(n)[0])
+                for s in range(0, n, cs):
+                    with trace.span("calibrate.chunk",
+                                    frames=min(cs, n - s)):
+                        out = calibrate_quant(
+                            self.vunet, [m[s:s + cs] for m in means_tiled],
+                            flat_stick[s:s + cs])
         return out
 
     @torch.inference_mode()
@@ -216,29 +242,40 @@ class BehaviorTransferPipeline:
           dict with "frames" (B, T, S, S, 3), "stickman" (bf16 in [-1, 1]),
           "poses_3d" (B, T, K, 3) and "keypoints_2d" (B, T, K, 2).
         """
-        if quant_scales is not None:
-            load_quant_scales(self.vunet, quant_scales)
-        z, x_start, app_img, extrinsics, intrinsics, image_size = (
-            self._tensor(v) for v in (z, x_start, app_img, extrinsics,
-                                      intrinsics, image_size))
+        B = len(z)
+        with trace.span("request", self.device, B=B, T=length,
+                        frames=B * length):
+            return self._generate(z, x_start, app_img, extrinsics,
+                                  intrinsics, image_size, length, use_flow,
+                                  eps, generator, quant_scales)
+
+    def _generate(self, z, x_start, app_img, extrinsics, intrinsics,
+                  image_size, length, use_flow, eps, generator,
+                  quant_scales):
         world, px, stick, means_tiled = self._front_stages(
             z, x_start, app_img, extrinsics, intrinsics, image_size,
-            length, use_flow, eps, generator)
-        B = z.shape[0]
+            length, use_flow, eps, generator, quant_scales)
+        B = world.shape[0]
         n = B * length
-        flat_stick = stick.reshape((n,) + stick.shape[2:])
         cs, n_pad = self._chunk_size(n)
-        if n_pad > n:
-            # zero-pad the tail so chunks tile evenly; sliced off below
-            def pad(t):
-                return torch.cat([t, t.new_zeros((n_pad - n,) + t.shape[1:])])
-            means_tiled = [pad(m) for m in means_tiled]
-            flat_stick = pad(flat_stick)
-        frames = torch.cat([
-            self.vunet.transfer_cached([m[s:s + cs] for m in means_tiled],
-                                       flat_stick[s:s + cs])
-            for s in range(0, n_pad, cs)])[:n]
-        frames = frames.reshape((B, length) + frames.shape[1:])
+        with trace.span("vunet", frames=n, padding=n_pad - n):
+            flat_stick = stick.reshape((n,) + stick.shape[2:])
+            if n_pad > n:
+                # zero-pad the tail so chunks tile evenly; sliced off below
+                def pad(t):
+                    return torch.cat(
+                        [t, t.new_zeros((n_pad - n,) + t.shape[1:])])
+                means_tiled = [pad(m) for m in means_tiled]
+                flat_stick = pad(flat_stick)
+            chunks = []
+            for s in range(0, n_pad, cs):
+                with trace.span("vunet.chunk", frames=cs,
+                                padding=max(0, s + cs - n)):
+                    chunks.append(self.vunet.transfer_cached(
+                        [m[s:s + cs] for m in means_tiled],
+                        flat_stick[s:s + cs]))
+            frames = torch.cat(chunks)[:n]
+            frames = frames.reshape((B, length) + frames.shape[1:])
         return {"frames": frames, "stickman": stick, "poses_3d": world,
                 "keypoints_2d": px}
 
@@ -250,9 +287,13 @@ class BehaviorTransferPipeline:
                 quant_scales: Optional[Dict[str, torch.Tensor]] = None):
         """Transfer the behavior of x_source (B, T, K) onto x_start's
         posture (posterior mean path, no flow)."""
-        _, mu, _, _ = self.behavior_model.infer_b(
-            self._tensor(x_source), sample=False, generator=generator)
-        return self.generate(mu, x_start, app_img, extrinsics, intrinsics,
-                             image_size, length=length, use_flow=False,
-                             eps=eps, generator=generator,
-                             quant_scales=quant_scales)
+        B = len(x_source)
+        with trace.span("request", self.device, B=B, T=length,
+                        frames=B * length):
+            with trace.span("behavior.encode"):
+                _, mu, _, _ = self.behavior_model.infer_b(
+                    self._tensor(x_source), sample=False,
+                    generator=generator)
+            return self._generate(mu, x_start, app_img, extrinsics,
+                                  intrinsics, image_size, length, False, eps,
+                                  generator, quant_scales)
