@@ -15,7 +15,9 @@ The three conv layers of ``architecture.conv_layer_type`` are
 :class:`L2NormConv2d` and ``ln`` :class:`LayerNormConv2d`.  ``NormConv2d``
 also serves int8 (``quant``, the int8 conv kernel of ``ops/cuda/
 conv_int8.py``) and the subpixel upsample as one transposed conv
-(``d2s_transpose``).
+(``d2s_transpose``); at inference on the card its full-precision calls
+fold the affine into the weights and end in the conv epilogue kernel
+(``ops/cuda/conv_epilogue.py``).
 """
 from __future__ import annotations
 
@@ -30,12 +32,16 @@ from torch import nn
 from .cuda.conv_int8 import (act_scale, conv_int8, kernel_takes,
                              pack_weights, quantize_weight)
 from . import batch_draws
+from .cuda.conv_epilogue import DTYPES as EPILOGUE_DTYPES
+from .cuda.conv_epilogue import conv_epilogue
 from .cuda.elu_dropout import elu_dropout
 from .cuda.fused_rnb import fused_rnb
 
 QUANT_MODES = ("none", "int8", "int8_static")
 # Builds of a NormConv2d's int8 weights since import.
 int8_weight_builds = 0
+# Builds of a NormConv2d's folded weights (NormConv2d.folded) since import.
+norm_conv_fold_builds = 0
 
 
 def space_to_depth(x: torch.Tensor, block_size: int = 2) -> torch.Tensor:
@@ -109,6 +115,15 @@ class NormConv2d(nn.Module):
     stride-2 transposed conv with the 6x6 kernel gathered from W, the
     affine applied by output parity.  The parameters are the same, so one
     checkpoint serves both forms.
+
+    Every other call with autograd off, on a CUDA input and in bf16 or f16
+    takes the folded route: gamma * (conv(x, W) + bias) + beta is
+    conv(x, W') + b' with W' = gamma * W and b' = gamma * bias + beta
+    (:meth:`folded`, built once in f32 and kept while the parameters keep
+    their version counters), so the conv runs without bias and the conv
+    epilogue kernel adds b', and the ``residual`` when one is given, in
+    one pass.  With autograd on, on the CPU or in f32, a call computes the
+    affine as above and then adds the ``residual``.
     """
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
@@ -137,6 +152,7 @@ class NormConv2d(nn.Module):
         self.act_amax: Dict[str, torch.Tensor] = {}
         self.calibrating = False
         self._int8 = None
+        self._fold = None
 
     def kernel(self) -> torch.Tensor:
         v = self.conv.weight_v
@@ -239,23 +255,67 @@ class NormConv2d(nn.Module):
         y = par(self.gamma) * (y + par(self.conv.bias)) + par(self.beta)
         return y.reshape(n, h2, w2, c)
 
-    def forward(self, x: torch.Tensor,
-                aux: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def folded(self):
+        """(W', b'): W' = gamma * W in the compute dtype, b' = gamma * bias
+        + beta in f32 (the epilogue sums in f32), both computed in f32;
+        rebuilt when a parameter's version, storage, device or dtype, or
+        the compute dtype, changes."""
+        global norm_conv_fold_builds
+        params = (self.conv.weight_v, self.conv.weight_g, self.conv.bias,
+                  self.gamma, self.beta)
+        key = (self.dtype,) + tuple((p._version, p.data_ptr(), p.device,
+                                     p.dtype) for p in params)
+        if self._fold is not None and self._fold[0] == key:
+            return self._fold[1]
+        with torch.no_grad():
+            gamma = self.gamma.float().reshape(-1)
+            w = self.kernel().float() * gamma[:, None, None, None]
+            b = gamma * self.conv.bias.float() + self.beta.float().reshape(-1)
+        self._fold = (key, (w.to(self.dtype), b))
+        norm_conv_fold_builds += 1
+        return self._fold[1]
+
+    def _folds(self, x) -> bool:
+        """Whether a full-precision call takes the folded route."""
+        return (not torch.is_grad_enabled() and x.is_cuda
+                and self.dtype in EPILOGUE_DTYPES)
+
+    def _forward_folded(self, x, aux, residual):
+        """conv(x, W') without bias, then b' and the residual added in one
+        pass of the conv epilogue kernel, in place (the plain version on
+        the CPU).  The residual has the output's shape and the compute
+        dtype, as a residual block's input has."""
+        dt = self.dtype
+        w, b = self.folded()
+        if aux is not None:
+            x = torch.cat([x.to(dt), aux.to(dt)], dim=-1)
+        y = conv2d_nhwc(x.to(dt), w, None, self.stride,
+                        self.padding).contiguous()
+        return conv_epilogue(y, b, residual)
+
+    def forward(self, x: torch.Tensor, aux: Optional[torch.Tensor] = None,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: NHWC.  aux: optional second input whose channels follow x's
-        in the kernel's fan-in (the JAX package's split-kernel form)."""
+        in the kernel's fan-in (the JAX package's split-kernel form).
+        residual: optional tensor added to the output (a residual block's
+        input)."""
         dt = self.dtype
         if self.d2s_transpose:
             if aux is not None:
                 raise ValueError("d2s_transpose takes no aux input")
-            return self._forward_d2s_transpose(x)
-        if self.quant_active(x):
-            return self._forward_int8(x, aux)
-        if aux is not None:
-            x = torch.cat([x.to(dt), aux.to(dt)], dim=-1)
-        y = conv2d_nhwc(x.to(dt), self.kernel().to(dt),
-                        self.conv.bias.to(dt), self.stride, self.padding)
-        return (self.gamma.to(dt).reshape(-1) * y
-                + self.beta.to(dt).reshape(-1))
+            y = self._forward_d2s_transpose(x)
+        elif self.quant_active(x):
+            y = self._forward_int8(x, aux)
+        elif self._folds(x):
+            return self._forward_folded(x, aux, residual)
+        else:
+            if aux is not None:
+                x = torch.cat([x.to(dt), aux.to(dt)], dim=-1)
+            y = conv2d_nhwc(x.to(dt), self.kernel().to(dt),
+                            self.conv.bias.to(dt), self.stride, self.padding)
+            y = (self.gamma.to(dt).reshape(-1) * y
+                 + self.beta.to(dt).reshape(-1))
+        return y if residual is None else residual + y
 
 
 @contextlib.contextmanager
@@ -525,7 +585,9 @@ class VunetRNB(nn.Module):
     static shape): that block keeps the int8 conv.  The kernel reads a
     NormConv2d's weights, so ``"fused"`` with another conv layer raises a
     ValueError.  Every other block, and every block under the default
-    ``"cudnn"``, runs the conv and eager elementwise ops.
+    ``"cudnn"``, runs the conv and eager elementwise ops; a NormConv2d
+    conv takes the block's input as its ``residual``, which its folded
+    route adds in the conv epilogue kernel.
 
     With ``remat`` set (an attribute, not a parameter: the state dict is
     the same either way) a training forward under autograd stores only the
@@ -596,8 +658,10 @@ class VunetRNB(nn.Module):
                 raise ValueError("auxiliary input to a non-residual VunetRNB")
             a = self.nin(self._act(a))
             if isinstance(self.conv, NormConv2d):
-                return x + self.conv(act(x), aux=act(a))
+                return self.conv(act(x), aux=act(a), residual=x)
             return x + self.conv(torch.cat([act(x), act(a)], dim=-1))
+        if isinstance(self.conv, NormConv2d):
+            return self.conv(act(x), residual=x)
         return x + self.conv(act(x))
 
 

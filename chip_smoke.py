@@ -35,11 +35,18 @@ CUDA toolkit (nvcc) and PyTorch.  It imports no JAX.  Phases:
    route) and the default eval forward (cuDNN conv and eager elementwise
    ops), with the request's sum of launches x time against launches x
    bound;
+   the conv epilogue (``y + b' [+ residual]`` in place) bit-equal to its
+   plain version at the VUNet's 125-frame chunk conv outputs (256/128/64/4
+   px and the 3-channel RGB head), with and without a residual, a strided
+   output refused, timed beside its byte bound, its plain version and the
+   eager passes it replaces (the conv's bias, gamma, beta, the residual);
 4. the full-width serving slice at ``bench.py``'s shapes (B=20, T=50,
    256 px, HID 1024, 48 of 51 keypoints, a 15-flow LatentFlow of mid width
    2048 in f32, VUNet-alter nf 32->128 in bf16) on seeded random weights
    made on the device: generate (sample mode, with the flow), reenact, and
    generate at B=3; every request must launch the rollout kernel once;
+   the warm-up request must launch the conv epilogue once a
+   ``NormConv2d`` call and the timed ones build no folded weights;
    then one B=20 request with ``rnb_impl="fused"`` (126 fused RNB
    launches);
 5. the serving CLI in-process at a small width, from .npz parameter files
@@ -346,6 +353,7 @@ from behavior_driven_video_synthesis_tpu_torch.models.probes import (
 from behavior_driven_video_synthesis_tpu_torch.models.vunet import (
     VUNet, VunetRegressor, latent_widths, vunet_from_config)
 from behavior_driven_video_synthesis_tpu_torch.ops import nn as ops_nn
+from behavior_driven_video_synthesis_tpu_torch.ops.cuda import conv_epilogue
 from behavior_driven_video_synthesis_tpu_torch.ops.cuda import conv_int8
 from behavior_driven_video_synthesis_tpu_torch.ops.cuda import elu_dropout
 from behavior_driven_video_synthesis_tpu_torch.ops.cuda import fused_rnb
@@ -425,6 +433,9 @@ ORG_RNB_SITES = {**{site: 2 * 8 for site in CHUNK_RNB_SITES},
                     for s in (64, 32, 16, 8, 4)}}
 ORG_RNB_LAUNCHES = sum(ORG_RNB_SITES.values())      # 2 * 5 + 2 * 7 * 8
 ALTER_RNB_LAUNCHES = 2 * 7 + 2 * 7 * 8
+# the conv epilogue's sites: conv outputs of a 125-frame chunk
+EPILOGUE_SITES = [(125, 256, 256, 32), (125, 128, 128, 64),
+                  (125, 64, 64, 128), (125, 4, 4, 128), (125, 256, 256, 3)]
 # one org test_forward chunk: du's 14 and the prior's two pre blocks
 ORG_PRIOR_RNB_LAUNCHES = 2 * 7 + 2
 # NVIDIA's H100 SXM data sheet: HBM rate, bf16 dense tensor-core and f32
@@ -765,7 +776,8 @@ def phase_card():
 
 
 # -- 2. the build -------------------------------------------------------------
-KERNEL_SOURCES = ("rollout", "elu_dropout", "fused_rnb", "conv_int8")
+KERNEL_SOURCES = ("rollout", "elu_dropout", "fused_rnb", "conv_int8",
+                  "conv_epilogue")
 
 
 def phase_build():
@@ -1464,6 +1476,69 @@ def phase_fused_rnb():
     return dict(max_abs_err=err, **timed[CHUNK_RNB_SITES[0]])
 
 
+def phase_conv_epilogue():
+    log("[3] conv epilogue kernel vs its plain version (bf16: bit-equal)")
+    log("    " + "; ".join(line.strip() for line in
+                           build_log("conv_epilogue").splitlines()
+                           if "registers" in line))
+    g = torch.Generator(device=DEV).manual_seed(0)
+    rows = []
+    for shape in EPILOGUE_SITES:
+        for with_residual in (False, True):
+            y = torch.randn(shape, generator=g, device=DEV).bfloat16()
+            b = torch.randn(shape[-1], generator=g, device=DEV)
+            r = (torch.randn(shape, generator=g, device=DEV).bfloat16()
+                 if with_residual else None)
+            ref = conv_epilogue.conv_epilogue_plain(y, b, r)
+            out = conv_epilogue.conv_epilogue(y.clone(), b, r)
+            equal = bool(torch.equal(out, ref))
+            e = float((out.float() - ref.float()).abs().max())
+            del out, ref
+            b16 = b.bfloat16()
+            gamma, beta = torch.ones_like(b16), torch.zeros_like(b16)
+
+            def library():
+                """The unfolded route's passes on y: the conv's bias
+                add_ on its NCHW view, gamma *, + beta, the residual."""
+                y.permute(0, 3, 1, 2).add_(b16.reshape(1, -1, 1, 1))
+                out = gamma * y + beta
+                return out if r is None else r + out
+            n = 20 if shape[1] >= 64 else 200
+            ms = cuda_ms(lambda: conv_epilogue.conv_epilogue(y, b, r), n)
+            plain_ms = cuda_ms(
+                lambda: conv_epilogue.conv_epilogue_plain(y, b, r), n)
+            lib_ms = cuda_ms(library, n)
+            bound = (y.numel() * y.element_size() * (3 if r is not None
+                                                     else 2)
+                     + b.numel() * 4) / HBM_BYTES_PER_S * 1e3
+            log(f"    {shape} residual {with_residual}: kernel {ms:.4f} ms,"
+                f" bound {bound:.4f} ms (bytes), kernel at "
+                f"{bound / ms:.1%} of it; plain {plain_ms:.4f} ms, library "
+                f"{lib_ms:.4f} ms; bit-equal to plain: {equal}")
+            check(equal, f"conv epilogue differs from its plain version at "
+                  f"{shape}, residual {with_residual}: max abs {e:.3e}")
+            rows.append(dict(shape=list(shape), residual=with_residual,
+                             max_abs_err=e, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, bound_ms=bound,
+                             bound_by="bytes"))
+            del y, r
+    strided = torch.zeros(8, 16, 16, 32, device=DEV,
+                          dtype=torch.bfloat16).transpose(1, 2)
+    try:
+        conv_epilogue.conv_epilogue(strided, torch.zeros(32, device=DEV))
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "conv epilogue took a strided output")
+    log("    a strided output is refused")
+    RESULTS["conv_epilogue_sites"] = rows
+    torch.cuda.empty_cache()
+    # the kernels line carries the largest site, 256 px at C=32, without
+    # a residual
+    return {k: rows[0][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")}
+
+
 # -- 4. the full-width slice --------------------------------------------------
 def serving_vunet(variant, **kw):
     """The serving VUNet on the meta device: bench.py's alter VUNet, or
@@ -1555,9 +1630,20 @@ def phase_slice():
                          device=DEV) * 0.3
     times = []
     rollout.rollout_launches = 0          # counts start here: the main path
-    for kind, b, length, note in reqs:
+    calls = [0]
+
+    def count_call(module, args):
+        calls[0] += 1
+    for i, (kind, b, length, note) in enumerate(reqs):
         x = inputs[b]
         before = rollout.rollout_launches
+        if i == 0:      # the warm-up: one conv epilogue a NormConv2d call
+            hooks = [m.register_forward_pre_hook(count_call)
+                     for m in pipe.vunet.modules()
+                     if isinstance(m, ops_nn.NormConv2d)]
+            conv_epilogue.conv_epilogue_launches = 0
+        if i == 1:
+            builds = ops_nn.norm_conv_fold_builds
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1571,6 +1657,20 @@ def phase_slice():
                                x["image_size"], length=length, generator=g)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        if i == 0:
+            epilogue_launches = conv_epilogue.conv_epilogue_launches
+            for h in hooks:
+                h.remove()
+            check(epilogue_launches == calls[0] > 0,
+                  f"the B={b} request launched the conv epilogue "
+                  f"{epilogue_launches} times in {calls[0]} NormConv2d "
+                  f"calls")
+            log(f"    the B={b} warm-up: {epilogue_launches} conv epilogue "
+                f"launches, one a NormConv2d call")
+        if i == 2:
+            check(ops_nn.norm_conv_fold_builds == builds,
+                  f"the timed requests built "
+                  f"{ops_nn.norm_conv_fold_builds - builds} folded weights")
         peak = torch.cuda.max_memory_allocated()
         frames = out["frames"]
         check(frames.shape == (b, length, S, S, 3),
@@ -1590,9 +1690,10 @@ def phase_slice():
     launches = rollout.rollout_launches
     check(launches == len(reqs), f"rollout launches {launches}")
     RESULTS["slice_requests"] = times
+    RESULTS["slice_conv_epilogue_launches"] = epilogue_launches
     stage_breakdown(pipe, inputs[B], g, "slice_stages_ms")
     alter_fused_request(pipe, inputs[B])
-    return launches
+    return launches, epilogue_launches
 
 
 def serve(pipe, x, seed=1):
@@ -4227,20 +4328,27 @@ class HookClock:
                                                   True))
 
     def pipeline(self, compare):
-        """Times BehaviorTransferPipeline.generate; ``compare(generate,
-        pipe, args, kwargs, out)`` runs once, on the first call, outside
-        the timing."""
+        """Times BehaviorTransferPipeline.generate and reenact (which does
+        not call generate); ``compare(generate, pipe, args, kwargs, out)``
+        runs once, on the first generate call, outside the timing."""
         generate = BehaviorTransferPipeline.generate
-        timed = self._sync_timed(generate, True)
 
-        def counted(pipe, *a, **kw):
-            out = timed(pipe, *a, **kw)
-            self.pipeline_calls += 1
-            self.finite &= bool(torch.isfinite(out["frames"].float()).all())
-            if self.compared is None:
-                self.compared = compare(generate, pipe, a, kw, out)
-            return out
-        self._patch(BehaviorTransferPipeline, "generate", counted)
+        def counting(fn, compared):
+            timed = self._sync_timed(fn, True)
+
+            def counted(pipe, *a, **kw):
+                out = timed(pipe, *a, **kw)
+                self.pipeline_calls += 1
+                self.finite &= bool(
+                    torch.isfinite(out["frames"].float()).all())
+                if compared and self.compared is None:
+                    self.compared = compare(generate, pipe, a, kw, out)
+                return out
+            return counted
+        self._patch(BehaviorTransferPipeline, "generate",
+                    counting(generate, True))
+        self._patch(BehaviorTransferPipeline, "reenact",
+                    counting(BehaviorTransferPipeline.reenact, False))
 
     def hook(self, owner, name, what):
         fn = getattr(owner, name)
@@ -5524,7 +5632,8 @@ def main(argv=None):
     max_err, ms, plain_ms = timed("3 rollout", phase_kernel)
     elu = timed("3 elu_dropout", phase_elu_dropout)
     rnb = timed("3 fused_rnb", phase_fused_rnb)
-    launches = timed("4", phase_slice)
+    epilogue = timed("3 conv_epilogue", phase_conv_epilogue)
+    launches, epilogue_launches = timed("4", phase_slice)
     timed("5", phase_cli)
     timed("6", phase_golden)
     timed("6 org", phase_org_golden)
@@ -5584,7 +5693,11 @@ def main(argv=None):
             "name": "fused_rnb", "route": "cuda",
             "source": source + "fused_rnb.cu",
             "replaces": "attic/pallas_rnb.py:86",
-            "launches": rnb_launches, **rnb}, int8_entry]}
+            "launches": rnb_launches, **rnb}, int8_entry, {
+            "name": "conv_epilogue", "route": "cuda",
+            "source": source + "conv_epilogue.cu",
+            "replaces": "behavior_driven_video_synthesis_tpu/ops/nn.py:282",
+            "launches": epilogue_launches, **epilogue}]}
     RESULTS.update(kernels)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

@@ -23,7 +23,12 @@ accumulators are equal and the outputs within one bf16 ulp (bf16; the
 epilogue's arithmetic is the same, aux and the affine included, but the
 cast of a sum on a bf16 midpoint may break either way) or equal (f32).
 The int8 library route (F.unfold + torch._int_mm, the shapes the kernel
-does not take) and the plain version: equal sums, equal outputs.
+does not take) and the plain version: equal sums, equal outputs.  Conv
+epilogue: the kernel and the float32 reference (its plain version) sum
+(y + b) + r in f32 and round once, so they are equal; the folded
+NormConv2d route against the unfolded one rounds W' = gamma * W instead of
+W, and the conv's output before the affine, so whole networks agree to
+bf16 noise (rel L2 below 2e-2, as the fused RNB route).
 """
 import os
 
@@ -38,6 +43,8 @@ from behavior_driven_video_synthesis_tpu_torch.models import (
 from behavior_driven_video_synthesis_tpu_torch.models.init import init_random_
 from behavior_driven_video_synthesis_tpu_torch.models.vunet import VUNet
 from behavior_driven_video_synthesis_tpu_torch.ops import nn as pnn
+from behavior_driven_video_synthesis_tpu_torch.ops.cuda import (
+    conv_epilogue as CE)
 from behavior_driven_video_synthesis_tpu_torch.ops.cuda import (
     conv_int8 as CI)
 from behavior_driven_video_synthesis_tpu_torch.ops.cuda import (
@@ -853,3 +860,173 @@ def test_quantized_vunet_serves_through_the_kernel(cuda):
     assert sum(calls) <= len(scales) <= 2 * sum(calls)
     rel = (out.float() - ref.float()).norm() / ref.float().norm()
     assert float(rel) < 5e-2
+
+
+def _epilogue_case(shape, dtype, device, residual, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    y = (torch.randn(shape, generator=g, device=device) * 4).to(dtype)
+    b = torch.randn(shape[-1], generator=g, device=device)
+    r = ((torch.randn(shape, generator=g, device=device) * 2).to(dtype)
+         if residual else None)
+    return y, b, r
+
+
+def _epilogue_matches_reference(y, b, r):
+    """One launch, in place, equal to the float32 reference rounded once."""
+    ref = CE.conv_epilogue_plain(y, b, r)
+    ptr, before = y.data_ptr(), CE.conv_epilogue_launches
+    out = CE.conv_epilogue(y, b, r)
+    torch.cuda.synchronize()
+    assert CE.conv_epilogue_launches == before + 1
+    assert out.data_ptr() == ptr and out.dtype == ref.dtype
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("shape", [
+    (125, 256, 256, 32), (125, 128, 128, 64), (125, 64, 64, 128),
+    (125, 4, 4, 128), (125, 256, 256, 3)])
+@pytest.mark.parametrize("residual", [False, True])
+def test_conv_epilogue_kernel_at_chunk_shapes(cuda, shape, residual):
+    """The 125-frame chunk's conv outputs, bf16, against the float32
+    reference: the vector path (C a multiple of 8) and the scalar path
+    (the RGB head's C = 3)."""
+    _epilogue_matches_reference(*_epilogue_case(shape, torch.bfloat16, cuda,
+                                                residual))
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((3, 17, 19, 40), torch.bfloat16), ((2, 9, 7, 8), torch.bfloat16),
+    ((2, 16, 16, 512), torch.bfloat16), ((1, 3, 5, 2056), torch.bfloat16),
+    ((4, 11, 13, 5), torch.bfloat16), ((2, 33, 31, 64), torch.float16),
+    ((3, 7, 9, 3), torch.float16), ((1, 1, 1, 1), torch.bfloat16)])
+@pytest.mark.parametrize("residual", [False, True])
+def test_conv_epilogue_kernel_off_the_chunk_shapes(cuda, shape, dtype,
+                                                   residual):
+    """Channel counts whose groups do not divide the block (40), above its
+    groups (2056: the scalar path), odd (5), f16, a single element."""
+    _epilogue_matches_reference(*_epilogue_case(shape, dtype, cuda,
+                                                residual))
+
+
+def test_conv_epilogue_kernel_strided_and_misaligned_operands(cuda):
+    """A strided y is refused (the kernel writes it in place); a strided
+    residual is copied and a residual off 16-byte alignment takes the
+    scalar path: both equal the reference."""
+    y, b, r = _epilogue_case((2, 8, 8, 32), torch.bfloat16, cuda, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        CE.conv_epilogue(y.transpose(1, 2), b, r.transpose(1, 2))
+    wide = torch.randn(2, 8, 8, 64, device=cuda).bfloat16()
+    _epilogue_matches_reference(y.clone(), b, wide[..., ::2])
+    flat = torch.randn(r.numel() + 1, device=cuda).bfloat16()
+    off = flat[1:].view(r.shape)
+    assert off.data_ptr() % 16
+    _epilogue_matches_reference(y.clone(), b, off)
+    with pytest.raises(TypeError, match="bfloat16 or float16"):
+        CE.conv_epilogue(y.float(), b)
+    with pytest.raises(ValueError, match="bias"):
+        CE.conv_epilogue(y, b.bfloat16())
+    with pytest.raises(ValueError, match="device"):
+        CE.conv_epilogue(y, b.cpu())
+
+
+def _serving_vunet(variant, rnb_impl, device, seed=0):
+    rng = np.random.RandomState(seed)
+    arch = dict(spatial_size=64, nf_start=16, nf_max=32, variant=variant,
+                rnb_impl=rnb_impl, dtype=torch.bfloat16)
+    if variant == "org":
+        arch.update(n_channels_x=30, box_factor=1)
+    net = init_random_(VUNet(**arch), rng).to(device).eval()
+    with torch.no_grad():       # affines away from their init's (1, 0)
+        for m in net.modules():
+            if isinstance(m, pnn.NormConv2d):
+                m.gamma.copy_(1 + 0.3 * torch.randn_like(m.gamma))
+                m.beta.copy_(0.3 * torch.randn_like(m.beta))
+    x_channels = 30 if variant == "org" else 3
+    x_size = 32 if variant == "org" else 64
+    x = torch.from_numpy(rng.rand(3, x_size, x_size, x_channels)).float()
+    c = torch.from_numpy(rng.rand(6, 64, 64, 3) * 2 - 1).bfloat16()
+    eps = [torch.from_numpy(rng.randn(3, s, s, 32)).float() for s in (4, 8)]
+    return net, x.to(device), c.to(device), [e.to(device) for e in eps]
+
+
+def _full_precision_calls(net):
+    """Counts the NormConv2d calls that neither run int8 nor d2s: a list
+    whose length grows by one a call, and the hooks' handles."""
+    calls = []
+
+    def hook(m, args, out):
+        if not (m.d2s_transpose or m.quant_active(args[0])):
+            calls.append(m)
+    return calls, [m.register_forward_hook(hook) for m in net.modules()
+                   if isinstance(m, pnn.NormConv2d)]
+
+
+@pytest.mark.parametrize("variant,rnb_impl", [("alter", "cudnn"),
+                                              ("org", "fused")])
+def test_vunet_folded_route_on_the_card(cuda, variant, rnb_impl):
+    """A bf16 VUNet's ``transfer_cached`` (its means from
+    ``encode_means``) against the unfolded route (the same calls with
+    autograd on and no parameter requiring a gradient): within bf16 noise;
+    one epilogue launch a full-precision NormConv2d call; the folded
+    weights built on the first call only; a second call bit-equal."""
+    net, x, c, eps = _serving_vunet(variant, rnb_impl, cuda)
+    with torch.no_grad():
+        means, _ = net.encode_means(x, eps)
+    means = [torch.repeat_interleave(m, 2, dim=0) for m in means]
+    calls, hooks = _full_precision_calls(net)
+    try:
+        with torch.inference_mode():
+            n0, b0 = CE.conv_epilogue_launches, pnn.norm_conv_fold_builds
+            first = net.transfer_cached(means, c)
+            torch.cuda.synchronize()
+            n_calls = len(calls)
+            assert n_calls > 0
+            assert CE.conv_epilogue_launches - n0 == n_calls
+            built = pnn.norm_conv_fold_builds - b0
+            assert 0 < built <= n_calls
+            second = net.transfer_cached(means, c)
+            torch.cuda.synchronize()
+            assert CE.conv_epilogue_launches - n0 == 2 * n_calls
+            assert pnn.norm_conv_fold_builds - b0 == built
+        assert torch.equal(first, second)
+        net.requires_grad_(False)
+        n1 = CE.conv_epilogue_launches
+        with torch.enable_grad():
+            ref = net.transfer_cached(means, c)
+        torch.cuda.synchronize()
+        assert CE.conv_epilogue_launches == n1
+    finally:
+        for h in hooks:
+            h.remove()
+    assert first.dtype == ref.dtype == torch.bfloat16
+    assert bool(torch.isfinite(first).all())
+    rel = float((first.float() - ref.float()).norm() / ref.float().norm())
+    assert rel < 2e-2, rel
+
+
+def test_pipeline_servings_stay_bit_equal_through_the_epilogue(cuda):
+    """C18: two servings of one request through the pipeline are
+    bit-equal, with the VUNet on the folded route."""
+    rng = np.random.RandomState(0)
+    net = init_random_(ResidualBehaviorNet(48, 32), rng).to(cuda)
+    vunet = init_random_(VUNet(spatial_size=32, nf_start=8, nf_max=16,
+                               dtype=torch.bfloat16), rng).to(cuda)
+    pipe = BehaviorTransferPipeline(
+        net, vunet, detailed_joint_model(True), np.zeros(51, np.float32),
+        np.ones(51, np.float32), np.arange(51)[np.arange(51) % 17 != 0][:48],
+        spatial_size=32)
+    B, T = 3, 5
+    args = (rng.randn(B, 32), rng.randn(B, 48) * 0.1,
+            rng.rand(B, 32, 32, 3),
+            np.tile(np.hstack([np.eye(3), [[0], [0], [4.0]]]), (B, 1, 1)),
+            np.tile([40.0, 16, 40.0, 16], (B, 1)), np.full((B, 2), 32.0))
+    def serve():
+        return pipe.generate(*args, length=T, generator=torch.Generator(
+            device=cuda).manual_seed(1))["frames"]
+    before = CE.conv_epilogue_launches
+    first = serve()
+    torch.cuda.synchronize()
+    assert CE.conv_epilogue_launches > before
+    second = serve()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)

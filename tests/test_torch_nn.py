@@ -2,7 +2,9 @@
 
 Each case draws its weights into the port's module with numpy, exports
 them as the flax subtree the JAX module reads, and compares both on the
-same NHWC input in f32: max abs diff <= 1e-5 * (1 + max|ref|).
+same NHWC input in f32: max abs diff <= 1e-5 * (1 + max|ref|).  The
+NormConv2d fold cases hold the folded route against the unfolded one in
+the port itself.
 """
 import numpy as np
 import pytest
@@ -133,3 +135,215 @@ def test_fully_connected_net_matches_jax(rng, use_tanh, depth):
                                 out_dim=4).apply({"params": tree},
                                                  jnp.asarray(x))
     _close(net(torch.from_numpy(x)), ref)
+
+
+def _norm_conv(cin, cout, k, stride=1, pad=0, dtype=torch.float32, seed=3):
+    conv = pnn.NormConv2d(cin, cout, k, stride, pad, dtype=dtype)
+    init_random_(conv, np.random.RandomState(seed))
+    with torch.no_grad():       # an affine away from its init's (1, 0)
+        g = torch.Generator().manual_seed(seed)
+        conv.gamma.copy_(1 + 0.5 * torch.randn(conv.gamma.shape, generator=g))
+        conv.beta.copy_(0.5 * torch.randn(conv.beta.shape, generator=g))
+        conv.conv.bias.copy_(0.5 * torch.randn(cout, generator=g))
+    return conv
+
+
+@pytest.mark.parametrize("k,stride,pad,cout", [(3, 1, 1, 7), (1, 1, 0, 16),
+                                               (3, 2, 1, 8), (3, 1, 1, 3)])
+def test_norm_conv_fold_matches_the_affine(rng, k, stride, pad, cout):
+    """conv(x, W') + b' with the folded f32 weights is
+    gamma * (conv(x, W) + bias) + beta to 1e-5 of its largest value."""
+    conv = _norm_conv(5, cout, k, stride, pad)
+    x = torch.from_numpy(rng.randn(2, 9, 9, 5).astype(np.float32))
+    w, b = conv.folded()
+    assert w.dtype == b.dtype == torch.float32
+    with torch.no_grad():
+        ref = conv(x)
+        out = pnn.conv2d_nhwc(x, w, None, stride, pad) + b
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=0,
+                               atol=1e-5 * float(ref.abs().max()))
+
+
+def _step(conv):
+    opt = torch.optim.SGD(conv.parameters(), lr=0.1)
+    conv(torch.ones(1, 4, 4, 5)).square().sum().backward()
+    opt.step()
+
+
+def _load(conv):
+    other = _norm_conv(5, 6, 3, pad=1, seed=9)
+    conv.load_state_dict(other.state_dict())
+
+
+def _gamma_in_place(conv):
+    with torch.no_grad():
+        conv.gamma.mul_(2)
+
+
+def _compute_dtype(conv):
+    conv.dtype = torch.bfloat16
+
+
+@pytest.mark.parametrize("change", [_load, _step, _gamma_in_place,
+                                    _compute_dtype])
+def test_norm_conv_fold_cache_rebuilds(change):
+    """The folded weights are built once and kept; a load_state_dict, an
+    optimizer step, an in-place update of one parameter or a new compute
+    dtype rebuilds them, and norm_conv_fold_builds counts each build."""
+    conv = _norm_conv(5, 6, 3, pad=1)
+    n0 = pnn.norm_conv_fold_builds
+    first = conv.folded()
+    assert conv.folded() is first
+    assert pnn.norm_conv_fold_builds == n0 + 1
+    change(conv)
+    w, b = conv.folded()
+    assert pnn.norm_conv_fold_builds == n0 + 2
+    assert conv.folded()[0] is w
+    assert w.dtype == conv.dtype
+    with torch.no_grad():
+        gamma = conv.gamma.reshape(-1)
+        torch.testing.assert_close(
+            w, (conv.kernel() * gamma[:, None, None, None]).to(conv.dtype))
+        torch.testing.assert_close(
+            b, gamma * conv.conv.bias + conv.beta.reshape(-1))
+
+
+@pytest.mark.parametrize("grad,dtype,cuda,folds", [
+    (False, torch.bfloat16, True, True), (False, torch.float16, True, True),
+    (True, torch.bfloat16, True, False), (False, torch.float32, True, False),
+    (False, torch.bfloat16, False, False)])
+def test_norm_conv_folds_only_at_inference_on_the_card(grad, dtype, cuda,
+                                                       folds):
+    """The folded route's rule: autograd off, a CUDA input, a bf16 or f16
+    compute dtype; the int8 and d2s_transpose calls never reach it."""
+    class _X:
+        is_cuda = cuda
+    conv = pnn.NormConv2d(5, 8, 3, padding=1, dtype=dtype)
+    with torch.set_grad_enabled(grad):
+        assert conv._folds(_X()) == folds
+
+
+def test_norm_conv_with_grad_is_unfolded_and_trains_its_affine(rng):
+    """With autograd on, a call (and a residual block's, which passes its
+    input as the residual) computes the unfolded affine, builds no folded
+    weights, and gamma and beta receive gradients."""
+    conv = _norm_conv(5, 5, 3, pad=1)
+    x = torch.from_numpy(rng.randn(2, 6, 6, 5).astype(np.float32))
+    n0 = pnn.norm_conv_fold_builds
+    out = conv(x, residual=x)
+    y = pnn.conv2d_nhwc(x, conv.kernel(), conv.conv.bias, 1, 1)
+    ref = x + (conv.gamma.reshape(-1) * y + conv.beta.reshape(-1))
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    out.square().sum().backward()
+    assert pnn.norm_conv_fold_builds == n0
+    for p in (conv.gamma, conv.beta, conv.conv.weight_v, conv.conv.bias):
+        assert p.grad is not None and float(p.grad.abs().sum()) > 0
+    rnb = pnn.VunetRNB(5, residual=True, aux_channels=3)
+    init_random_(rnb, rng)
+    a = torch.from_numpy(rng.randn(2, 6, 6, 3).astype(np.float32))
+    out = rnb(x, a)
+    out.sum().backward()
+    assert rnb.conv.gamma.grad is not None and rnb.conv.beta.grad is not None
+    assert pnn.norm_conv_fold_builds == n0
+
+
+@pytest.mark.parametrize("k,pad,aux,residual", [
+    (3, 1, False, False), (3, 1, False, True), (3, 1, True, True),
+    (1, 0, False, False), (1, 0, True, True)])
+def test_norm_conv_folded_route_matches_the_unfolded(rng, k, pad, aux,
+                                                     residual):
+    """The folded route (the conv epilogue's plain version on the CPU) in
+    bf16 against the unfolded bf16 call, within bf16 rounding; the result
+    has the unfolded call's dtype."""
+    conv = _norm_conv(8 + (4 if aux else 0), 8, k, 1, pad,
+                      dtype=torch.bfloat16)
+    x = torch.from_numpy(rng.randn(2, 7, 7, 8).astype(np.float32))
+    a = (torch.from_numpy(rng.randn(2, 7, 7, 4).astype(np.float32)).bfloat16()
+         if aux else None)
+    r = x.bfloat16() if residual else None
+    with torch.no_grad():
+        ref = conv(x.bfloat16(), a, residual=r)
+        out = conv._forward_folded(x.bfloat16(), a, r)
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                               atol=2e-2 * float(ref.float().abs().max()))
+
+
+def test_conv_epilogue_plain_in_place_and_refusals(rng):
+    """On the CPU the epilogue writes (y + b) + r, summed in f32 and
+    rounded once, into y; it refuses f32, a strided y, a bias of another
+    width and a residual of another dtype."""
+    from behavior_driven_video_synthesis_tpu_torch.ops.cuda import (
+        conv_epilogue as CE)
+    y = torch.from_numpy(rng.randn(2, 3, 5, 16).astype(np.float32))
+    r = torch.from_numpy(rng.randn(2, 3, 5, 16).astype(np.float32))
+    b = torch.from_numpy(rng.randn(16).astype(np.float32))
+    yb, rb = y.bfloat16(), r.bfloat16()
+    ref = ((yb.float() + b) + rb.float()).bfloat16()
+    out = CE.conv_epilogue(yb, b, rb)
+    assert out is yb
+    assert torch.equal(out, ref)
+    with pytest.raises(TypeError, match="bfloat16 or float16"):
+        CE.conv_epilogue(y, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        CE.conv_epilogue(yb.transpose(1, 2), b)
+    with pytest.raises(ValueError, match="bias"):
+        CE.conv_epilogue(yb, b[:8])
+    with pytest.raises(ValueError, match="residual"):
+        CE.conv_epilogue(yb, b, r)
+
+
+def _bf16(x):
+    return torch.from_numpy(x).bfloat16()
+
+
+def _jbf16(x):
+    return jnp.asarray(x, jnp.bfloat16)
+
+
+@pytest.mark.parametrize("module,aux,residual", [
+    ("conv", False, False), ("conv", True, False), ("conv", False, True),
+    ("conv", True, True), ("rnb", False, True), ("rnb", True, True)])
+def test_folded_route_matches_jax_in_bf16(rng, module, aux, residual):
+    """The folded route on the CPU (the conv epilogue's plain version)
+    against the JAX package in bf16: a NormConv2d's ``_forward_folded``,
+    with and without aux input and residual, against the flax NormConv2d
+    (plus the residual), and a residual block whose NormConv2d calls take
+    the folded route against the flax VunetRNB; max abs diff <= 2e-2 *
+    (1 + max|ref|)."""
+    c, ca = 8, 4
+    x = rng.randn(2, 9, 9, c).astype(np.float32)
+    a = rng.randn(2, 9, 9, ca).astype(np.float32) if aux else None
+    ja = None if a is None else _jbf16(a)
+    if module == "conv":
+        cout = 6
+        conv = pnn.NormConv2d(c + (ca if aux else 0), cout, 3, padding=1,
+                              dtype=torch.bfloat16)
+        tree = _tree(conv, pconv._norm_conv("x", ()))
+        r = rng.randn(2, 9, 9, cout).astype(np.float32) if residual else None
+        ref = jnn.NormConv2d(cout, kernel_size=3, padding=1,
+                             dtype=jnp.bfloat16).apply(
+            {"params": tree}, _jbf16(x), ja)
+        if r is not None:
+            ref = _jbf16(r) + ref
+        with torch.no_grad():
+            out = conv._forward_folded(_bf16(x), None if a is None
+                                       else _bf16(a),
+                                       None if r is None else _bf16(r))
+    else:
+        rnb = pnn.VunetRNB(c, residual=aux, aux_channels=ca if aux else 0,
+                           dtype=torch.bfloat16)
+        tree = _tree(rnb, pconv._rnb("x", (), aux))
+        for m in rnb.modules():
+            if isinstance(m, pnn.NormConv2d):
+                m._folds = lambda x: True
+        n0 = pnn.norm_conv_fold_builds
+        ref = jnn.VunetRNB(c, residual=aux, dtype=jnp.bfloat16).apply(
+            {"params": tree}, _jbf16(x), ja)
+        with torch.no_grad():
+            out = rnb(_bf16(x), None if a is None else _bf16(a))
+        assert pnn.norm_conv_fold_builds == n0 + (2 if aux else 1)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    ref = np.asarray(ref, np.float32)
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=0,
+                               atol=2e-2 * (1 + np.abs(ref).max()))

@@ -344,13 +344,14 @@ def _subtree(tree, path):
 def check_int8_convs_in_place(net, tree, run):
     """Run ``run()`` with every quantized NormConv2d of ``net`` recorded;
     hold each conv that ran int8 against the JAX NormConv2d on the same
-    inputs, parameters and (int8_static) stored scales.  Returns how many
-    were held."""
+    inputs, parameters and (int8_static) stored scales, plus the residual
+    a residual block passed it.  Returns how many were held."""
     calls = []
     hooks = [m.register_forward_hook(
         lambda mod, args, kwargs, out, name=name: calls.append(
             (name, mod, args[0], args[1] if len(args) > 1
-             else kwargs.get("aux"), out)), with_kwargs=True)
+             else kwargs.get("aux"), kwargs.get("residual"), out)),
+        with_kwargs=True)
         for name, m in net.named_modules()
         if isinstance(m, pnn.NormConv2d) and m.quant != "none"]
     try:
@@ -360,7 +361,7 @@ def check_int8_convs_in_place(net, tree, run):
             h.remove()
     paths = pconv._quant_paths(net)
     held = 0
-    for name, mod, x, aux, out in calls:
+    for name, mod, x, aux, residual, out in calls:
         if not mod.quant_active(x):
             continue
         variables = {"params": _subtree(tree, paths[name])}
@@ -373,8 +374,10 @@ def check_int8_convs_in_place(net, tree, run):
                        None if aux is None else jnp.asarray(_np(aux)))
         ax = ci8.act_scale(x) if mod.quant == "int8" else mod.act_amax["ax"]
         _, aw = ci8.quantize_weight(mod.kernel()[:, :x.shape[-1]])
-        np.testing.assert_allclose(_np(out), _np(ref), rtol=0,
-                                   atol=_conv_atol(ref, ax, aw),
+        atol = _conv_atol(ref, ax, aw)
+        if residual is not None:
+            ref = _np(residual) + _np(ref)
+        np.testing.assert_allclose(_np(out), _np(ref), rtol=0, atol=atol,
                                    err_msg=name)
         held += 1
     return held
