@@ -8,10 +8,13 @@ crossing-number test for the body polygon, the reference's colour scheme
 body (0, 127, 255) under the lines).  Joints with a negative coordinate are
 invalid and skipped.
 
-Frames render in chunks and lines one at a time, so the intermediates are
-(chunk, S, S) rather than the (frames, lines, S, S) that a direct
-translation of the vmapped JAX code would hold (3 GB each at 1000 frames
-of 256 px).
+On a CUDA device :func:`render_stickman` is one launch of the raster
+kernel (``ops/cuda/stickman.py``, ``csrc/stickman.cu``) over all frames,
+bit-equal to :func:`render_stickman_plain` run on the card.  The plain
+version, the CPU path, renders frames in chunks and lines one at a time,
+so the intermediates are (chunk, S, S) rather than the (frames, lines, S,
+S) that a direct translation of the vmapped JAX code would hold (3 GB each
+at 1000 frames of 256 px).
 
 The host stickman (:func:`make_joint_img`, :func:`get_line_colors`) is
 the JAX package's cv2 rendering (``geometry/stickman.py:58-150``), line
@@ -25,6 +28,8 @@ from typing import Callable, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..ops.cuda import stickman as stickman_kernel
 
 
 @dataclass(frozen=True)
@@ -118,9 +123,26 @@ def _render_frames(j, joint_model: JointModel, px, py, half):
 
 
 def render_stickman(joints, joint_model: JointModel, spatial_size: int,
-                    thickness: float = 1.0, frames_per_chunk: int = 128):
+                    thickness: float = 1.0, frames_per_chunk: int = 128,
+                    normalized: bool = False):
     """joints (..., K, 2) pixel coordinates -> (..., S, S, 3) f32 image on a
-    0..255 scale, rendered ``frames_per_chunk`` frames at a time."""
+    0..255 scale, or with ``normalized`` the VUNet's bf16 input (stick -
+    127.5) / 127.5.  CUDA joints launch the raster kernel once; others
+    take :func:`render_stickman_plain` (``frames_per_chunk`` frames at a
+    time)."""
+    if joints.device.type == "cuda":
+        return stickman_kernel.stickman_raster(
+            joints, joint_model, spatial_size, thickness, normalized)
+    return render_stickman_plain(joints, joint_model, spatial_size,
+                                 thickness, frames_per_chunk, normalized)
+
+
+def render_stickman_plain(joints, joint_model: JointModel,
+                          spatial_size: int, thickness: float = 1.0,
+                          frames_per_chunk: int = 128,
+                          normalized: bool = False):
+    """:func:`render_stickman` in eager PyTorch on any device, rendered
+    ``frames_per_chunk`` frames at a time."""
     flat = joints.reshape((-1,) + tuple(joints.shape[-2:])).float()
     grid = torch.arange(spatial_size, dtype=torch.float32,
                         device=joints.device) + 0.5
@@ -131,6 +153,13 @@ def render_stickman(joints, joint_model: JointModel, spatial_size: int,
         out[s:s + frames_per_chunk] = _render_frames(
             flat[s:s + frames_per_chunk], joint_model, px, py,
             thickness / 2.0)
+    if normalized:
+        # The JAX package writes stick / 127.5 - 1; for stick = 127 that
+        # lies within an f32 rounding error of a bf16 rounding midpoint, and
+        # CUDA divides by a scalar as a reciprocal multiply, which lands on
+        # the other side.  (stick - 127.5) / 127.5 gives the same bf16
+        # values as the JAX package either way.
+        out = ((out - 127.5) / 127.5).to(torch.bfloat16)
     return out.reshape(tuple(joints.shape[:-2]) + out.shape[1:])
 
 

@@ -158,18 +158,13 @@ class BehaviorTransferPipeline:
                                self._tensor(intrinsics),
                                self._tensor(image_size))
         with trace.span("stickman"):
+            # bf16 in [-1, 1] from here on, as in the JAX pipeline: the
+            # VUNet serves in bf16, and at B*T frames this is the largest
+            # intermediate.  On the card one kernel launch writes it.
             stick = render_stickman(px, self.joint_model, self.spatial_size,
                                     thickness=self.thickness,
-                                    frames_per_chunk=self.vunet_chunk)
-            # bf16 from here on, as in the JAX pipeline: the VUNet serves
-            # in bf16, and at B*T frames this is the largest intermediate.
-            # The JAX package writes stick / 127.5 - 1; for stick = 127
-            # that lies within an f32 rounding error of a bf16 rounding
-            # midpoint, and CUDA divides by a scalar as a reciprocal
-            # multiply, which lands on the other side.  (stick - 127.5) /
-            # 127.5 gives the same bf16 values as the JAX package either
-            # way.
-            stick = ((stick - 127.5) / 127.5).to(torch.bfloat16)
+                                    frames_per_chunk=self.vunet_chunk,
+                                    normalized=True)
         with trace.span("appearance"):
             if quant_scales is not None:
                 load_quant_scales(self.vunet, quant_scales)

@@ -40,13 +40,21 @@ CUDA toolkit (nvcc) and PyTorch.  It imports no JAX.  Phases:
    px and the 3-channel RGB head), with and without a residual, a strided
    output refused, timed beside its byte bound, its plain version and the
    eager passes it replaces (the conv's bias, gamma, beta, the residual);
+   the stickman raster (one launch a ``render_stickman`` call on the card)
+   bit-equal to its eager version on the card in both outputs (f32 on
+   0..255, the VUNet's normalized bf16) at a bulk request's 1,000 frames of
+   256 px, thickness 4, the detailed H36M joint model, with edge cases;
+   timed beside the eager version on the card and the plain version on the
+   CPU, against its bound (the bytes it writes, or the instruction issue
+   of the tests its cull leaves for these joints);
 4. the full-width serving slice at ``bench.py``'s shapes (B=20, T=50,
    256 px, HID 1024, 48 of 51 keypoints, a 15-flow LatentFlow of mid width
    2048 in f32, VUNet-alter nf 32->128 in bf16) on seeded random weights
    made on the device: generate (sample mode, with the flow), reenact, and
    generate at B=3; every request must launch the rollout kernel once;
    the warm-up request must launch the conv epilogue once a
-   ``NormConv2d`` call and the timed ones build no folded weights;
+   ``NormConv2d`` call and the timed ones build no folded weights; every
+   request must launch the stickman raster once;
    then one B=20 request with ``rnb_impl="fused"`` (126 fused RNB
    launches);
 5. the serving CLI in-process at a small width, from .npz parameter files
@@ -338,7 +346,7 @@ from behavior_driven_video_synthesis_tpu_torch.data.human36m import (
 from behavior_driven_video_synthesis_tpu_torch.data.synthetic_images import (
     SyntheticImageDataset)
 from behavior_driven_video_synthesis_tpu_torch.geometry.stickman import (
-    render_stickman)
+    render_stickman, render_stickman_plain)
 from behavior_driven_video_synthesis_tpu_torch.models import convert
 from behavior_driven_video_synthesis_tpu_torch.models.behavior import (
     ResidualBehaviorNet, ResidualDecoder, decoder_rollout_kernel)
@@ -358,6 +366,7 @@ from behavior_driven_video_synthesis_tpu_torch.ops.cuda import conv_int8
 from behavior_driven_video_synthesis_tpu_torch.ops.cuda import elu_dropout
 from behavior_driven_video_synthesis_tpu_torch.ops.cuda import fused_rnb
 from behavior_driven_video_synthesis_tpu_torch.ops.cuda import rollout
+from behavior_driven_video_synthesis_tpu_torch.ops.cuda import stickman
 from behavior_driven_video_synthesis_tpu_torch.ops.cuda.build import (
     build_log, load_library)
 from behavior_driven_video_synthesis_tpu_torch.pipeline import (
@@ -436,6 +445,10 @@ ALTER_RNB_LAUNCHES = 2 * 7 + 2 * 7 * 8
 # the conv epilogue's sites: conv outputs of a 125-frame chunk
 EPILOGUE_SITES = [(125, 256, 256, 32), (125, 128, 128, 64),
                   (125, 64, 64, 128), (125, 4, 4, 128), (125, 256, 256, 3)]
+# the stickman raster's check: one bulk request's frames (B*T = 1,000) at
+# 256 px, thickness 4, the detailed H36M joint model in world coordinates
+# (as the benchmark's cells serve it)
+STICK = dict(frames=1000, S=256, thickness=4.0)
 # one org test_forward chunk: du's 14 and the prior's two pre blocks
 ORG_PRIOR_RNB_LAUNCHES = 2 * 7 + 2
 # NVIDIA's H100 SXM data sheet: HBM rate, bf16 dense tensor-core and f32
@@ -777,7 +790,7 @@ def phase_card():
 
 # -- 2. the build -------------------------------------------------------------
 KERNEL_SOURCES = ("rollout", "elu_dropout", "fused_rnb", "conv_int8",
-                  "conv_epilogue")
+                  "conv_epilogue", "stickman")
 
 
 def phase_build():
@@ -1539,6 +1552,81 @@ def phase_conv_epilogue():
                                     "bound_ms", "bound_by", "library_ms")}
 
 
+def stickman_joints(n, S, seed=0):
+    """n figure-like frames of 17 joints: a centre in the middle half of
+    the image and joints within a quarter of the image of it; the first
+    frames carry the edge cases (invalid and NaN joints, a degenerate
+    segment, joints past the image and past the kernel's cull limit, a
+    body of fewer than 3 valid vertices)."""
+    rng = np.random.RandomState(seed)
+    j = (rng.rand(n, 1, 2) * 0.5 + 0.25) * S \
+        + (rng.rand(n, 17, 2) - 0.5) * 0.5 * S
+    j[0, 3] = -1.0
+    j[1, 5] = np.nan
+    j[2, 1] = j[2, 0]
+    j[3, 4] = [1.6 * S, 0.5 * S]
+    j[4, 6] = [7e4, 3.0]
+    j[5, [0, 3, 8]] = -1.0
+    return torch.tensor(j, dtype=torch.float32, device=DEV)
+
+
+def phase_stickman():
+    N, S, thick = STICK["frames"], STICK["S"], STICK["thickness"]
+    log(f"[3] stickman raster kernel vs its eager version on the card "
+        f"({N} frames, {S} px, thickness {thick}: bit-equal)")
+    log("    " + "; ".join(line.strip() for line in
+                           build_log("stickman").splitlines()
+                           if "registers" in line))
+    jm = detailed_joint_model(world_coords=True)
+    joints = stickman_joints(N, S)
+    rows = []
+    for normalized in (False, True):
+        def kernel():
+            return render_stickman(joints, jm, S, thick,
+                                   normalized=normalized)
+
+        def eager():
+            return render_stickman_plain(joints, jm, S, thick,
+                                         normalized=normalized)
+        ref = eager()
+        before = stickman.stickman_launches
+        out = kernel()
+        check(stickman.stickman_launches == before + 1,
+              "render_stickman on the card launched the kernel "
+              f"{stickman.stickman_launches - before} times")
+        differ = int((out != ref).any(-1).sum())
+        check(out.dtype == ref.dtype and torch.equal(out, ref),
+              f"the stickman kernel differs from the eager version "
+              f"(normalized {normalized}) at {differ} pixels")
+        err = float((out.float() - ref.float()).abs().max())
+        ms = cuda_ms(kernel, 20)
+        eager_ms = cuda_ms(eager, 3)
+        # the function's own traffic: the joints read and the image written
+        # once; its arithmetic (a distance field over the pixels a thick
+        # segment covers) is far below this at the H100's f32 rate
+        nbytes = out.numel() * out.element_size() + joints.numel() * 4
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        del out, ref
+        t0 = time.perf_counter()
+        render_stickman_plain(joints.cpu(), jm, S, thick,
+                              normalized=normalized)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        log(f"    {'bf16 normalized' if normalized else 'f32 0..255'}: "
+            f"kernel {ms:.4f} ms, byte bound {bound:.4f} ms, kernel at "
+            f"{bound / ms:.1%} of it; eager on the card {eager_ms:.2f} ms, "
+            f"plain on the CPU ({torch.get_num_threads()} threads) "
+            f"{cpu_ms:.0f} ms; bit-equal to the eager version")
+        rows.append(dict(normalized=normalized, max_abs_err=err, ms=ms,
+                         plain_ms=eager_ms, plain_cpu_ms=cpu_ms,
+                         bound_ms=bound, bound_by="bytes", library_ms=None))
+    RESULTS["stickman"] = dict(rows=rows)
+    torch.cuda.empty_cache()
+    # the kernels line carries the served output, normalized bf16
+    return {k: rows[1][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "plain_cpu_ms", "bound_ms", "bound_by",
+                                    "library_ms")}
+
+
 # -- 4. the full-width slice --------------------------------------------------
 def serving_vunet(variant, **kw):
     """The serving VUNet on the meta device: bench.py's alter VUNet, or
@@ -1630,6 +1718,7 @@ def phase_slice():
                          device=DEV) * 0.3
     times = []
     rollout.rollout_launches = 0          # counts start here: the main path
+    stickman.stickman_launches = 0
     calls = [0]
 
     def count_call(module, args):
@@ -1668,6 +1757,12 @@ def phase_slice():
             log(f"    the B={b} warm-up: {epilogue_launches} conv epilogue "
                 f"launches, one a NormConv2d call")
         if i == 2:
+            eager = render_stickman_plain(
+                out["keypoints_2d"], pipe.joint_model, S, pipe.thickness,
+                normalized=True)
+            check(torch.equal(out["stickman"], eager),
+                  "the served stickman differs from the eager raster's")
+            del eager
             check(ops_nn.norm_conv_fold_builds == builds,
                   f"the timed requests built "
                   f"{ops_nn.norm_conv_fold_builds - builds} folded weights")
@@ -1682,6 +1777,9 @@ def phase_slice():
         check(rollout.rollout_launches == before + 1,
               f"{kind} B={b} launched the rollout kernel "
               f"{rollout.rollout_launches - before} times")
+        check(stickman.stickman_launches == i + 1,
+              f"{kind} B={b} left {stickman.stickman_launches} stickman "
+              f"raster launches after {i + 1} requests")
         fps = b * length / dt
         log(f"    {kind:8s} B={b:2d} T={length}: {dt * 1e3:9.2f} ms, "
             f"{fps:8.1f} frames/s, peak {peak / 2**30:.2f} GiB  {note}")
@@ -1689,11 +1787,15 @@ def phase_slice():
                           peak_gib=peak / 2**30, note=note))
     launches = rollout.rollout_launches
     check(launches == len(reqs), f"rollout launches {launches}")
+    raster_launches = stickman.stickman_launches
+    log(f"    {raster_launches} stickman raster launches in {len(reqs)} "
+        f"requests, one a request")
     RESULTS["slice_requests"] = times
     RESULTS["slice_conv_epilogue_launches"] = epilogue_launches
+    RESULTS["slice_stickman_launches"] = raster_launches
     stage_breakdown(pipe, inputs[B], g, "slice_stages_ms")
     alter_fused_request(pipe, inputs[B])
-    return launches, epilogue_launches
+    return launches, epilogue_launches, raster_launches
 
 
 def serve(pipe, x, seed=1):
@@ -1768,9 +1870,8 @@ def stage_breakdown(pipe, x, g, key):
         px, t_proj = timed(lambda: pipe._project(
             world, x["extrinsics"], x["intrinsics"], x["image_size"]))
         stick, t_raster = timed(lambda: render_stickman(
-            px, pipe.joint_model, S, pipe.thickness))
-        flat = (stick / 127.5 - 1.0).to(torch.bfloat16).reshape(
-            (B * length,) + stick.shape[2:])
+            px, pipe.joint_model, S, pipe.thickness, normalized=True))
+        flat = stick.reshape((B * length,) + stick.shape[2:])
         means, t_enc = timed(lambda: pipe.vunet.encode_means(
             x["app_img"], generator=g)[0])
         tiled = [torch.repeat_interleave(m, length, 0) for m in means]
@@ -5633,7 +5734,8 @@ def main(argv=None):
     elu = timed("3 elu_dropout", phase_elu_dropout)
     rnb = timed("3 fused_rnb", phase_fused_rnb)
     epilogue = timed("3 conv_epilogue", phase_conv_epilogue)
-    launches, epilogue_launches = timed("4", phase_slice)
+    raster = timed("3 stickman", phase_stickman)
+    launches, epilogue_launches, raster_launches = timed("4", phase_slice)
     timed("5", phase_cli)
     timed("6", phase_golden)
     timed("6 org", phase_org_golden)
@@ -5697,7 +5799,12 @@ def main(argv=None):
             "name": "conv_epilogue", "route": "cuda",
             "source": source + "conv_epilogue.cu",
             "replaces": "behavior_driven_video_synthesis_tpu/ops/nn.py:282",
-            "launches": epilogue_launches, **epilogue}]}
+            "launches": epilogue_launches, **epilogue}, {
+            "name": "stickman_raster", "route": "cuda",
+            "source": source + "stickman.cu",
+            "replaces": "behavior_driven_video_synthesis_tpu/geometry/"
+                        "stickman.py:190",
+            "launches": raster_launches, **raster}]}
     RESULTS.update(kernels)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

@@ -5,6 +5,7 @@ coordinates; a pixel whose centre lies within an ulp of a line's edge may
 flip, so the images may differ in at most 0.1 % of their pixels.
 """
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -18,13 +19,21 @@ from behavior_driven_video_synthesis_tpu.geometry import camera as jcam
 from behavior_driven_video_synthesis_tpu.geometry.stickman import (
     render_stickman as jrender)
 
+from behavior_driven_video_synthesis_tpu_torch.data.deepfashion import (
+    deepfashion_joint_model)
 from behavior_driven_video_synthesis_tpu_torch.data.human36m import (
     detailed_joint_model)
 from behavior_driven_video_synthesis_tpu_torch.generate import (
     chain_joint_model)
 from behavior_driven_video_synthesis_tpu_torch.geometry import camera
+from behavior_driven_video_synthesis_tpu_torch.data.market import (
+    market_joint_model)
 from behavior_driven_video_synthesis_tpu_torch.geometry.stickman import (
-    render_stickman)
+    render_stickman, render_stickman_plain)
+from behavior_driven_video_synthesis_tpu_torch.ops.cuda import (
+    stickman as SK)
+
+import make_torch_port_stickman_golden as stick_golden
 
 
 def _t(a):
@@ -90,3 +99,98 @@ def test_stickman_matches_jax(rng, model, size, thick):
     mismatch = np.mean(np.any(out.numpy() != ref, axis=-1))
     assert mismatch <= 1e-3
     assert ref.any()  # something was drawn
+
+
+PORT_JOINT_MODELS = {"h36m_world": lambda: detailed_joint_model(True),
+                     "h36m_image": lambda: detailed_joint_model(False),
+                     "market": market_joint_model,
+                     "deepfashion": deepfashion_joint_model,
+                     "chain": lambda: chain_joint_model(9)}
+
+
+@pytest.mark.parametrize("i", range(len(stick_golden.CASES)),
+                         ids=[c["name"] for c in stick_golden.CASES])
+def test_stickman_golden_equals_a_live_jax_run(i):
+    """tests/golden/torch_port_stickman_small.npz, which the GPU tests hold
+    the raster kernel against, is what the maker writes now; the port's
+    CPU path holds it as the kernel does (at most 0.1 % of the pixels
+    differ; where the raster agrees, the bf16 VUNet input is the JAX
+    pipeline's bit for bit)."""
+    case = stick_golden.CASES[i]
+    with np.load(stick_golden.OUT) as data:
+        cases = json.loads(bytes(data["cases"]).decode())
+        joints, stick, normalized = (data[f"{case['name']}/{k}"] for k in
+                                     ("joints", "stick", "normalized"))
+    assert cases[i] == {k: case[k] for k in ("name", "model", "S",
+                                             "thickness")}
+    np.testing.assert_array_equal(joints, stick_golden.golden_joints(
+        case["frames"], stick_golden.MODELS[case["model"]][1], case["S"],
+        stick_golden.SEED + i))
+    live_stick, live_normalized = stick_golden.render(case, joints)
+    np.testing.assert_array_equal(live_stick, stick)
+    np.testing.assert_array_equal(live_normalized, normalized)
+    jm = PORT_JOINT_MODELS[case["model"]]()
+    out = render_stickman(_t(joints), jm, case["S"], case["thickness"])
+    bits = render_stickman(_t(joints), jm, case["S"], case["thickness"],
+                           normalized=True).view(torch.int16).numpy()
+    differ = np.any(out.numpy() != stick, axis=-1)
+    assert differ.mean() <= 1e-3, f"{int(differ.sum())} pixels differ"
+    np.testing.assert_array_equal(bits.view(np.uint16)[~differ],
+                                  normalized[~differ])
+    assert stick.any()  # something was drawn
+
+
+def _joints(rng, n, k, size):
+    joints = (rng.rand(n, k, 2) * size * 1.1 - size * 0.05).astype(
+        np.float32)
+    joints[0, 2] = -1.0
+    return _t(joints)
+
+
+def test_stickman_on_the_cpu_takes_the_plain_path(rng):
+    jm, joints = detailed_joint_model(True), _joints(rng, 6, 17, 32)
+    before = SK.stickman_launches
+    for normalized in (False, True):
+        out = render_stickman(joints, jm, 32, 4.0, frames_per_chunk=4,
+                              normalized=normalized)
+        ref = render_stickman_plain(joints, jm, 32, 4.0, normalized=normalized)
+        assert out.dtype == ref.dtype and torch.equal(out, ref)
+    assert SK.stickman_launches == before
+    with pytest.raises(ValueError):
+        SK.stickman_raster(joints, jm, 32, 4.0)
+
+
+@pytest.mark.parametrize("frames_per_chunk", [3, 128])
+def test_stickman_normalized_is_the_bf16_vunet_input(rng, frames_per_chunk):
+    jm, joints = detailed_joint_model(True), _joints(rng, 7, 17, 32)
+    joints = joints.reshape(1, 7, 17, 2)
+    out = render_stickman(joints, jm, 32, 4.0,
+                          frames_per_chunk=frames_per_chunk, normalized=True)
+    stick = render_stickman(joints, jm, 32, 4.0)
+    assert out.shape == stick.shape == (1, 7, 32, 32, 3)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, ((stick - 127.5) / 127.5).to(torch.bfloat16))
+    assert set(out.float().unique().tolist()) <= {-1.0, -0.003936767578125,
+                                                  1.0}
+
+
+@pytest.mark.parametrize("model", ["h36m_world", "h36m_image", "market",
+                                   "chain"])
+def test_stickman_topology_table(model):
+    jm = {"h36m_world": lambda: detailed_joint_model(True),
+          "h36m_image": lambda: detailed_joint_model(False),
+          "market": market_joint_model,
+          "chain": lambda: chain_joint_model(9)}[model]()
+    table, n_seg, n_body, top = SK.topology_table(jm, "cpu")
+    assert SK.topology_table(jm, "cpu").table is table  # cached
+    assert table.dtype == torch.int32 and table.shape == (n_seg + n_body, 4)
+    rows = [tuple(r) for r in table.tolist()]
+    lines = ([(SK.RIGHT, a, b, -1) for a, b in jm.right_lines]
+             + [(SK.LEFT, a, b, -1) for a, b in jm.left_lines])
+    if len(jm.head_lines):
+        lines += [(SK.HEAD, a, b, -1) for a, b in jm.head_lines]
+    else:
+        lines.append((SK.NECK, jm.rshoulder, jm.lshoulder, jm.headup))
+    assert rows[:n_seg] == lines
+    assert rows[n_seg:] == [(SK.BODY, v, -1, -1) for v in jm.body]
+    assert top == max(max(r[1:]) for r in lines + [(0, *jm.body)])

@@ -28,16 +28,31 @@ epilogue: the kernel and the float32 reference (its plain version) sum
 (y + b) + r in f32 and round once, so they are equal; the folded
 NormConv2d route against the unfolded one rounds W' = gamma * W instead of
 W, and the conv's output before the affine, so whole networks agree to
-bf16 noise (rel L2 below 2e-2, as the fused RNB route).
+bf16 noise (rel L2 below 2e-2, as the fused RNB route).  Stickman
+raster: the kernel rounds each operation where the eager version does, so
+both of its outputs (f32 on 0..255, normalized bf16) are bit-equal to
+``render_stickman_plain`` run on the card; against the JAX package's
+raster (``tests/golden/torch_port_stickman_small.npz``) at most 0.1 % of
+the pixels may differ, a pixel centre within an ulp of a line's edge, as
+``tests/test_torch_geometry.py`` holds the eager version.
 """
+import json
 import os
 
 import numpy as np
 import pytest
 import torch
 
+from behavior_driven_video_synthesis_tpu_torch.data.deepfashion import (
+    deepfashion_joint_model)
 from behavior_driven_video_synthesis_tpu_torch.data.human36m import (
     detailed_joint_model)
+from behavior_driven_video_synthesis_tpu_torch.data.market import (
+    market_joint_model)
+from behavior_driven_video_synthesis_tpu_torch.generate import (
+    chain_joint_model)
+from behavior_driven_video_synthesis_tpu_torch.geometry.stickman import (
+    render_stickman, render_stickman_plain)
 from behavior_driven_video_synthesis_tpu_torch.models import (
     ResidualBehaviorNet, decoder_rollout_kernel)
 from behavior_driven_video_synthesis_tpu_torch.models.init import init_random_
@@ -52,6 +67,8 @@ from behavior_driven_video_synthesis_tpu_torch.ops.cuda import (
 from behavior_driven_video_synthesis_tpu_torch.ops.cuda import (
     fused_rnb as FR)
 from behavior_driven_video_synthesis_tpu_torch.ops.cuda import rollout as R
+from behavior_driven_video_synthesis_tpu_torch.ops.cuda import (
+    stickman as SK)
 from behavior_driven_video_synthesis_tpu_torch.pipeline import (
     BehaviorTransferPipeline)
 
@@ -1030,3 +1047,155 @@ def test_pipeline_servings_stay_bit_equal_through_the_epilogue(cuda):
     second = serve()
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+STICK_MODELS = {"h36m_world": (lambda: detailed_joint_model(True), 17),
+                "h36m_image": (lambda: detailed_joint_model(False), 32),
+                "market": (market_joint_model, 18),
+                "deepfashion": (deepfashion_joint_model, 18),
+                "chain": (lambda: chain_joint_model(9), 9)}
+
+
+def _stick_joints(N, K, S, device, seed=0):
+    """N frames of K joints, a tenth of them outside the image on each
+    side, with invalid joints (negative, NaN), degenerate segments, joints
+    past the kernel's cull limit (7e4, 1e20, inf) and frames with fewer
+    than 3 valid body vertices."""
+    rng = np.random.RandomState(seed)
+    j = rng.rand(N, K, 2) * S * 1.3 - S * 0.15
+    j[rng.rand(N, K) < 0.08] = -1.0
+    j[1::7, 1] = j[1::7, 0]
+    j[2::11, 0] = np.nan
+    j[3::13, 0] = 7e4
+    j[4::17, 2] = [1e20, 5.0]
+    j[5::19, 3] = np.inf
+    j[6::23, :K // 2] = -1.0
+    return torch.tensor(j, dtype=torch.float32, device=device)
+
+
+def _stickman_bit_equal(jm, joints, S, thickness):
+    for normalized in (False, True):
+        ref = render_stickman_plain(joints, jm, S, thickness,
+                                    normalized=normalized)
+        before = SK.stickman_launches
+        out = render_stickman(joints, jm, S, thickness,
+                              normalized=normalized)
+        assert SK.stickman_launches == before + 1
+        assert out.dtype == ref.dtype and out.shape == ref.shape
+        assert torch.equal(out, ref), (
+            f"normalized {normalized}: {int((out != ref).any(-1).sum())} "
+            f"pixels differ")
+    assert bool((ref != ref[..., :1, :1, :]).any())  # something was drawn
+
+
+@pytest.mark.parametrize("model", sorted(STICK_MODELS))
+@pytest.mark.parametrize("thickness", [1.0, 4.0, 5.0])
+def test_stickman_kernel_matches_eager_joint_models(cuda, model, thickness):
+    make, K = STICK_MODELS[model]
+    _stickman_bit_equal(make(), _stick_joints(127, K, 128, cuda), 128,
+                        thickness)
+
+
+@pytest.mark.parametrize("S", [64, 128, 256])
+@pytest.mark.parametrize("frames", [1, 127, 1000])
+def test_stickman_kernel_matches_eager_sizes(cuda, S, frames):
+    joints = _stick_joints(frames, 17, S, cuda, seed=frames + S)
+    _stickman_bit_equal(detailed_joint_model(True),
+                        joints.reshape(1, frames, 17, 2), S, 4.0)
+
+
+STICK_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "golden", "torch_port_stickman_small.npz")
+with np.load(STICK_GOLDEN) as _golden:
+    STICK_GOLDEN_CASES = json.loads(bytes(_golden["cases"]).decode())
+
+
+@pytest.mark.parametrize("case", STICK_GOLDEN_CASES,
+                         ids=[c["name"] for c in STICK_GOLDEN_CASES])
+def test_stickman_kernel_matches_jax_golden(cuda, case):
+    """The kernel on the card against the JAX package's raster of the same
+    joints and the JAX pipeline's bf16 ``stick / 127.5 - 1`` of it: at most
+    0.1 % of the pixels differ, and where the raster agrees, the bf16 VUNet
+    input is the JAX one bit for bit."""
+    with np.load(STICK_GOLDEN) as data:
+        joints, stick, normalized = (data[f"{case['name']}/{k}"] for k in
+                                     ("joints", "stick", "normalized"))
+    jm = STICK_MODELS[case["model"]][0]()
+    j = torch.from_numpy(joints).to(cuda)
+    before = SK.stickman_launches
+    out = render_stickman(j, jm, case["S"], case["thickness"]).cpu().numpy()
+    bits = render_stickman(j, jm, case["S"], case["thickness"],
+                           normalized=True).view(torch.int16).cpu().numpy()
+    assert SK.stickman_launches == before + 2
+    assert out.shape == stick.shape
+    differ = np.any(out != stick, axis=-1)
+    assert differ.mean() <= 1e-3, f"{int(differ.sum())} pixels differ"
+    bits = bits.view(np.uint16)
+    np.testing.assert_array_equal(bits[~differ], normalized[~differ])
+    assert stick.any()  # something was drawn
+
+
+def test_stickman_kernel_one_launch_and_no_host_sync(cuda):
+    jm = detailed_joint_model(True)
+    joints = _stick_joints(1000, 17, 256, cuda)
+    render_stickman(joints, jm, 256, 4.0, normalized=True)  # the table
+    torch.cuda.synchronize()
+    before = SK.stickman_launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = render_stickman(joints, jm, 256, 4.0, normalized=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert SK.stickman_launches == before + 1
+    # the call returns while a queued sleep still holds the device
+    torch.cuda._sleep(2 ** 31)
+    render_stickman(joints, jm, 256, 4.0, normalized=True)
+    done = torch.cuda.Event()
+    done.record()
+    assert not done.query()
+    torch.cuda.synchronize()
+    assert out.shape == (1000, 256, 256, 3) and out.dtype == torch.bfloat16
+
+
+def test_stickman_kernel_refuses_what_it_does_not_take(cuda):
+    jm = detailed_joint_model(False)        # indexes joints up to 27
+    with pytest.raises(ValueError):
+        render_stickman(torch.zeros(4, 17, 2, device=cuda), jm, 64)
+    with pytest.raises(ValueError):
+        SK.stickman_raster(torch.zeros(4, 32, 2), jm, 64)
+    with pytest.raises(ValueError):
+        render_stickman(torch.zeros(4, 32, 3, device=cuda), jm, 64)
+
+
+def test_pipeline_stickman_one_launch_a_request_and_bit_equal(cuda):
+    """One raster launch a generate request, its stickman the eager
+    version's of the request's keypoints, and two servings bit-equal
+    (C18)."""
+    rng = np.random.RandomState(0)
+    net = init_random_(ResidualBehaviorNet(48, 32), rng).to(cuda)
+    vunet = init_random_(VUNet(spatial_size=32, nf_start=8, nf_max=16,
+                               dtype=torch.bfloat16), rng).to(cuda)
+    pipe = BehaviorTransferPipeline(
+        net, vunet, detailed_joint_model(True), np.zeros(51, np.float32),
+        np.ones(51, np.float32), np.arange(51)[np.arange(51) % 17 != 0][:48],
+        spatial_size=32)
+    B, T = 3, 5
+    args = (rng.randn(B, 32), rng.randn(B, 48) * 0.1,
+            rng.rand(B, 32, 32, 3),
+            np.tile(np.hstack([np.eye(3), [[0], [0], [4.0]]]), (B, 1, 1)),
+            np.tile([40.0, 16, 40.0, 16], (B, 1)), np.full((B, 2), 32.0))
+
+    def serve():
+        return pipe.generate(*args, length=T, generator=torch.Generator(
+            device=cuda).manual_seed(1))
+    before = SK.stickman_launches
+    first = serve()
+    second = serve()
+    torch.cuda.synchronize()
+    assert SK.stickman_launches == before + 2
+    ref = render_stickman_plain(first["keypoints_2d"], pipe.joint_model, 32,
+                                pipe.thickness, normalized=True)
+    assert first["stickman"].dtype == torch.bfloat16
+    assert torch.equal(first["stickman"], ref)
+    assert torch.equal(first["stickman"], second["stickman"])
+    assert torch.equal(first["frames"], second["frames"])
