@@ -33,7 +33,7 @@ from .cuda.conv_int8 import (act_scale, conv_int8, kernel_takes,
                              pack_weights, quantize_weight)
 from . import batch_draws
 from .cuda.conv_epilogue import DTYPES as EPILOGUE_DTYPES
-from .cuda.conv_epilogue import conv_epilogue
+from .cuda.conv_epilogue import conv_epilogue, conv_epilogue_act
 from .cuda.elu_dropout import elu_dropout
 from .cuda.fused_rnb import fused_rnb
 
@@ -123,7 +123,10 @@ class NormConv2d(nn.Module):
     their version counters), so the conv runs without bias and the conv
     epilogue kernel adds b', and the ``residual`` when one is given, in
     one pass.  With autograd on, on the CPU or in f32, a call computes the
-    affine as above and then adds the ``residual``.
+    affine as above and then adds the ``residual``.  ``act_out`` (the folded
+    route only) has the epilogue store ELU of the output into that tensor, a
+    channel slice of a contiguous NHWC buffer, instead of the output in
+    place: a residual block assembles its conv input so.
     """
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
@@ -280,26 +283,38 @@ class NormConv2d(nn.Module):
         return (not torch.is_grad_enabled() and x.is_cuda
                 and self.dtype in EPILOGUE_DTYPES)
 
-    def _forward_folded(self, x, aux, residual):
+    def _forward_folded(self, x, aux, residual, act_out=None):
         """conv(x, W') without bias, then b' and the residual added in one
         pass of the conv epilogue kernel, in place (the plain version on
-        the CPU).  The residual has the output's shape and the compute
-        dtype, as a residual block's input has."""
+        the CPU), or with ``act_out`` the ELU of that stored into act_out,
+        which is returned.  The residual has the output's shape and the
+        compute dtype, as a residual block's input has."""
         dt = self.dtype
         w, b = self.folded()
         if aux is not None:
             x = torch.cat([x.to(dt), aux.to(dt)], dim=-1)
         y = conv2d_nhwc(x.to(dt), w, None, self.stride,
                         self.padding).contiguous()
+        if act_out is not None:
+            return conv_epilogue_act(y, act_out, b, residual)
         return conv_epilogue(y, b, residual)
 
     def forward(self, x: torch.Tensor, aux: Optional[torch.Tensor] = None,
-                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+                residual: Optional[torch.Tensor] = None,
+                act_out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: NHWC.  aux: optional second input whose channels follow x's
         in the kernel's fan-in (the JAX package's split-kernel form).
         residual: optional tensor added to the output (a residual block's
-        input)."""
+        input).  act_out: where the folded route stores ELU of the output
+        (returned); any other route raises."""
         dt = self.dtype
+        if act_out is not None:
+            if (self.d2s_transpose or self.quant_active(x)
+                    or not self._folds(x)):
+                raise ValueError("act_out is served by the folded route "
+                                 "only (autograd off, a CUDA input, bf16 or "
+                                 "f16, neither int8 nor d2s_transpose)")
+            return self._forward_folded(x, aux, residual, act_out)
         if self.d2s_transpose:
             if aux is not None:
                 raise ValueError("d2s_transpose takes no aux input")
@@ -587,7 +602,12 @@ class VunetRNB(nn.Module):
     ValueError.  Every other block, and every block under the default
     ``"cudnn"``, runs the conv and eager elementwise ops; a NormConv2d
     conv takes the block's input as its ``residual``, which its folded
-    route adds in the conv epilogue kernel.
+    route adds in the conv epilogue kernel.  A residual block with
+    auxiliary input whose convs take the folded route (not training, the
+    ELU, NormConv2d convs, x in the compute dtype, the main conv neither
+    int8 nor unfolded at x) builds its 2C conv input without concatenating
+    (:meth:`_forward_concat_free`): the epilogue's activated store writes
+    ELU(x) into the lower half and ELU(nin(ELU(a))) into the upper half.
 
     With ``remat`` set (an attribute, not a parameter: the state dict is
     the same either way) a training forward under autograd stores only the
@@ -651,11 +671,37 @@ class VunetRNB(nn.Module):
                                               x, a, train, generator)
         return self._forward(x, a, train, generator)
 
+    def _concat_free(self, x, a, train) -> bool:
+        """Whether a call with auxiliary input takes
+        :meth:`_forward_concat_free`: every condition is one the call can
+        see, so training, the CPU, f32, other conv layers, other activations
+        and int8 blocks (whose kernel takes aux as a split fan-in) keep the
+        concatenating code."""
+        return (not train and self.activate and self.act_fn is None
+                and isinstance(self.conv, NormConv2d)
+                and x.dtype == self.conv.dtype and self.conv._folds(x)
+                and not self.conv.quant_active(x) and self.nin._folds(a))
+
+    def _forward_concat_free(self, x, a):
+        """x + conv([elu(x), elu(nin(elu(a)))]) with the conv's input
+        written in place of concatenating it: the conv epilogue's activated
+        store puts elu(x) into its lower half and the nin conv's epilogue
+        elu(nin(elu(a))) into its upper half; the conv's epilogue then adds
+        b' and x.  Bit-equal to the concatenating folded route."""
+        x = x.contiguous()
+        C = x.shape[-1]
+        buf = x.new_empty(*x.shape[:-1], 2 * C)
+        conv_epilogue_act(x, buf[..., :C])
+        self.nin(self._act(a), act_out=buf[..., C:])
+        return self.conv(buf, residual=x)
+
     def _forward(self, x, a, train, generator):
         act = self._act_dropout(train, generator)
         if a is not None:
             if not self.residual:
                 raise ValueError("auxiliary input to a non-residual VunetRNB")
+            if self._concat_free(x, a, train):
+                return self._forward_concat_free(x, a)
             a = self.nin(self._act(a))
             if isinstance(self.conv, NormConv2d):
                 return self.conv(act(x), aux=act(a), residual=x)

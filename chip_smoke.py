@@ -40,6 +40,12 @@ CUDA toolkit (nvcc) and PyTorch.  It imports no JAX.  Phases:
    px and the 3-channel RGB head), with and without a residual, a strided
    output refused, timed beside its byte bound, its plain version and the
    eager passes it replaces (the conv's bias, gamma, beta, the residual);
+   its activated store (ELU into a channel half of a residual block's 2C
+   conv input) bit-equal to its plain version at the 125-frame chunk's
+   residual blocks (256/128/64/4 px), without a bias (ELU(x)), with one
+   (the nin conv) and with a residual, timed beside its byte bound, its
+   plain version and the passes it replaces (F.elu and the half of
+   ``torch.cat``);
    the stickman raster (one launch a ``render_stickman`` call on the card)
    bit-equal to its eager version on the card in both outputs (f32 on
    0..255, the VUNet's normalized bf16) at a bulk request's 1,000 frames of
@@ -53,8 +59,11 @@ CUDA toolkit (nvcc) and PyTorch.  It imports no JAX.  Phases:
    made on the device: generate (sample mode, with the flow), reenact, and
    generate at B=3; every request must launch the rollout kernel once;
    the warm-up request must launch the conv epilogue once a
-   ``NormConv2d`` call and the timed ones build no folded weights; every
+   ``NormConv2d`` call and make two activated stores a residual block call
+   with aux input, and the timed ones build no folded weights; every
    request must launch the stickman raster once;
+   one B=20 request on the concatenation-free residual blocks bit-equal
+   to the same request on the concatenating route;
    then one B=20 request with ``rnb_impl="fused"`` (126 fused RNB
    launches);
 5. the serving CLI in-process at a small width, from .npz parameter files
@@ -1545,11 +1554,72 @@ def phase_conv_epilogue():
     check(refused, "conv epilogue took a strided output")
     log("    a strided output is refused")
     RESULTS["conv_epilogue_sites"] = rows
+    RESULTS["conv_epilogue_act_sites"] = conv_epilogue_act_sites(g)
     torch.cuda.empty_cache()
     # the kernels line carries the largest site, 256 px at C=32, without
     # a residual
     return {k: rows[0][k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms")}
+
+
+def conv_epilogue_act_sites(g):
+    """The activated store at the residual blocks' sites of a 125-frame
+    chunk (C of a 2C conv input): ELU(x) into the lower half (no bias),
+    the nin conv's ELU(y + b') into the upper half, and with a residual;
+    bit-equal to its plain version, timed beside its byte bound, the plain
+    version and the passes the route no longer runs (the in-place epilogue
+    where there is a bias, F.elu, and the half of torch.cat that copied
+    it into the conv's input)."""
+    log("[3] conv epilogue's activated store into a 2C conv input vs its "
+        "plain version (bf16: bit-equal)")
+    rows = []
+    for shape in EPILOGUE_SITES[:4]:
+        C = shape[-1]
+        buf = torch.empty(shape[:-1] + (2 * C,), device=DEV,
+                          dtype=torch.bfloat16)
+        for mode in ("x", "nin", "residual"):
+            y = torch.randn(shape, generator=g, device=DEV).bfloat16()
+            b = (None if mode == "x"
+                 else torch.randn(C, generator=g, device=DEV))
+            r = (torch.randn(shape, generator=g, device=DEV).bfloat16()
+                 if mode == "residual" else None)
+            out = buf[..., :C] if mode == "x" else buf[..., C:]
+            ref = conv_epilogue.conv_epilogue_act_plain(y, b, r)
+            conv_epilogue.conv_epilogue_act(y, out, b, r)
+            equal = bool(torch.equal(out, ref))
+            e = float((out.float() - ref.float()).abs().max())
+            del ref
+            y_lib = y.clone()
+
+            def library():
+                """The concatenating route's passes after the conv: the
+                in-place epilogue (with a bias), F.elu, the cat's half."""
+                v = (y_lib if b is None
+                     else conv_epilogue.conv_epilogue(y_lib, b, r))
+                out.copy_(F.elu(v))
+            n = 20 if shape[1] >= 64 else 200
+            ms = cuda_ms(
+                lambda: conv_epilogue.conv_epilogue_act(y, out, b, r), n)
+            plain_ms = cuda_ms(
+                lambda: conv_epilogue.conv_epilogue_act_plain(y, b, r), n)
+            lib_ms = cuda_ms(library, n)
+            bound = (y.numel() * y.element_size() * (3 if r is not None
+                                                     else 2)
+                     + (0 if b is None else b.numel() * 4)
+                     ) / HBM_BYTES_PER_S * 1e3
+            log(f"    {shape} into {2 * C} channels, {mode}: kernel "
+                f"{ms:.4f} ms, bound {bound:.4f} ms (bytes), kernel at "
+                f"{bound / ms:.1%} of it; plain {plain_ms:.4f} ms, library "
+                f"{lib_ms:.4f} ms; bit-equal to plain: {equal}")
+            check(equal, f"the activated store differs from its plain "
+                  f"version at {shape}, {mode}: max abs {e:.3e}")
+            rows.append(dict(shape=list(shape), ldo=2 * C, mode=mode,
+                             max_abs_err=e, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, bound_ms=bound,
+                             bound_by="bytes"))
+            del y, y_lib, r, out
+        del buf
+    return rows
 
 
 def stickman_joints(n, S, seed=0):
@@ -1719,18 +1789,26 @@ def phase_slice():
     times = []
     rollout.rollout_launches = 0          # counts start here: the main path
     stickman.stickman_launches = 0
-    calls = [0]
+    calls = [0, 0]
 
     def count_call(module, args):
         calls[0] += 1
+
+    def count_aux_call(module, args):
+        calls[1] += len(args) > 1 and args[1] is not None
     for i, (kind, b, length, note) in enumerate(reqs):
         x = inputs[b]
         before = rollout.rollout_launches
-        if i == 0:      # the warm-up: one conv epilogue a NormConv2d call
+        if i == 0:      # the warm-up: one conv epilogue a NormConv2d call,
+            # two activated stores a residual block call with aux input
             hooks = [m.register_forward_pre_hook(count_call)
                      for m in pipe.vunet.modules()
                      if isinstance(m, ops_nn.NormConv2d)]
+            hooks += [m.register_forward_pre_hook(count_aux_call)
+                      for m in pipe.vunet.modules()
+                      if isinstance(m, ops_nn.VunetRNB)]
             conv_epilogue.conv_epilogue_launches = 0
+            conv_epilogue.conv_epilogue_act_launches = 0
         if i == 1:
             builds = ops_nn.norm_conv_fold_builds
         torch.cuda.reset_peak_memory_stats()
@@ -1756,6 +1834,14 @@ def phase_slice():
                   f"calls")
             log(f"    the B={b} warm-up: {epilogue_launches} conv epilogue "
                 f"launches, one a NormConv2d call")
+            act_launches = conv_epilogue.conv_epilogue_act_launches
+            check(act_launches == 2 * calls[1] > 0,
+                  f"the B={b} request made {act_launches} activated stores "
+                  f"in {calls[1]} residual block calls with aux input")
+            log(f"    the B={b} warm-up: {act_launches} activated stores, "
+                f"two in each of {calls[1]} residual block calls with aux "
+                f"input")
+            RESULTS["slice_conv_epilogue_act_launches"] = act_launches
         if i == 2:
             eager = render_stickman_plain(
                 out["keypoints_2d"], pipe.joint_model, S, pipe.thickness,
@@ -1794,6 +1880,7 @@ def phase_slice():
     RESULTS["slice_conv_epilogue_launches"] = epilogue_launches
     RESULTS["slice_stickman_launches"] = raster_launches
     stage_breakdown(pipe, inputs[B], g, "slice_stages_ms")
+    concat_free_request(pipe, inputs[B])
     alter_fused_request(pipe, inputs[B])
     return launches, epilogue_launches, raster_launches
 
@@ -1847,6 +1934,38 @@ def alter_fused_request(pipe, x):
     RESULTS["slice_alter_fused"] = dict(ms=ms, fps=B * T * 1e3 / ms,
                                         peak_gib=peak / 2**30,
                                         launches=launches, rel_l2_cudnn=rel)
+
+
+def concat_free_request(pipe, x):
+    """One B=20 request with every residual block with aux input on the
+    concatenation-free route beside the same request on the concatenating
+    route (``VunetRNB._concat_free`` patched off): bit-equal frames; three
+    of each in turn, host ms."""
+    route = ops_nn.VunetRNB._concat_free
+    ms = {"concat_free": [], "concatenating": []}
+    frames = {}
+    try:
+        for _ in range(3):
+            for name in ms:
+                if name == "concatenating":
+                    ops_nn.VunetRNB._concat_free = (
+                        lambda self, x, a, train: False)
+                out, t, _ = serve(pipe, x)
+                ops_nn.VunetRNB._concat_free = route
+                ms[name].append(t)
+                frames[name] = out["frames"]
+    finally:
+        ops_nn.VunetRNB._concat_free = route
+    same = bool(torch.equal(frames["concat_free"], frames["concatenating"]))
+    check(same, "the concatenation-free route's frames differ from the "
+          "concatenating route's")
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    log(f"    generate B={SLICE['B']} T={SLICE['T']}: concatenation-free "
+        f"{med['concat_free']:.2f} ms, concatenating "
+        f"{med['concatenating']:.2f} ms (host medians of 3, in turns); "
+        f"frames bit-equal: {same}")
+    RESULTS["slice_concat_free"] = dict(ms=ms, median_ms=med,
+                                        bit_equal=same)
 
 
 def stage_breakdown(pipe, x, g, key):

@@ -946,6 +946,83 @@ def test_conv_epilogue_kernel_strided_and_misaligned_operands(cuda):
         CE.conv_epilogue(y, b.cpu())
 
 
+def _act_store_matches_plain(y, buf, lo, b, r, fill):
+    """One activated store into channels lo:lo + C of ``buf`` (filled with
+    ``fill``), equal to the plain version, the other channels untouched;
+    counted as an activated store, and as a conv's epilogue where it adds
+    a bias."""
+    C = y.shape[-1]
+    ref = CE.conv_epilogue_act_plain(y, b, r)
+    n0 = (CE.conv_epilogue_launches, CE.conv_epilogue_act_launches)
+    out = CE.conv_epilogue_act(y, buf[..., lo:lo + C], b, r)
+    torch.cuda.synchronize()
+    assert out.data_ptr() == buf[..., lo:].data_ptr()
+    assert (CE.conv_epilogue_launches, CE.conv_epilogue_act_launches) == (
+        n0[0] + (b is not None), n0[1] + 1)
+    assert torch.equal(out, ref)
+    del ref
+    assert bool((buf[..., :lo] == fill).all())
+    assert bool((buf[..., lo + C:] == fill).all())
+
+
+@pytest.mark.parametrize("shape", [
+    (125, 256, 256, 32), (125, 128, 128, 64), (125, 64, 64, 128),
+    (125, 4, 4, 128)])
+@pytest.mark.parametrize("mode", ["x", "nin", "residual"])
+def test_conv_epilogue_act_kernel_at_chunk_shapes(cuda, shape, mode):
+    """The activated store at a 125-frame chunk's residual blocks, bf16,
+    into a 2C buffer, bit-equal to its plain version (F.elu of the plain
+    epilogue's output): ELU(x) into the lower half (no bias), the nin
+    conv's ELU(y + b') into the upper half, and with a residual."""
+    y, b, r = _epilogue_case(shape, torch.bfloat16, cuda, mode == "residual")
+    C = shape[-1]
+    buf = torch.full(shape[:-1] + (2 * C,), 3.0, dtype=torch.bfloat16,
+                     device=cuda)
+    _act_store_matches_plain(y, buf, 0 if mode == "x" else C,
+                             None if mode == "x" else b, r, 3.0)
+
+
+@pytest.mark.parametrize("C,width,offset,dtype", [
+    (32, 65, 1, torch.bfloat16), (32, 72, 4, torch.bfloat16),
+    (64, 128, 64, torch.float16), (3, 6, 3, torch.bfloat16),
+    (40, 80, 40, torch.bfloat16), (2056, 4112, 2056, torch.bfloat16)])
+@pytest.mark.parametrize("bias", [False, True])
+def test_conv_epilogue_act_kernel_off_the_chunk_shapes(cuda, C, width,
+                                                       offset, dtype, bias):
+    """Slices off 16-byte alignment (offset 1 of 65 channels, offset 4 of
+    72: the scalar path), f16, C = 3 and 2,056 (scalar), 40 (groups that
+    do not divide the block)."""
+    y, b, _ = _epilogue_case((3, 9, 7, C), dtype, cuda, False)
+    buf = torch.full((3, 9, 7, width), -5.0, dtype=dtype, device=cuda)
+    _act_store_matches_plain(y, buf, offset, b if bias else None, None,
+                             -5.0)
+
+
+def test_conv_epilogue_act_kernel_every_bf16_pattern(cuda):
+    """All 65,536 bf16 values, NaN and infinities included, through the
+    activated store without a bias: the bits of F.elu on the card."""
+    y = (torch.arange(65536, dtype=torch.int32, device=cuda) - 32768).to(
+        torch.int16).view(torch.bfloat16).reshape(-1, 8)
+    buf = torch.zeros(y.shape[0], 16, dtype=torch.bfloat16, device=cuda)
+    CE.conv_epilogue_act(y, buf[:, 8:])
+    ref = torch.nn.functional.elu(y)
+    same = (buf[:, 8:].view(torch.int16) == ref.view(torch.int16)) | (
+        torch.isnan(buf[:, 8:]) & torch.isnan(ref))
+    assert bool(same.all())
+
+
+def test_conv_epilogue_act_kernel_refuses_what_it_does_not_take(cuda):
+    """An out that overlaps y (in place), a strided slice, another dtype."""
+    y, b, _ = _epilogue_case((2, 8, 8, 32), torch.bfloat16, cuda, False)
+    buf = torch.zeros(2, 8, 8, 64, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="overlaps"):
+        CE.conv_epilogue_act(y, y, b)
+    with pytest.raises(ValueError, match="channel slice"):
+        CE.conv_epilogue_act(y, buf[..., ::2], b)
+    with pytest.raises(ValueError, match="type, shape"):
+        CE.conv_epilogue_act(y, buf.half()[..., :32], b)
+
+
 def _serving_vunet(variant, rnb_impl, device, seed=0):
     rng = np.random.RandomState(seed)
     arch = dict(spatial_size=64, nf_start=16, nf_max=32, variant=variant,
@@ -1019,6 +1096,69 @@ def test_vunet_folded_route_on_the_card(cuda, variant, rnb_impl):
     assert bool(torch.isfinite(first).all())
     rel = float((first.float() - ref.float()).norm() / ref.float().norm())
     assert rel < 2e-2, rel
+
+
+@pytest.fixture
+def concat_route(monkeypatch):
+    """``off()`` sends every residual block with auxiliary input back to
+    the concatenating route for the rest of the test; the fixture restores
+    the route afterwards."""
+    def off():
+        monkeypatch.setattr(pnn.VunetRNB, "_concat_free",
+                            lambda self, x, a, train: False)
+    return off
+
+
+def _aux_block_calls(net):
+    """Counts the VunetRNB calls with auxiliary input: a list that grows by
+    one a call, and the hooks' handles."""
+    calls = []
+
+    def hook(m, args):
+        if len(args) > 1 and args[1] is not None:
+            calls.append(m)
+    return calls, [m.register_forward_pre_hook(hook) for m in net.modules()
+                   if isinstance(m, pnn.VunetRNB)]
+
+
+@pytest.mark.parametrize("variant,rnb_impl", [("alter", "cudnn"),
+                                              ("org", "fused")])
+def test_vunet_concat_free_route_is_bit_equal(cuda, concat_route, variant,
+                                              rnb_impl):
+    """A bf16 VUNet's ``encode_means`` and ``transfer_cached`` on the
+    concatenation-free route are torch.equal to the same calls with the
+    route off; two activated stores a residual block call with auxiliary
+    input, none with the route off or under autograd."""
+    net, x, c, eps = _serving_vunet(variant, rnb_impl, cuda)
+    calls, hooks = _aux_block_calls(net)
+
+    def serve():
+        del calls[:]
+        n0 = CE.conv_epilogue_act_launches
+        means, _ = net.encode_means(x, eps)
+        means = [torch.repeat_interleave(m, 2, dim=0) for m in means]
+        out = net.transfer_cached(means, c)
+        torch.cuda.synchronize()
+        return means, out, CE.conv_epilogue_act_launches - n0
+    try:
+        with torch.inference_mode():
+            means, first, stores = serve()
+        assert len(calls) > 0 and stores == 2 * len(calls)
+        net.requires_grad_(False)
+        n1 = CE.conv_epilogue_act_launches
+        with torch.enable_grad():
+            net.transfer_cached([m.clone() for m in means], c.clone())
+        torch.cuda.synchronize()
+        assert CE.conv_epilogue_act_launches == n1
+        concat_route()
+        with torch.inference_mode():
+            ref_means, ref, none = serve()
+        assert none == 0
+    finally:
+        for h in hooks:
+            h.remove()
+    assert all(torch.equal(m, r) for m, r in zip(means, ref_means))
+    assert torch.equal(first, ref)
 
 
 def test_pipeline_servings_stay_bit_equal_through_the_epilogue(cuda):

@@ -293,6 +293,110 @@ def test_conv_epilogue_plain_in_place_and_refusals(rng):
         CE.conv_epilogue(yb, b, r)
 
 
+@pytest.mark.parametrize("bias,residual,half", [
+    (False, False, 0), (True, False, 1), (True, True, 1), (True, True, 0)])
+def test_conv_epilogue_act_plain_into_a_channel_slice(rng, bias, residual,
+                                                      half):
+    """On the CPU the activated store writes F.elu(round(y [+ b] [+ r]))
+    exactly (y alone, unrounded, without a bias or residual) into one
+    channel half of a 2C buffer and leaves the other half untouched; it
+    refuses what is not a channel slice of a contiguous NHWC buffer, out
+    of y's type, a bias of another width and an out that overlaps y."""
+    from behavior_driven_video_synthesis_tpu_torch.ops.cuda import (
+        conv_epilogue as CE)
+    C = 16
+    y = torch.from_numpy(rng.randn(2, 3, 5, C).astype(np.float32)).bfloat16()
+    y[0, 0, 0, :2] = torch.tensor([-0.0, 0.0])
+    b = (torch.from_numpy(rng.randn(C).astype(np.float32)) if bias
+         else None)
+    r = (torch.from_numpy(rng.randn(2, 3, 5, C).astype(np.float32))
+         .bfloat16() if residual else None)
+    s = y.float()
+    if b is not None:
+        s = (s + b) + (0 if r is None else r.float())
+    ref = torch.nn.functional.elu(s.bfloat16() if bias else y)
+    buf = torch.full((2, 3, 5, 2 * C), 7.0, dtype=torch.bfloat16)
+    n0 = (CE.conv_epilogue_launches, CE.conv_epilogue_act_launches)
+    out = CE.conv_epilogue_act(y, buf[..., half * C:(half + 1) * C], b, r)
+    assert out.data_ptr() == buf.data_ptr() + half * C * 2
+    assert torch.equal(buf[..., half * C:(half + 1) * C], ref)
+    assert torch.equal(buf[..., (1 - half) * C:(2 - half) * C],
+                       torch.full_like(y, 7.0))
+    if not bias:
+        assert torch.equal(torch.signbit(out), torch.signbit(ref))
+    assert (CE.conv_epilogue_launches, CE.conv_epilogue_act_launches) == n0
+    with pytest.raises(ValueError, match="channel slice"):
+        CE.conv_epilogue_act(y, buf[..., ::2], b, r)
+    with pytest.raises(ValueError, match="channel slice"):
+        CE.conv_epilogue_act(
+            y, torch.empty(2, 5, 3, 2 * C, dtype=y.dtype)
+            .transpose(1, 2)[..., :C], b, r)
+    with pytest.raises(ValueError, match="type, shape"):
+        CE.conv_epilogue_act(y, buf.float()[..., :C], b, r)
+    with pytest.raises(ValueError, match="type, shape"):
+        CE.conv_epilogue_act(y, buf[:1, ..., :C], b, r)
+    with pytest.raises(TypeError, match="bfloat16 or float16"):
+        CE.conv_epilogue_act(y.float(), buf.float()[..., :C])
+    with pytest.raises(ValueError, match="bias"):
+        CE.conv_epilogue_act(y, buf[..., :C],
+                             torch.zeros(C // 2))
+    with pytest.raises(ValueError, match="overlaps"):
+        CE.conv_epilogue_act(y, y, b, r)
+    with pytest.raises(ValueError, match="needs a bias"):
+        CE.conv_epilogue(y, None)
+
+
+def _aux_block(c, ca, seed):
+    """A bf16 residual block with auxiliary input whose NormConv2d calls
+    take the folded route on the CPU (the conv epilogue's plain
+    versions), its affines away from their init's (1, 0)."""
+    rnb = pnn.VunetRNB(c, residual=True, aux_channels=ca,
+                       dtype=torch.bfloat16)
+    init_random_(rnb, np.random.RandomState(seed))
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in (rnb.nin, rnb.conv):
+            m.gamma.copy_(1 + 0.3 * torch.randn(m.gamma.shape, generator=g))
+            m.beta.copy_(0.3 * torch.randn(m.beta.shape, generator=g))
+            m._folds = lambda x: True
+    return rnb
+
+
+@pytest.mark.parametrize("shape,ca", [((2, 4, 4, 64), 128),
+                                      ((3, 16, 16, 32), 32)])
+def test_vunet_rnb_concat_free_route_is_bit_equal(rng, shape, ca):
+    """A residual block with auxiliary input on the concatenation-free
+    route (its 2C conv input written by the activated stores) is
+    torch.equal to the concatenating folded route in bf16, at an ed-like
+    shape (4x4, aux of skip and latent) and a dd-like one; the route is
+    taken only where the call folds, never while training, and on the CPU
+    it launches nothing."""
+    from behavior_driven_video_synthesis_tpu_torch.ops.cuda import (
+        conv_epilogue as CE)
+    rnb = _aux_block(shape[-1], ca, seed=shape[1])
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32)).bfloat16()
+    a = torch.from_numpy(rng.randn(*shape[:-1], ca).astype(np.float32))
+    n0 = CE.conv_epilogue_act_launches
+    with torch.no_grad():
+        assert rnb._concat_free(x, a, False)
+        assert not rnb._concat_free(x, a, True)
+        assert not rnb._concat_free(x.float(), a, False)
+        F = torch.nn.functional
+        ref = rnb.conv._forward_folded(
+            F.elu(x), F.elu(rnb.nin._forward_folded(F.elu(a), None, None)),
+            x)
+        out = rnb._forward_concat_free(x, a)
+        assert torch.equal(rnb(x, a), out)
+        rnb._concat_free = lambda *args: False
+        assert torch.equal(rnb(x, a), ref)
+    assert out.dtype == torch.bfloat16 and torch.equal(out, ref)
+    assert CE.conv_epilogue_act_launches == n0
+    plain = pnn.VunetRNB(shape[-1], residual=True, aux_channels=ca,
+                         dtype=torch.bfloat16)
+    with torch.no_grad():
+        assert not plain._concat_free(x, a, False)
+
+
 def _bf16(x):
     return torch.from_numpy(x).bfloat16()
 
