@@ -14,7 +14,7 @@ import torch
 from torch import nn
 
 from ..ops.cuda import rollout
-from ..ops.nn import NormDense
+from ..ops.nn import NormDense, prepared
 from ..ops.recurrent import LSTM
 from ..ops import batch_draws
 
@@ -72,6 +72,22 @@ class ResidualDecoder(nn.Module):
         if use_nin:
             self.n_in = nn.Linear(n_kps, n_kps, device=device)
 
+    def rollout_params(self):
+        """The LSTM cell's and the output layer's parameters in the rollout
+        kernel's order: weight_ih, weight_hh, bias_ih, bias_hh, and the
+        output layer's weight and bias."""
+        r = self.rnn
+        return (r.weight_ih, r.weight_hh, r.bias_ih, r.bias_hh,
+                self.n_out.weight, self.n_out.bias)
+
+    def rollout_operands(self):
+        """The rollout kernel's operands (``rollout.pack_operands``) of
+        :meth:`rollout_params`, kept while those are unchanged
+        (:func:`prepared`)."""
+        params = self.rollout_params()
+        return prepared(self, "rollout", params,
+                        lambda: rollout.pack_operands(*params))
+
     def forward(self, b, x_start, length: int):
         """b: (B, H); x_start: (B, K).  Returns xs (B, length, K) and cs,
         the pose fed into each step (B, length, K)."""
@@ -119,15 +135,12 @@ def decoder_rollout_kernel(decoder: ResidualDecoder, b, x_start,
     if decoder.rnn_type != "lstm" or decoder.use_nin:
         raise ValueError("the rollout kernel covers LSTM decoders without "
                          "nin only")
-    r = decoder.rnn
     if b.device.type != "cuda":
         return rollout.residual_lstm_rollout(
-            b.float(), x_start.float(), r.weight_ih, r.weight_hh, r.bias_ih,
-            r.bias_hh, decoder.n_out.weight, decoder.n_out.bias, length)
+            b.float(), x_start.float(), *decoder.rollout_params(), length)
     rollout.check_no_grad(decoder.parameters())
     return rollout.residual_lstm_rollout_prepared(
-        b.float(), x_start.float(), rollout.prepared_operands(decoder),
-        length)
+        b.float(), x_start.float(), decoder.rollout_operands(), length)
 
 
 class ResidualBehaviorNet(nn.Module):

@@ -6,6 +6,7 @@ of the checkout (or under ``$BDVS_TORCH_BUILD_DIR``).  The hash covers every
 file in ``csrc/`` and the compiler flags, so an edited source rebuilds and
 an unchanged one loads the library already built.  ``-Xptxas -v`` output
 (registers, shared memory, spills) is kept beside it in ``build.log``.
+Every call into a library goes through :func:`launch`.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -72,3 +75,17 @@ def load_library(name: str) -> ctypes.CDLL:
 def build_log(name: str) -> str:
     """The compiler's report of the library's last build."""
     return (library_dir(name) / "build.log").read_text()
+
+
+def launch(fn, what: str, device, *args, stream: bool = True) -> None:
+    """``fn(*args, stream)`` under ``device``'s guard, the stream being
+    the device's current CUDA stream (none with ``stream=False``, for a
+    query such as a launch plan; ``device=None`` keeps the current
+    device); raises a RuntimeError naming ``what`` when fn returns a
+    cudaError."""
+    with torch.cuda.device(device):
+        if stream:
+            args += (torch.cuda.current_stream(device).cuda_stream,)
+        err = fn(*args)
+    if err:
+        raise RuntimeError(f"{what} failed: cudaError {err}")

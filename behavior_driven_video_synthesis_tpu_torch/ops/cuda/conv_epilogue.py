@@ -31,7 +31,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from .build import load_library
+from .build import launch, load_library
 
 # Launches since import (or since a caller last reset them): those that
 # finish a conv (add its bias; one a full-precision NormConv2d call at
@@ -119,14 +119,10 @@ def conv_epilogue(y, bias, residual=None):
         raise ValueError(f"no conv epilogue for device {y.device}")
     if residual is not None:
         residual = residual.contiguous()
-    with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream(y.device).cuda_stream
-        err = _lib().bdvs_conv_epilogue(
-            y.data_ptr(), None if residual is None else residual.data_ptr(),
-            bias.data_ptr(), y.numel(), y.shape[-1], DTYPES[y.dtype], stream)
-    if err:
-        raise RuntimeError(f"conv epilogue kernel launch failed: "
-                           f"cudaError {err}")
+    launch(_lib().bdvs_conv_epilogue, "conv epilogue kernel launch",
+           y.device, y.data_ptr(),
+           None if residual is None else residual.data_ptr(),
+           bias.data_ptr(), y.numel(), y.shape[-1], DTYPES[y.dtype])
     conv_epilogue_launches += 1
     return y
 
@@ -177,16 +173,11 @@ def conv_epilogue_act(y, out, bias=None, residual=None):
         raise ValueError(f"no conv epilogue for device {y.device}")
     if residual is not None:
         residual = residual.contiguous()
-    with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream(y.device).cuda_stream
-        err = _lib().bdvs_conv_epilogue_act(
-            out.data_ptr(), y.data_ptr(),
-            None if residual is None else residual.data_ptr(),
-            None if bias is None else bias.data_ptr(), y.numel(),
-            y.shape[-1], ldo, DTYPES[y.dtype], stream)
-    if err:
-        raise RuntimeError(f"conv epilogue kernel launch failed: "
-                           f"cudaError {err}")
+    launch(_lib().bdvs_conv_epilogue_act, "conv epilogue kernel launch",
+           y.device, out.data_ptr(), y.data_ptr(),
+           None if residual is None else residual.data_ptr(),
+           None if bias is None else bias.data_ptr(), y.numel(),
+           y.shape[-1], ldo, DTYPES[y.dtype])
     conv_epilogue_act_launches += 1
     if bias is not None:
         conv_epilogue_launches += 1

@@ -40,7 +40,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from .build import load_library
+from .build import launch, load_library
 
 # Launches of the kernel since import (or since a caller last reset it).
 conv_int8_launches = 0
@@ -350,22 +350,18 @@ def conv_int8_packed(x: torch.Tensor, packed: PackedWeights,
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib().bdvs_conv_int8(
-            x.data_ptr(), ptr(aux), int(x.dtype == torch.bfloat16),
-            packed.w.data_ptr(), ptr(aux_packed.w if aux is not None
+    launch(_lib().bdvs_conv_int8, "int8 conv kernel launch", x.device,
+           x.data_ptr(), ptr(aux), int(x.dtype == torch.bfloat16),
+           packed.w.data_ptr(), ptr(aux_packed.w if aux is not None
+                                    else None),
+           packed.aw.data_ptr(), ptr(aux_packed.aw if aux is not None
                                      else None),
-            packed.aw.data_ptr(), ptr(aux_packed.aw if aux is not None
-                                      else None),
-            ax.contiguous().data_ptr(),
-            ptr(ax_aux.contiguous() if aux is not None else None),
-            ptr(bias), ptr(gamma), ptr(beta), out.data_ptr(), ptr(out_aux),
-            _OUT_KIND[out_dtype], B, H, W, Cin,
-            aux.shape[3] if aux is not None else 0, N, packed.w.shape[2],
-            stride, stream)
-    if err:
-        raise RuntimeError(f"int8 conv kernel launch failed: cudaError {err}")
+           ax.contiguous().data_ptr(),
+           ptr(ax_aux.contiguous() if aux is not None else None),
+           ptr(bias), ptr(gamma), ptr(beta), out.data_ptr(), ptr(out_aux),
+           _OUT_KIND[out_dtype], B, H, W, Cin,
+           aux.shape[3] if aux is not None else 0, N, packed.w.shape[2],
+           stride)
     conv_int8_launches += 1
     return (out, out_aux) if out_aux is not None else out
 
@@ -376,13 +372,10 @@ def conv_int8_plan(B, H, W, cin, n, *, stride=1, aux_cin=0,
     {grid, blocks_per_sm, ring, w_resident, smem_bytes, tiles,
     piece_bytes, threads, tile_rows}."""
     info = (ctypes.c_int * 9)()
-    with torch.cuda.device(device):
-        err = _lib().bdvs_conv_int8_plan(
-            int(dtype == torch.bfloat16), int(aux_cin > 0),
-            _OUT_KIND[out_dtype or dtype], B, H, W, cin, aux_cin, n, _npad(n),
-            stride, ctypes.addressof(info))
-    if err:
-        raise RuntimeError(f"int8 conv kernel plan failed: cudaError {err}")
+    launch(_lib().bdvs_conv_int8_plan, "int8 conv kernel plan", device,
+           int(dtype == torch.bfloat16), int(aux_cin > 0),
+           _OUT_KIND[out_dtype or dtype], B, H, W, cin, aux_cin, n, _npad(n),
+           stride, ctypes.addressof(info), stream=False)
     return dict(zip(("grid", "blocks_per_sm", "ring", "w_resident",
                      "smem_bytes", "tiles", "piece_bytes", "threads",
                      "tile_rows"), list(info)))

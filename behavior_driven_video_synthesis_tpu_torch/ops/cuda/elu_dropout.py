@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from .build import load_library
+from .build import launch, load_library
 
 # Launches of each kernel since import (or since a caller last reset them).
 elu_dropout_fwd_launches = 0
@@ -156,14 +156,10 @@ def _launch_fwd(x, seed, rate, offset=0):
     x = _kernel_operand(x, x)
     out = torch.empty_like(x)
     thresh, scale = keep_params(rate)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib().bdvs_elu_dropout_fwd(
-            x.data_ptr(), out.data_ptr(), seed.contiguous().data_ptr(),
-            x.numel(), offset, _DTYPES[x.dtype], thresh, scale, stream)
-    if err:
-        raise RuntimeError(f"ELU+dropout forward launch failed: "
-                           f"cudaError {err}")
+    launch(_lib().bdvs_elu_dropout_fwd, "ELU+dropout forward launch",
+           x.device, x.data_ptr(), out.data_ptr(),
+           seed.contiguous().data_ptr(), x.numel(), offset,
+           _DTYPES[x.dtype], thresh, scale)
     elu_dropout_fwd_launches += 1
     return out
 
@@ -175,15 +171,10 @@ def _launch_bwd(x, ct, seed, rate, offset=0):
     ct = _kernel_operand(ct, x)
     dx = torch.empty_like(x)
     thresh, scale = keep_params(rate)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib().bdvs_elu_dropout_bwd(
-            x.data_ptr(), ct.data_ptr(), dx.data_ptr(),
-            seed.contiguous().data_ptr(), x.numel(), offset,
-            _DTYPES[x.dtype], thresh, scale, stream)
-    if err:
-        raise RuntimeError(f"ELU+dropout backward launch failed: "
-                           f"cudaError {err}")
+    launch(_lib().bdvs_elu_dropout_bwd, "ELU+dropout backward launch",
+           x.device, x.data_ptr(), ct.data_ptr(), dx.data_ptr(),
+           seed.contiguous().data_ptr(), x.numel(), offset,
+           _DTYPES[x.dtype], thresh, scale)
     elu_dropout_bwd_launches += 1
     return dx
 

@@ -1,5 +1,5 @@
 """Fused VunetRNB (no auxiliary input, pre-activation ELU): the CUDA kernel's
-wrapper, its operand preparation and its plain PyTorch version.
+wrapper, its operand layout and its plain PyTorch version.
 
 Counterpart of ``attic/pallas_rnb.py`` (``_rnb_kernel`` :86, entered through
 ``fused_rnb`` :208).  One call computes what ``VunetRNB(activate=True)``
@@ -15,48 +15,34 @@ the 9*C products in f32 on the tensor cores, and adds the affine and the
 residual in f32 before one rounding to bf16.  It has no backward: like the
 TPU kernel, it serves the inference path only.
 
-The kernel's operands (W packed in its shared-memory layout, scale and
-shift) are built once per block by :func:`prepared_operands` and reused
-while the block's parameters are unchanged.
-
-CUDA tensors launch the kernel (bf16, C a multiple of 8 up to 128) or
-raise; CPU tensors take the plain version, in the tensor's dtype.
+The kernel's operands (W packed in its shared-memory layout by
+:func:`pack_weights`, scale and shift by :func:`pack_affine`) are a block's
+own: ``VunetRNB.fused_operands`` (``ops/nn.py``) builds them once and
+keeps them while its parameters are unchanged, and the block launches
+:func:`fused_rnb_prepared` on them on the card and calls
+:func:`fused_rnb_plain` on the CPU.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import weakref
 
 import torch
 import torch.nn.functional as F
 
-from .build import load_library
+from .build import launch, load_library
 
 # Launches of the kernel since import (or since a caller last reset it).
 fused_rnb_launches = 0
-# Builds of a block's kernel operands by prepared_operands since import.
-operand_builds = 0
-
-_operands: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
-def rnb_operands(rnb):
-    """(W, scale, shift) of a VunetRNB's conv in f32: W (C, C, 3, 3) OIHW,
-    scale = gamma and shift = gamma * bias + beta, each (C,)."""
-    conv = rnb.conv
-    scale = conv.gamma.reshape(-1).float()
-    shift = scale * conv.conv.bias.float() + conv.beta.reshape(-1).float()
-    return conv.kernel().float(), scale, shift
-
-
-def fused_rnb_plain(x, rnb):
-    """The kernel's function in PyTorch, in x's dtype: ELU output and W
-    rounded to it, the conv accumulated in f32, the affine and the residual
-    added in f32, one rounding at the end.  In f32 this is exactly
-    ``x + NormConv2d(elu(x))``."""
+def fused_rnb_plain(x, w, scale, shift):
+    """The kernel's function in PyTorch on NHWC x and the f32 (W (C, C, 3,
+    3) OIHW, scale, shift) of ``VunetRNB.fused_weights``, in x's dtype: ELU
+    output and W rounded to it, the conv accumulated in f32, the affine and
+    the residual added in f32, one rounding at the end.  In f32 this is
+    exactly ``x + NormConv2d(elu(x))``."""
     dt = x.dtype
-    w, scale, shift = rnb_operands(rnb)
     h = F.elu(x.float()).to(dt).float()
     acc = F.conv2d(h.permute(0, 3, 1, 2), w.to(dt).float(), None, 1, 1)
     return (x.float() + (scale * acc.permute(0, 2, 3, 1) + shift)).to(dt)
@@ -117,63 +103,15 @@ def pack_affine(scale, shift):
     return affine
 
 
-def _params(rnb):
-    conv = rnb.conv
-    return (conv.conv.weight_v, conv.conv.weight_g, conv.conv.bias,
-            conv.gamma, conv.beta)
-
-
-def prepared_operands(rnb):
-    """(W packed, affine) of a block for the kernel, built once and reused
-    while every parameter of its conv keeps its version counter, storage,
-    device and dtype: ``load_state_dict``, an optimizer step or any other
-    in-place update, and ``.to()``, rebuild it."""
-    global operand_builds
-    key = tuple((p._version, p.data_ptr(), p.device, p.dtype)
-                for p in _params(rnb))
-    hit = _operands.get(rnb)
-    if hit is not None and hit[0] == key:
-        return hit[1]
-    with torch.no_grad():
-        w, scale, shift = rnb_operands(rnb)
-        operands = (pack_weights(w), pack_affine(scale, shift))
-    _operands[rnb] = (key, operands)
-    operand_builds += 1
-    return operands
-
-
-def _check(x, rnb):
-    conv = rnb.conv
-    v = conv.conv.weight_v
-    if x.dim() != 4:
-        raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
-    C = x.shape[-1]
-    if tuple(v.shape) != (C, C, 3, 3) or conv.stride != 1 \
-            or conv.padding != 1:
-        raise ValueError(f"the fused RNB kernel takes a 3x3, stride-1, "
-                         f"SAME conv from C={C} to C channels; got weight "
-                         f"{tuple(v.shape)}, stride {conv.stride}, padding "
-                         f"{conv.padding}")
-    _check_x(x)
-    if v.device != x.device:
-        raise ValueError(f"the RNB's parameters are on {v.device}, x on "
-                         f"{x.device}")
-
-
 def _check_x(x):
+    if x.device.type != "cuda":
+        raise ValueError(f"no fused RNB for device {x.device}")
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the fused RNB kernel takes bfloat16, got {x.dtype}")
     C = x.shape[-1]
     if C % 8 != 0 or C > 128:
         raise ValueError(f"the fused RNB kernel needs C % 8 == 0 and "
                          f"C <= 128, got C={C}")
-
-
-def _check_no_grad(x, rnb):
-    if torch.is_grad_enabled() and (x.requires_grad or any(
-            p.requires_grad for p in rnb.conv.parameters())):
-        raise RuntimeError("the fused RNB kernel has no backward; call it "
-                           "under torch.no_grad() or inference_mode()")
 
 
 @functools.cache
@@ -194,10 +132,8 @@ def kernel_plan(C, device):
     holds at once), blocks an SM, threads a block, and whether the
     products run on wgmma (the layout :func:`pack_weights` picks)."""
     info = (ctypes.c_int * 9)()
-    with torch.cuda.device(device):
-        err = _lib().bdvs_fused_rnb_plan(C, ctypes.addressof(info))
-    if err:
-        raise RuntimeError(f"fused RNB kernel plan failed: cudaError {err}")
+    launch(_lib().bdvs_fused_rnb_plan, "fused RNB kernel plan", device, C,
+           ctypes.addressof(info), stream=False)
     keys = ("smem_bytes", "tap_slots", "halo_buffers", "warp_rows",
             "warp_channels", "grid_cap", "blocks_per_sm", "threads")
     return dict(zip(keys, info), wgmma=bool(info[8]))
@@ -211,8 +147,9 @@ def _aligned(t):
 
 
 def fused_rnb_prepared(x, operands):
-    """One launch of the kernel on a CUDA bf16 NHWC x and operands from
-    :func:`prepared_operands`, with nothing prepared on the way."""
+    """One launch of the kernel on a CUDA bf16 NHWC x and operands (W
+    packed, affine) of :func:`pack_weights` and :func:`pack_affine` on x's
+    device, with nothing prepared on the way: x's shape and type."""
     global fused_rnb_launches
     _check_x(x)
     w, affine = operands
@@ -221,27 +158,12 @@ def fused_rnb_prepared(x, operands):
     if tuple(w.shape) != packed_shape(C) or tuple(affine.shape) != (2, CP):
         raise ValueError(f"operands of shapes {tuple(w.shape)}, "
                          f"{tuple(affine.shape)} do not fit C={C}")
+    if w.device != x.device or affine.device != x.device:
+        raise ValueError(f"the operands are on {w.device}, x on {x.device}")
     x = _aligned(x)
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib().bdvs_fused_rnb(
-            x.data_ptr(), w.data_ptr(), affine.data_ptr(), out.data_ptr(),
-            B, H, W, C, stream)
-    if err:
-        raise RuntimeError(f"fused RNB kernel launch failed: cudaError {err}")
+    launch(_lib().bdvs_fused_rnb, "fused RNB kernel launch", x.device,
+           x.data_ptr(), w.data_ptr(), affine.data_ptr(), out.data_ptr(),
+           B, H, W, C)
     fused_rnb_launches += 1
     return out
-
-
-def fused_rnb(x, rnb):
-    """``rnb(x)`` for a VunetRNB without auxiliary input (activate=True,
-    3x3 conv): the kernel for a CUDA tensor, the plain version for a CPU
-    tensor.  x is NHWC; the result has x's shape and dtype."""
-    _check_no_grad(x, rnb)
-    if x.device.type == "cpu":
-        return fused_rnb_plain(x, rnb)
-    if x.device.type != "cuda":
-        raise ValueError(f"no fused RNB for device {x.device}")
-    _check(x, rnb)
-    return fused_rnb_prepared(x, prepared_operands(rnb))

@@ -9,8 +9,9 @@ the same function as a loop of torch ops.  Weights come in torch layouts:
 ``weight_ih`` (4H, K), ``weight_hh`` (4H, H), ``weight_out`` (K, H).
 
 The kernel takes its weights prepared (:func:`pack_operands`): bf16, padded
-and interleaved as its blocks copy them.  :func:`prepared_operands` builds
-them once per decoder and reuses them while its parameters are unchanged;
+and interleaved as its blocks copy them.  A decoder keeps its own
+(``ResidualDecoder.rollout_operands``, ``models/behavior.py``), built once
+and kept while its parameters are unchanged;
 :func:`residual_lstm_rollout_prepared` launches on them with nothing cast
 on the way.
 """
@@ -18,18 +19,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import weakref
 
 import torch
 
-from .build import load_library
+from .build import launch, load_library
 
 # Launches of the kernel since import (or since a caller last reset it).
 rollout_launches = 0
-# Builds of a decoder's kernel operands by prepared_operands since import.
-operand_builds = 0
-
-_operands: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def residual_lstm_rollout_plain(b, x0, weight_ih, weight_hh, bias_ih,
@@ -120,30 +116,6 @@ def residual_lstm_rollout_prepared_plain(b, x0, operands, length: int):
         length, operand_dtype=torch.bfloat16)
 
 
-def _decoder_params(decoder):
-    r = decoder.rnn
-    return (r.weight_ih, r.weight_hh, r.bias_ih, r.bias_hh,
-            decoder.n_out.weight, decoder.n_out.bias)
-
-
-def prepared_operands(decoder):
-    """The kernel's operands of a ``ResidualDecoder``, built once and reused
-    while every parameter of its cell and output layer keeps its version
-    counter, storage, device and dtype: ``load_state_dict``, an optimizer
-    step or any other in-place update, and ``.to()``, rebuild them."""
-    global operand_builds
-    params = _decoder_params(decoder)
-    key = tuple((p._version, p.data_ptr(), p.device, p.dtype)
-                for p in params)
-    hit = _operands.get(decoder)
-    if hit is not None and hit[0] == key:
-        return hit[1]
-    operands = pack_operands(*params)
-    _operands[decoder] = (key, operands)
-    operand_builds += 1
-    return operands
-
-
 def _check(b, x0, weight_ih, weight_hh, bias_ih, bias_hh, weight_out,
            bias_out, length):
     tensors = dict(b=b, x0=x0, weight_ih=weight_ih, weight_hh=weight_hh,
@@ -199,9 +171,8 @@ def _blocks(B: int, K: int, H: int, device_index: int) -> int:
 def rollout_config(B: int, K: int, H: int) -> dict:
     """The kernel's launch configuration on the current CUDA device."""
     out = (ctypes.c_int * 4)()
-    err = _lib().bdvs_rollout_config(B, K, H, out)
-    if err:
-        raise RuntimeError(f"rollout config failed: cudaError {err}")
+    launch(_lib().bdvs_rollout_config, "rollout config", None, B, K, H, out,
+           stream=False)
     return dict(blocks=out[0], units_per_block=out[1], smem_bytes=out[2],
                 weights_in_smem=bool(out[3]))
 
@@ -210,23 +181,8 @@ def barrier_floor(B: int, K: int, H: int, length: int, device) -> None:
     """Launch ``length`` grid barriers and nothing else on the grid the
     kernel takes at (B, K, H): timed, the least time a rollout of that many
     serial steps can take.  Not a rollout; counts no launch."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _lib().bdvs_rollout_barrier_floor(B, K, H, length, stream)
-    if err:
-        raise RuntimeError(f"barrier kernel launch failed: cudaError {err}")
-
-
-def _launch(x0, c, operands, h, partial, delta, out, length):
-    w, bias, w_out, b_out = operands
-    (B, K), H = x0.shape, w_out.shape[0]
-    with torch.cuda.device(x0.device):
-        stream = torch.cuda.current_stream(x0.device).cuda_stream
-        return _lib().bdvs_residual_lstm_rollout(
-            x0.data_ptr(), c.data_ptr(), w.data_ptr(), bias.data_ptr(),
-            w_out.data_ptr(), b_out.data_ptr(), h.data_ptr(),
-            partial.data_ptr(), delta.data_ptr(), out.data_ptr(), B, K, H,
-            length, stream)
+    launch(_lib().bdvs_rollout_barrier_floor, "barrier kernel launch",
+           device, B, K, H, length)
 
 
 def residual_lstm_rollout_prepared(b, x0, operands, length: int):
@@ -262,9 +218,11 @@ def residual_lstm_rollout_prepared(b, x0, operands, length: int):
     partial = torch.empty(blocks, B, K, dtype=torch.float32, device=b.device)
     delta = torch.empty(length, B, K, dtype=torch.float32, device=b.device)
     out = torch.empty(B, length, K, dtype=torch.float32, device=b.device)
-    err = _launch(x0, c, operands, h, partial, delta, out, length)
-    if err:
-        raise RuntimeError(f"rollout kernel launch failed: cudaError {err}")
+    launch(_lib().bdvs_residual_lstm_rollout, "rollout kernel launch",
+           b.device, x0.data_ptr(), c.data_ptr(), w.data_ptr(),
+           bias.data_ptr(), w_out.data_ptr(), b_out.data_ptr(), h.data_ptr(),
+           partial.data_ptr(), delta.data_ptr(), out.data_ptr(), B, K, H,
+           length)
     rollout_launches += 1
     return out
 

@@ -20,7 +20,7 @@ from typing import Dict, List, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from .build import load_library
+from .build import launch, load_library
 
 # Launches of the kernel since import (or since a caller last reset it).
 stickman_launches = 0
@@ -123,13 +123,8 @@ def stickman_raster(joints, joint_model, spatial_size: int,
     if flat.shape[0] == 0:
         return out
     half = float(np.float32(float(thickness) / 2.0))
-    with torch.cuda.device(joints.device):
-        stream = torch.cuda.current_stream(joints.device).cuda_stream
-        err = _lib().bdvs_stickman(
-            flat.data_ptr(), topo.table.data_ptr(), topo.n_seg, topo.n_body,
-            flat.shape[0], K, S, half, int(normalized), out.data_ptr(),
-            stream)
-    if err:
-        raise RuntimeError(f"stickman kernel launch failed: cudaError {err}")
+    launch(_lib().bdvs_stickman, "stickman kernel launch", joints.device,
+           flat.data_ptr(), topo.table.data_ptr(), topo.n_seg, topo.n_body,
+           flat.shape[0], K, S, half, int(normalized), out.data_ptr())
     stickman_launches += 1
     return out

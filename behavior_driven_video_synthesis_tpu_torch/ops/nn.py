@@ -21,6 +21,7 @@ fold the affine into the weights and end in the conv epilogue kernel
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 from typing import Dict, Optional
 
@@ -34,14 +35,36 @@ from .cuda.conv_int8 import (act_scale, conv_int8, kernel_takes,
 from . import batch_draws
 from .cuda.conv_epilogue import DTYPES as EPILOGUE_DTYPES
 from .cuda.conv_epilogue import conv_epilogue, conv_epilogue_act
+from .cuda import fused_rnb
 from .cuda.elu_dropout import elu_dropout
-from .cuda.fused_rnb import fused_rnb
 
 QUANT_MODES = ("none", "int8", "int8_static")
-# Builds of a NormConv2d's int8 weights since import.
-int8_weight_builds = 0
-# Builds of a NormConv2d's folded weights (NormConv2d.folded) since import.
-norm_conv_fold_builds = 0
+# Builds of prepared kernel weights since import, by slot (prepared):
+# "fold" (NormConv2d.folded), "int8" (a NormConv2d's int8 weights),
+# "fused_rnb" (VunetRNB.fused_operands), "rollout"
+# (ResidualDecoder.rollout_operands).
+prepared_builds: Dict[str, int] = collections.Counter()
+
+
+def prepared(owner, slot: str, params, build, *extra_key):
+    """``build()`` under ``torch.no_grad()``, cached on ``owner`` under
+    ``slot`` and kept while every tensor of ``params`` keeps its version
+    counter, storage, device and dtype and ``extra_key`` is unchanged:
+    ``load_state_dict``, an optimizer step or any other in-place update,
+    ``.to()`` and a new ``extra_key`` rebuild it.  Each build counts in
+    ``prepared_builds[slot]``.  The kernel weights a module derives from
+    its parameters (folded, quantized or packed) are all kept so."""
+    key = extra_key + tuple((p._version, p.data_ptr(), p.device, p.dtype)
+                            for p in params)
+    cache = vars(owner).setdefault("_prepared", {})
+    hit = cache.get(slot)
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    with torch.no_grad():
+        value = build()
+    cache[slot] = (key, value)
+    prepared_builds[slot] += 1
+    return value
 
 
 def space_to_depth(x: torch.Tensor, block_size: int = 2) -> torch.Tensor:
@@ -108,7 +131,7 @@ class NormConv2d(nn.Module):
     uses).  The scales stay out of the state dict, as the JAX package keeps
     them in its ``quant`` collection (:func:`quant_scales`,
     :func:`load_quant_scales`).  W's int8 values are built once and kept
-    while the parameters keep their version counters.
+    (:func:`prepared`).
 
     ``d2s_transpose`` (JAX ``:76-108``, ``:246-260``): the conv to 4C of a
     subpixel upsample followed by ``depth_to_space(., 2)``, computed as one
@@ -119,14 +142,14 @@ class NormConv2d(nn.Module):
     Every other call with autograd off, on a CUDA input and in bf16 or f16
     takes the folded route: gamma * (conv(x, W) + bias) + beta is
     conv(x, W') + b' with W' = gamma * W and b' = gamma * bias + beta
-    (:meth:`folded`, built once in f32 and kept while the parameters keep
-    their version counters), so the conv runs without bias and the conv
-    epilogue kernel adds b', and the ``residual`` when one is given, in
-    one pass.  With autograd on, on the CPU or in f32, a call computes the
-    affine as above and then adds the ``residual``.  ``act_out`` (the folded
-    route only) has the epilogue store ELU of the output into that tensor, a
-    channel slice of a contiguous NHWC buffer, instead of the output in
-    place: a residual block assembles its conv input so.
+    (:meth:`folded`, built once in f32 and kept, :func:`prepared`), so the
+    conv runs without bias and the conv epilogue kernel adds b', and the
+    ``residual`` when one is given, in one pass.  With autograd on, on the
+    CPU or in f32, a call computes the affine as above and then adds the
+    ``residual``.  :meth:`route` names the route a call takes.  ``act_out``
+    (the folded route only) has the epilogue store ELU of the output into
+    that tensor, a channel slice of a contiguous NHWC buffer, instead of
+    the output in place: a residual block assembles its conv input so.
     """
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
@@ -154,8 +177,6 @@ class NormConv2d(nn.Module):
                                              device=device))
         self.act_amax: Dict[str, torch.Tensor] = {}
         self.calibrating = False
-        self._int8 = None
-        self._fold = None
 
     def kernel(self) -> torch.Tensor:
         v = self.conv.weight_v
@@ -163,15 +184,30 @@ class NormConv2d(nn.Module):
                             + 1e-12)
         return v * (self.conv.weight_g / v_norm)
 
-    def quant_active(self, x: torch.Tensor) -> bool:
-        """Whether this call runs int8 (JAX ``_quant_active``): 3x3 convs
-        of at least 8 features (1x1 convs and small heads stay in full
-        precision), never with d2s_transpose, and only where x (NHWC) is at
-        most ``quant_max_hw`` high when that is above 0."""
-        return (self.quant != "none" and not self.d2s_transpose
-                and self.kernel_size >= 3 and self.features >= 8
+    def weight_params(self):
+        """The parameters W and the affine come from: v, g, bias, gamma,
+        beta."""
+        return (self.conv.weight_v, self.conv.weight_g, self.conv.bias,
+                self.gamma, self.beta)
+
+    def route(self, x: torch.Tensor) -> str:
+        """The route a call on x (NHWC) takes: ``"d2s_transpose"``;
+        ``"int8"`` (JAX ``_quant_active``: 3x3 convs of at least 8
+        features, 1x1 convs and small heads staying in full precision, and
+        only where x is at most ``quant_max_hw`` high when that is above
+        0); ``"folded"`` (autograd off, a CUDA input, a bf16 or f16
+        compute dtype); else ``"unfolded"``."""
+        if self.d2s_transpose:
+            return "d2s_transpose"
+        if (self.quant != "none" and self.kernel_size >= 3
+                and self.features >= 8
                 and (self.quant_max_hw <= 0
-                     or x.shape[1] <= self.quant_max_hw))
+                     or x.shape[1] <= self.quant_max_hw)):
+            return "int8"
+        if (not torch.is_grad_enabled() and x.is_cuda
+                and self.dtype in EPILOGUE_DTYPES):
+            return "folded"
+        return "unfolded"
 
     def _act_scale(self, x, name):
         if self.quant == "int8":
@@ -193,27 +229,19 @@ class NormConv2d(nn.Module):
         """[(W_q, aw, packed for the kernel or None)] of W, or of its two
         fan-in halves at ``cx`` (x's channels, then aux's), each quantized
         over its own fan-in as the JAX package slices the kernel first;
-        rebuilt when a parameter's version, storage, device or dtype
-        changes."""
-        global int8_weight_builds
-        params = (self.conv.weight_v, self.conv.weight_g)
-        key = (cx,) + tuple((p._version, p.data_ptr(), p.device, p.dtype)
-                            for p in params)
-        if self._int8 is not None and self._int8[0] == key:
-            return self._int8[1]
-        with torch.no_grad():
+        kept while v and g are unchanged (:func:`prepared`)."""
+        def build():
             k = self.kernel().float()
-            parts = [k] if cx is None else [k[:, :cx], k[:, cx:]]
-            weights = []
             packs = k.device.type == "cuda" and kernel_takes(
                 self.kernel_size, self.padding, self.stride)
-            for w in parts:
+            weights = []
+            for w in [k] if cx is None else [k[:, :cx], k[:, cx:]]:
                 w_q, aw = quantize_weight(w)
                 weights.append((w_q, aw, pack_weights(w_q, aw)
                                 if packs else None))
-        self._int8 = (key, weights)
-        int8_weight_builds += 1
-        return weights
+            return weights
+        return prepared(self, "int8", (self.conv.weight_v,
+                                       self.conv.weight_g), build, cx)
 
     def _forward_int8(self, x, aux):
         """The whole call, affine included, as one int8 conv (one kernel
@@ -261,27 +289,15 @@ class NormConv2d(nn.Module):
     def folded(self):
         """(W', b'): W' = gamma * W in the compute dtype, b' = gamma * bias
         + beta in f32 (the epilogue sums in f32), both computed in f32;
-        rebuilt when a parameter's version, storage, device or dtype, or
-        the compute dtype, changes."""
-        global norm_conv_fold_builds
-        params = (self.conv.weight_v, self.conv.weight_g, self.conv.bias,
-                  self.gamma, self.beta)
-        key = (self.dtype,) + tuple((p._version, p.data_ptr(), p.device,
-                                     p.dtype) for p in params)
-        if self._fold is not None and self._fold[0] == key:
-            return self._fold[1]
-        with torch.no_grad():
+        kept while the parameters and the compute dtype are unchanged
+        (:func:`prepared`)."""
+        def build():
             gamma = self.gamma.float().reshape(-1)
             w = self.kernel().float() * gamma[:, None, None, None]
             b = gamma * self.conv.bias.float() + self.beta.float().reshape(-1)
-        self._fold = (key, (w.to(self.dtype), b))
-        norm_conv_fold_builds += 1
-        return self._fold[1]
-
-    def _folds(self, x) -> bool:
-        """Whether a full-precision call takes the folded route."""
-        return (not torch.is_grad_enabled() and x.is_cuda
-                and self.dtype in EPILOGUE_DTYPES)
+            return w.to(self.dtype), b
+        return prepared(self, "fold", self.weight_params(), build,
+                        self.dtype)
 
     def _forward_folded(self, x, aux, residual, act_out=None):
         """conv(x, W') without bias, then b' and the residual added in one
@@ -308,21 +324,19 @@ class NormConv2d(nn.Module):
         input).  act_out: where the folded route stores ELU of the output
         (returned); any other route raises."""
         dt = self.dtype
-        if act_out is not None:
-            if (self.d2s_transpose or self.quant_active(x)
-                    or not self._folds(x)):
-                raise ValueError("act_out is served by the folded route "
-                                 "only (autograd off, a CUDA input, bf16 or "
-                                 "f16, neither int8 nor d2s_transpose)")
+        route = self.route(x)
+        if act_out is not None and route != "folded":
+            raise ValueError("act_out is served by the folded route only "
+                             "(autograd off, a CUDA input, bf16 or f16, "
+                             "neither int8 nor d2s_transpose)")
+        if route == "folded":
             return self._forward_folded(x, aux, residual, act_out)
-        if self.d2s_transpose:
+        if route == "d2s_transpose":
             if aux is not None:
                 raise ValueError("d2s_transpose takes no aux input")
             y = self._forward_d2s_transpose(x)
-        elif self.quant_active(x):
+        elif route == "int8":
             y = self._forward_int8(x, aux)
-        elif self._folds(x):
-            return self._forward_folded(x, aux, residual)
         else:
             if aux is not None:
                 x = torch.cat([x.to(dt), aux.to(dt)], dim=-1)
@@ -596,18 +610,21 @@ class VunetRNB(nn.Module):
     ``rnb_impl="fused"`` runs a block without auxiliary input (activate,
     3x3 conv, not training) as one fused RNB kernel
     (``ops/cuda/fused_rnb.py``), unless its conv runs int8 at the input's
-    height (``NormConv2d.quant_active``, a rule on the settings and the
-    static shape): that block keeps the int8 conv.  The kernel reads a
-    NormConv2d's weights, so ``"fused"`` with another conv layer raises a
-    ValueError.  Every other block, and every block under the default
-    ``"cudnn"``, runs the conv and eager elementwise ops; a NormConv2d
-    conv takes the block's input as its ``residual``, which its folded
-    route adds in the conv epilogue kernel.  A residual block with
-    auxiliary input whose convs take the folded route (not training, the
-    ELU, NormConv2d convs, x in the compute dtype, the main conv neither
-    int8 nor unfolded at x) builds its 2C conv input without concatenating
-    (:meth:`_forward_concat_free`): the epilogue's activated store writes
-    ELU(x) into the lower half and ELU(nin(ELU(a))) into the upper half.
+    height (``NormConv2d.route``, a rule on the settings and the static
+    shape): that block keeps the int8 conv.  Such a block's conv is a 3x3,
+    stride-1, SAME conv from C to C channels by construction, the shape
+    the kernel takes.  The kernel's operands are the block's own
+    (:meth:`fused_operands`), folded from a NormConv2d's weights, so
+    ``"fused"`` with another conv layer raises a ValueError.  Every other
+    block, and every block under the default ``"cudnn"``, runs the conv
+    and eager elementwise ops; a NormConv2d conv takes the block's input
+    as its ``residual``, which its folded route adds in the conv epilogue
+    kernel.  A residual block with auxiliary input whose convs take the
+    folded route (not training, the ELU, NormConv2d convs, x in the
+    compute dtype, ``route`` "folded" for both convs) builds its 2C conv
+    input without concatenating (:meth:`_forward_concat_free`): the
+    epilogue's activated store writes ELU(x) into the lower half and
+    ELU(nin(ELU(a))) into the upper half.
 
     With ``remat`` set (an attribute, not a parameter: the state dict is
     the same either way) a training forward under autograd stores only the
@@ -639,10 +656,48 @@ class VunetRNB(nn.Module):
             raise ValueError("rnb_impl 'fused' needs the l1 conv layer "
                              "(NormConv2d), whose weights its kernel reads")
         # the blocks the fused kernel computes: no auxiliary input, which
-        # only a residual block takes
+        # only a residual block takes, so a 3x3 conv from C to C channels
         self.fused = (rnb_impl == "fused" and activate and kernel_size == 3
                       and not residual and act_fn is None)
         self.remat = False
+
+    def fused_weights(self):
+        """(W, scale, shift) of the conv in f32 as the fused RNB kernel
+        takes them: W (C, C, 3, 3) OIHW, scale = gamma and shift = gamma *
+        bias + beta, each (C,)."""
+        conv = self.conv
+        scale = conv.gamma.reshape(-1).float()
+        shift = scale * conv.conv.bias.float() + conv.beta.reshape(-1).float()
+        return conv.kernel().float(), scale, shift
+
+    def fused_operands(self):
+        """(W packed, affine) of the conv for the fused RNB kernel
+        (``fused_rnb.pack_weights``, ``pack_affine``), kept while the
+        conv's parameters are unchanged (:func:`prepared`)."""
+        def build():
+            w, scale, shift = self.fused_weights()
+            return fused_rnb.pack_weights(w), fused_rnb.pack_affine(scale,
+                                                                    shift)
+        return prepared(self, "fused_rnb", self.conv.weight_params(), build)
+
+    def _forward_fused(self, x):
+        """The block at x (no auxiliary input, not training) as the fused
+        RNB kernel computes it: one launch on a CUDA tensor, on
+        :meth:`fused_operands`; the plain version on a CPU tensor, in x's
+        dtype.  The kernel has no backward, so a call that autograd would
+        need to differentiate raises."""
+        if torch.is_grad_enabled() and (x.requires_grad or any(
+                p.requires_grad for p in self.conv.parameters())):
+            raise RuntimeError("the fused RNB kernel has no backward; call "
+                               "it under torch.no_grad() or "
+                               "inference_mode()")
+        if x.device.type == "cpu":
+            return fused_rnb.fused_rnb_plain(x, *self.fused_weights())
+        if x.shape[-1] != self.conv.features:
+            raise ValueError(f"the block's 3x3 conv takes "
+                             f"{self.conv.features} channels, x has "
+                             f"{x.shape[-1]}")
+        return fused_rnb.fused_rnb_prepared(x, self.fused_operands())
 
     def _act(self, v):
         if not self.activate:
@@ -664,8 +719,8 @@ class VunetRNB(nn.Module):
                 train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if (self.fused and a is None and not train
-                and not self.conv.quant_active(x)):
-            return fused_rnb(x.to(self.conv.dtype), self)
+                and self.conv.route(x) != "int8"):
+            return self._forward_fused(x.to(self.conv.dtype))
         if self.remat and train and torch.is_grad_enabled():
             return checkpoint_with_generators(self._forward, (generator,),
                                               x, a, train, generator)
@@ -679,8 +734,9 @@ class VunetRNB(nn.Module):
         concatenating code."""
         return (not train and self.activate and self.act_fn is None
                 and isinstance(self.conv, NormConv2d)
-                and x.dtype == self.conv.dtype and self.conv._folds(x)
-                and not self.conv.quant_active(x) and self.nin._folds(a))
+                and x.dtype == self.conv.dtype
+                and self.conv.route(x) == "folded"
+                and self.nin.route(a) == "folded")
 
     def _forward_concat_free(self, x, a):
         """x + conv([elu(x), elu(nin(elu(a)))]) with the conv's input

@@ -60,8 +60,9 @@ CUDA toolkit (nvcc) and PyTorch.  It imports no JAX.  Phases:
    generate at B=3; every request must launch the rollout kernel once;
    the warm-up request must launch the conv epilogue once a
    ``NormConv2d`` call and make two activated stores a residual block call
-   with aux input, and the timed ones build no folded weights; every
-   request must launch the stickman raster once;
+   with aux input, and the timed ones build no prepared kernel weights
+   (``ops/nn.py:prepared_builds``, every slot); every request must launch
+   the stickman raster once;
    one B=20 request on the concatenation-free residual blocks bit-equal
    to the same request on the concatenating route;
    then one B=20 request with ``rnb_impl="fused"`` (126 fused RNB
@@ -388,6 +389,8 @@ from behavior_driven_video_synthesis_tpu_torch.train.state import (
     make_behavior_optimizers, make_flow_optimizer, make_vunet_optimizers)
 from behavior_driven_video_synthesis_tpu_torch.train.vunet_exp import (
     VunetTrainState, make_cvbae_train_step)
+from benchmark.yardstick import (HBM_BYTES_PER_S, fused_rnb_bound_ms,
+                                 rollout_bound_ms)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEV = torch.device("cuda")
@@ -460,10 +463,9 @@ EPILOGUE_SITES = [(125, 256, 256, 32), (125, 128, 128, 64),
 STICK = dict(frames=1000, S=256, thickness=4.0)
 # one org test_forward chunk: du's 14 and the prior's two pre blocks
 ORG_PRIOR_RNB_LAUNCHES = 2 * 7 + 2
-# NVIDIA's H100 SXM data sheet: HBM rate, bf16 dense tensor-core and f32
-# (outside the tensor cores) peaks, at 700 W
-HBM_BYTES_PER_S = 3.35e12
-BF16_TENSOR_FLOPS = 989e12
+# NVIDIA's H100 SXM data sheet: the f32 peak outside the tensor cores, at
+# 700 W (the HBM rate and the bf16 tensor-core peak are the benchmark's,
+# benchmark/yardstick.py)
 F32_FLOPS = 67e12
 # the CUDA programming guide's arithmetic instruction throughput, compute
 # capability 9.0: 32-bit integer multiplies and multiply-adds a clock an SM
@@ -886,7 +888,7 @@ def phase_kernel():
         b, x0 = args[:2]
         cfg = rollout.rollout_config(B, K, H)
         with torch.no_grad():
-            operands = rollout.prepared_operands(decoder)
+            operands = decoder.rollout_operands()
 
             def kernel():
                 return rollout.residual_lstm_rollout_prepared(b, x0,
@@ -916,9 +918,9 @@ def phase_kernel():
                 order = [("kernel", kernel, 20), ("kernel", kernel, 20),
                          ("plain", plain, 1)]
             times = [(name, cuda_ms(fn, n)) for name, fn, n in order]
-            builds = rollout.operand_builds
+            builds = ops_nn.prepared_builds["rollout"]
             route_ms = cuda_ms(route, 20)
-            check(rollout.operand_builds == builds,
+            check(ops_nn.prepared_builds["rollout"] == builds,
                   "decoder_rollout_kernel rebuilt cached operands")
             floor_ms = cuda_ms(
                 lambda: rollout.barrier_floor(B, K, H, T, DEV), 20)
@@ -943,20 +945,6 @@ def phase_kernel():
                                    for k, v in timed.items()]
     serving = timed[ROLLOUT_TIMED[0]]
     return max(errs), serving["ms"], serving["plain_ms"]
-
-
-def rollout_bound_ms(B, K, H, T):
-    """Least time of the rollout at (B, K, H, T): its bytes (bf16 weights
-    and f32 inputs read once, the f32 output written once) over the HBM
-    rate, against its gate and output products at the bf16 tensor-core
-    peak.  (The T steps depend on each other, which this bound ignores.)"""
-    weights = 2 * (4 * H * K + 4 * H * H + K * H)
-    vectors = 4 * (2 * 4 * H + K + B * H + B * K) + 4 * B * T * K
-    flops = T * (2 * B * (K + H) * 4 * H + 2 * B * H * K)
-    t_bytes = (weights + vectors) / HBM_BYTES_PER_S
-    t_ops = flops / BF16_TENSOR_FLOPS
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def sm_clock_hz():
@@ -1318,18 +1306,6 @@ def offset_checks(g):
                  bit_equal=True))
 
 
-def fused_rnb_bound_ms(B, H, W, C):
-    """Least time of one fused RNB at (B, H, W, C) bf16: x read and out
-    written once, the bf16 W and the f32 scale and shift read once, against
-    the 3x3 conv's 2 * 9 * C * C operations a pixel at the bf16
-    tensor-core peak."""
-    n = B * H * W * C
-    t_bytes = (2 * n * 2 + 9 * C * C * 2 + 2 * C * 4) / HBM_BYTES_PER_S
-    t_ops = 2 * 9 * C * n / BF16_TENSOR_FLOPS
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
 def ptxas_report(log_text, kernel):
     """{template argument: (registers, spill store bytes, spill load
     bytes)} of each instantiation of ``kernel`` in an nvcc -Xptxas -v
@@ -1413,9 +1389,9 @@ def phase_fused_rnb():
         block = block_of(shape[-1])
         x = (torch.randn(shape, generator=g, device=DEV) * 0.5).bfloat16()
         with torch.inference_mode():
-            out = fused_rnb.fused_rnb(x, block)
+            out = block._forward_fused(x)
             torch.cuda.synchronize()
-            ref = fused_rnb.fused_rnb_plain(x, block)
+            ref = fused_rnb.fused_rnb_plain(x, *block.fused_weights())
         e = float((out.float() - ref.float()).abs().max())
         ok = (out.shape == x.shape and out.dtype == torch.bfloat16
               and torch.allclose(out.float(), ref.float(), atol=1e-2,
@@ -1441,13 +1417,13 @@ def phase_fused_rnb():
         x = (torch.randn(shape, generator=g, device=DEV) * 0.5).bfloat16()
         n = 20 if shape[1] >= 64 else 100
         with torch.inference_mode():
-            operands = fused_rnb.prepared_operands(block)
+            operands = block.fused_operands()
 
             def kernel():
                 return fused_rnb.fused_rnb_prepared(x, operands)
 
             def plain():
-                return fused_rnb.fused_rnb_plain(x, block)
+                return fused_rnb.fused_rnb_plain(x, *block.fused_weights())
             out, ref = kernel().float(), plain().float()
             e = float((out - ref).abs().max())
             close = torch.allclose(out, ref, atol=1e-2, rtol=1e-2)
@@ -1810,7 +1786,7 @@ def phase_slice():
             conv_epilogue.conv_epilogue_launches = 0
             conv_epilogue.conv_epilogue_act_launches = 0
         if i == 1:
-            builds = ops_nn.norm_conv_fold_builds
+            builds = sum(ops_nn.prepared_builds.values())
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1849,9 +1825,9 @@ def phase_slice():
             check(torch.equal(out["stickman"], eager),
                   "the served stickman differs from the eager raster's")
             del eager
-            check(ops_nn.norm_conv_fold_builds == builds,
-                  f"the timed requests built "
-                  f"{ops_nn.norm_conv_fold_builds - builds} folded weights")
+            built = sum(ops_nn.prepared_builds.values()) - builds
+            check(built == 0, f"the timed requests built {built} prepared "
+                  f"kernel weights")
         peak = torch.cuda.max_memory_allocated()
         frames = out["frames"]
         check(frames.shape == (b, length, S, S, 3),
@@ -2516,12 +2492,13 @@ def phase_org():
             launches = fused_rnb.fused_rnb_launches
         frames[impl] = out["frames"]
     # the same request with the fused blocks' plain version
-    launch = ops_nn.fused_rnb
-    ops_nn.fused_rnb = fused_rnb.fused_rnb_plain
+    launch = ops_nn.VunetRNB._forward_fused
+    ops_nn.VunetRNB._forward_fused = (
+        lambda self, x: fused_rnb.fused_rnb_plain(x, *self.fused_weights()))
     try:
         plain, _, _ = serve(pipe, x)
     finally:
-        ops_nn.fused_rnb = launch
+        ops_nn.VunetRNB._forward_fused = launch
     rel_plain = rel_l2(frames["fused"], plain["frames"])
     rel_cudnn = rel_l2(frames["fused"], frames["cudnn"])
     log(f"    fused route vs its plain version: rel-L2 {rel_plain:.3e} "
@@ -5027,7 +5004,7 @@ def int8_launch_counter(vunet):
     def hook(mod, args, kwargs, out):
         x = args[0]
         aux = args[1] if len(args) > 1 else kwargs.get("aux")
-        if mod.quant_active(x):
+        if mod.route(x) == "int8":
             counts["calls"] += 1
             counts["heights"].add(int(x.shape[1]))
             shape = tuple(x.shape) + (mod.features, mod.stride,
@@ -5192,8 +5169,7 @@ def served_twice_with_plain_rollout(pipe, x):
 
     def plain(decoder, b, x_start, length):
         return rollout.residual_lstm_rollout_prepared_plain(
-            b.float(), x_start.float(), rollout.prepared_operands(decoder),
-            length)
+            b.float(), x_start.float(), decoder.rollout_operands(), length)
     pipeline_mod.decoder_rollout_kernel = plain
     try:
         a = serve(pipe, x)[0]["frames"]
@@ -5527,7 +5503,7 @@ def phase_any_kernel_int8():
         calls, launches = (conv_int8.conv_int8_unfold_calls,
                            conv_int8.conv_int8_launches)
         with torch.no_grad():
-            check(conv.quant_active(x), f"{k}x{k}: the conv does not "
+            check(conv.route(x) == "int8", f"{k}x{k}: the conv does not "
                   f"quantize")
             y = conv(x)
             torch.cuda.synchronize()

@@ -158,14 +158,14 @@ def main(argv=None):
         g = torch.Generator(device=dev).manual_seed(1)
         x = (torch.randn(shape, generator=g, device=dev) * 0.5).bfloat16()
         with torch.inference_mode():
-            operands = fused_rnb.prepared_operands(block)
-            w, scale, shift = fused_rnb.rnb_operands(block)
+            operands = block.fused_operands()
+            w, scale, shift = block.fused_weights()
             CP = fused_rnb.padded_channels(C)
             padded = torch.zeros(9, CP, CP + 8, dtype=torch.bfloat16,
                                  device=dev)
             padded[:, :C, :C] = w.bfloat16().permute(2, 3, 0, 1).reshape(
                 9, C, C)
-            ref = fused_rnb.fused_rnb_plain(x, block).float()
+            ref = fused_rnb.fused_rnb_plain(x, w, scale, shift).float()
         row = dict(shape=list(shape), variants={})
         base_out = torch.empty_like(x)
         base = launcher(built["base"][0], x, operands, base_out)

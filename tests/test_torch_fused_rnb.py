@@ -68,7 +68,7 @@ def test_plain_matches_the_attic_kernel_and_oracle(attic, shape):
     block, params = _block(C, C)
     x = _x(shape, 1)
     with torch.no_grad():
-        out = _np(R.fused_rnb_plain(x, block))
+        out = _np(R.fused_rnb_plain(x, *block.fused_weights()))
     ref = _np(attic.rnb_reference(_jx(x), params))
     kernel = _np(attic.fused_rnb(_jx(x), params, interpret=True,
                                  block_rows=8))
@@ -84,7 +84,7 @@ def test_plain_matches_the_flax_block(shape):
     ref = JVunetRNB(channels=C, dtype=jnp.bfloat16).apply(
         {"params": {"NormConv2d_0": params}}, _jx(x))
     with torch.no_grad():
-        out = _np(R.fused_rnb(x, block))
+        out = _np(block._forward_fused(x))
     assert out.dtype == np.float32 and np.abs(out - _np(ref)).max() < 0.05
 
 
@@ -97,14 +97,14 @@ def test_zero_padding_at_image_edges(attic):
     x[0, H - 1, W - 1, :] = 4.0
     block, params = _block(C, 0)
     with torch.no_grad():
-        out = _np(R.fused_rnb_plain(x, block))
+        out = _np(R.fused_rnb_plain(x, *block.fused_weights()))
     np.testing.assert_allclose(out, _np(attic.rnb_reference(_jx(x), params)),
                                atol=0.02)
     np.testing.assert_allclose(out, _np(attic.fused_rnb(
         _jx(x), params, interpret=True, block_rows=8)), atol=0.02)
     # away from the two corners the conv sees only zeros
     with torch.no_grad():
-        shift = _np(R.rnb_operands(block)[2].bfloat16())
+        shift = _np(block.fused_weights()[2].bfloat16())
     np.testing.assert_allclose(out[0, 4:12, 4:12],
                                np.broadcast_to(shift, (8, 8, C)), atol=0)
 
@@ -117,7 +117,7 @@ def test_plain_in_f32_is_the_default_block(shape):
     x = torch.from_numpy(np.random.RandomState(4).randn(*shape).astype(
         np.float32))
     with torch.no_grad():
-        out = R.fused_rnb_plain(x, block)
+        out = R.fused_rnb_plain(x, *block.fused_weights())
         ref = block(x)
     assert out.dtype == torch.float32
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
@@ -134,16 +134,16 @@ def test_route_on_the_cpu_and_under_autograd():
     default.load_state_dict(block.state_dict())
     x = _x((2, 8, 8, 16), 6)
     with torch.no_grad():
-        torch.testing.assert_close(block(x), R.fused_rnb_plain(x, block),
-                                   atol=0, rtol=0)
+        torch.testing.assert_close(
+            block(x), R.fused_rnb_plain(x, *block.fused_weights()), atol=0,
+            rtol=0)
         # train=True keeps the default path
         torch.testing.assert_close(block(x, train=True), default(x),
                                    atol=0, rtol=0)
     with pytest.raises(RuntimeError, match="no backward"):
         block(x)
     with pytest.raises(RuntimeError, match="no backward"):
-        R.fused_rnb(x.float().requires_grad_(True), block.requires_grad_(
-            False))
+        block.requires_grad_(False)(x.float().requires_grad_(True))
     with torch.inference_mode():
         assert block(x).shape == x.shape
 
@@ -180,38 +180,18 @@ def test_packed_weights_round_trip_to_oihw(C):
     assert not affine[:, C:].any()
 
 
-def _assert_operands_of(operands, block):
-    w, scale, shift = R.rnb_operands(block)
-    C = w.shape[0]
-    assert torch.equal(R.unpack_weights(operands[0], C), w.bfloat16())
-    assert torch.equal(operands[1][0, :C], scale)
-    assert torch.equal(operands[1][1, :C], shift)
-
-
-def test_prepared_operands_are_cached_until_a_parameter_changes():
-    block, _ = _block(16, 7)
-    first = R.prepared_operands(block)
-    builds = R.operand_builds
-    assert R.prepared_operands(block) is first
-    assert R.operand_builds == builds
-    _assert_operands_of(first, block)
-    rng = np.random.RandomState(8)
-    with torch.no_grad():                       # an in-place update of v
-        block.conv.conv.weight_v.add_(torch.from_numpy(
-            rng.randn(16, 16, 3, 3).astype(np.float32)))
-    second = R.prepared_operands(block)
-    assert second is not first and R.operand_builds == builds + 1
-    _assert_operands_of(second, block)
-    with torch.no_grad():                       # and of the affine
-        block.conv.gamma.mul_(3.0)
-    third = R.prepared_operands(block)
-    assert third is not second and torch.equal(third[0], second[0])
-    _assert_operands_of(third, block)
-    other, _ = _block(16, 9)
-    block.load_state_dict(other.state_dict())
-    fourth = R.prepared_operands(block)
-    assert fourth is not third and R.operand_builds == builds + 3
-    _assert_operands_of(fourth, other)
-    # each block keeps its own
-    assert R.prepared_operands(other) is not fourth
-    assert R.prepared_operands(block) is fourth
+@pytest.mark.parametrize("C", [16, 64])
+def test_fused_operands_unpack_to_the_blocks_weights(C):
+    """A block's packed operands hold its conv's W rounded to bf16, gamma
+    as the scale and gamma * bias + beta as the shift, in f32."""
+    block, _ = _block(C, 7, rnb_impl="fused")
+    w_packed, affine = block.fused_operands()
+    w, scale, shift = block.fused_weights()
+    assert torch.equal(R.unpack_weights(w_packed, C), w.bfloat16())
+    assert torch.equal(affine[0, :C], scale)
+    assert torch.equal(affine[1, :C], shift)
+    with torch.no_grad():
+        torch.testing.assert_close(scale, block.conv.gamma.reshape(-1))
+        torch.testing.assert_close(shift, block.conv.gamma.reshape(-1)
+                                   * block.conv.conv.bias
+                                   + block.conv.beta.reshape(-1))

@@ -144,16 +144,17 @@ def test_decoder_rollout_reuses_its_operands(cuda):
     g = torch.Generator(device=cuda).manual_seed(0)
     b = torch.randn(5, 64, generator=g, device=cuda)
     x0 = torch.randn(5, 48, generator=g, device=cuda) * 0.5
-    builds, launches = R.operand_builds, R.rollout_launches
+    builds = pnn.prepared_builds["rollout"]
+    launches = R.rollout_launches
     with torch.no_grad():
         first = decoder_rollout_kernel(d, b, x0, 6)
         again = decoder_rollout_kernel(d, b, x0, 6)
-        assert R.operand_builds == builds + 1
+        assert pnn.prepared_builds["rollout"] == builds + 1
         d.rnn.weight_hh.mul_(0.5)
         moved = decoder_rollout_kernel(d, b, x0, 6)
-        assert R.operand_builds == builds + 2
+        assert pnn.prepared_builds["rollout"] == builds + 2
         ref = R.residual_lstm_rollout_prepared_plain(
-            b, x0, R.prepared_operands(d), 6)
+            b, x0, d.rollout_operands(), 6)
     torch.cuda.synchronize()
     assert R.rollout_launches == launches + 3
     torch.testing.assert_close(again, first, atol=1e-2, rtol=1e-2)
@@ -198,7 +199,8 @@ def test_served_decoder_follows_training_steps(cuda):
     x0 = torch.randn(5, K, generator=g, device=cuda) * 0.5
 
     def serve():
-        builds, launches = R.operand_builds, R.rollout_launches
+        builds = pnn.prepared_builds["rollout"]
+        launches = R.rollout_launches
         with torch.inference_mode():
             xs = decoder_rollout_kernel(d, b, x0, T)
             r = d.rnn
@@ -208,7 +210,7 @@ def test_served_decoder_follows_training_steps(cuda):
                 operand_dtype=torch.bfloat16)
         torch.cuda.synchronize()
         assert R.rollout_launches == launches + 1
-        assert R.operand_builds == builds + 1
+        assert pnn.prepared_builds["rollout"] == builds + 1
         torch.testing.assert_close(xs, ref, atol=1e-2, rtol=1e-2)
         return xs
 
@@ -471,16 +473,18 @@ def test_rnb_trains_through_the_kernels(cuda):
 
 
 def _rnb_block(C, device, **kw):
-    return init_random_(pnn.VunetRNB(C, dtype=torch.bfloat16, **kw),
+    """A bf16 block under rnb_impl "fused" from a numpy seed."""
+    return init_random_(pnn.VunetRNB(C, dtype=torch.bfloat16,
+                                     rnb_impl="fused", **kw),
                         np.random.RandomState(C)).to(device).eval()
 
 
 def _fused_matches_plain(x, block):
     before = FR.fused_rnb_launches
     with torch.no_grad():
-        out = FR.fused_rnb(x, block)
+        out = block(x)
         torch.cuda.synchronize()
-        ref = FR.fused_rnb_plain(x.contiguous(), block)
+        ref = FR.fused_rnb_plain(x.contiguous(), *block.fused_weights())
     assert FR.fused_rnb_launches == before + 1
     assert out.shape == x.shape and out.dtype == torch.bfloat16
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-2,
@@ -512,28 +516,29 @@ def test_fused_rnb_kernel_refuses_what_it_does_not_take(cuda):
     x = torch.zeros(2, 8, 8, 16, device=cuda, dtype=torch.bfloat16)
     with torch.no_grad():
         with pytest.raises(TypeError, match="bfloat16"):
-            FR.fused_rnb(x.float(), block)
+            FR.fused_rnb_prepared(x.float(), block.fused_operands())
         with pytest.raises(ValueError, match="3x3"):
-            FR.fused_rnb(x[..., :8], block)
+            block._forward_fused(x[..., :8])
         with pytest.raises(ValueError, match="C % 8"):
-            FR.fused_rnb(torch.zeros(1, 4, 4, 12, device=cuda,
-                                     dtype=torch.bfloat16), _rnb_block(12, cuda))
+            _rnb_block(12, cuda)(torch.zeros(1, 4, 4, 12, device=cuda,
+                                             dtype=torch.bfloat16))
         with pytest.raises(ValueError, match="C <= 128"):
-            FR.fused_rnb(torch.zeros(1, 4, 4, 136, device=cuda,
-                                     dtype=torch.bfloat16),
-                         _rnb_block(136, cuda))
-        with pytest.raises(ValueError, match="3x3"):
-            FR.fused_rnb(x, _rnb_block(16, cuda, residual=True))
+            _rnb_block(136, cuda)(torch.zeros(1, 4, 4, 136, device=cuda,
+                                              dtype=torch.bfloat16))
+        # the kernel's 3x3 C -> C conv is fixed when the block is built
+        assert not _rnb_block(16, cuda, residual=True).fused
+        assert not _rnb_block(16, cuda, kernel_size=1).fused
         with pytest.raises(ValueError, match="on cpu"):
-            FR.fused_rnb(x, _rnb_block(16, "cpu"))
+            FR.fused_rnb_prepared(x, _rnb_block(16, "cpu").fused_operands())
         # a strided view is copied, not refused
         wide = torch.randn(2, 8, 8, 32, device=cuda).bfloat16()
         torch.testing.assert_close(
-            FR.fused_rnb(wide[..., ::2], block).float(),
-            FR.fused_rnb_plain(wide[..., ::2].contiguous(), block).float(),
+            block(wide[..., ::2]).float(),
+            FR.fused_rnb_plain(wide[..., ::2].contiguous(),
+                               *block.fused_weights()).float(),
             atol=1e-2, rtol=1e-2)
     with pytest.raises(RuntimeError, match="no backward"):
-        FR.fused_rnb(x, block.requires_grad_(True))
+        block.requires_grad_(True)(x)
 
 
 def test_org_vunet_fused_route_on_the_card(cuda):
@@ -856,7 +861,7 @@ def test_quantized_vunet_serves_through_the_kernel(cuda):
     app = (torch.rand(2, 64, 64, 3, generator=g, device=cuda) * 2 - 1)
     calls = []
     hooks = [m.register_forward_hook(
-        lambda mod, args, out: calls.append(mod.quant_active(args[0])))
+        lambda mod, args, out: calls.append(mod.route(args[0]) == "int8"))
         for m in net.modules() if isinstance(m, pnn.NormConv2d)]
     with torch.inference_mode():
         means, _ = plain.eval().encode_means(app, generator=g)
@@ -1049,7 +1054,7 @@ def _full_precision_calls(net):
     calls = []
 
     def hook(m, args, out):
-        if not (m.d2s_transpose or m.quant_active(args[0])):
+        if m.route(args[0]) not in ("d2s_transpose", "int8"):
             calls.append(m)
     return calls, [m.register_forward_hook(hook) for m in net.modules()
                    if isinstance(m, pnn.NormConv2d)]
@@ -1070,18 +1075,18 @@ def test_vunet_folded_route_on_the_card(cuda, variant, rnb_impl):
     calls, hooks = _full_precision_calls(net)
     try:
         with torch.inference_mode():
-            n0, b0 = CE.conv_epilogue_launches, pnn.norm_conv_fold_builds
+            n0, b0 = CE.conv_epilogue_launches, pnn.prepared_builds["fold"]
             first = net.transfer_cached(means, c)
             torch.cuda.synchronize()
             n_calls = len(calls)
             assert n_calls > 0
             assert CE.conv_epilogue_launches - n0 == n_calls
-            built = pnn.norm_conv_fold_builds - b0
+            built = pnn.prepared_builds["fold"] - b0
             assert 0 < built <= n_calls
             second = net.transfer_cached(means, c)
             torch.cuda.synchronize()
             assert CE.conv_epilogue_launches - n0 == 2 * n_calls
-            assert pnn.norm_conv_fold_builds - b0 == built
+            assert pnn.prepared_builds["fold"] - b0 == built
         assert torch.equal(first, second)
         net.requires_grad_(False)
         n1 = CE.conv_epilogue_launches

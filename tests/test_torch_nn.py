@@ -4,8 +4,11 @@ Each case draws its weights into the port's module with numpy, exports
 them as the flax subtree the JAX module reads, and compares both on the
 same NHWC input in f32: max abs diff <= 1e-5 * (1 + max|ref|).  The
 NormConv2d fold cases hold the folded route against the unfolded one in
-the port itself.
+the port itself, and the prepared-weights cases hold ``prepared``'s rule
+for every owner of kernel weights.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -15,6 +18,8 @@ import jax.numpy as jnp
 from behavior_driven_video_synthesis_tpu.ops import nn as jnn
 
 from behavior_driven_video_synthesis_tpu_torch.models import convert as pconv
+from behavior_driven_video_synthesis_tpu_torch.models.behavior import (
+    ResidualBehaviorNet)
 from behavior_driven_video_synthesis_tpu_torch.models.init import init_random_
 from behavior_driven_video_synthesis_tpu_torch.ops import nn as pnn
 
@@ -164,48 +169,129 @@ def test_norm_conv_fold_matches_the_affine(rng, k, stride, pad, cout):
                                atol=1e-5 * float(ref.abs().max()))
 
 
-def _step(conv):
-    opt = torch.optim.SGD(conv.parameters(), lr=0.1)
-    conv(torch.ones(1, 4, 4, 5)).square().sum().backward()
-    opt.step()
-
-
-def _load(conv):
-    other = _norm_conv(5, 6, 3, pad=1, seed=9)
-    conv.load_state_dict(other.state_dict())
-
-
-def _gamma_in_place(conv):
-    with torch.no_grad():
-        conv.gamma.mul_(2)
-
-
-def _compute_dtype(conv):
-    conv.dtype = torch.bfloat16
-
-
-@pytest.mark.parametrize("change", [_load, _step, _gamma_in_place,
-                                    _compute_dtype])
-def test_norm_conv_fold_cache_rebuilds(change):
-    """The folded weights are built once and kept; a load_state_dict, an
-    optimizer step, an in-place update of one parameter or a new compute
-    dtype rebuilds them, and norm_conv_fold_builds counts each build."""
-    conv = _norm_conv(5, 6, 3, pad=1)
-    n0 = pnn.norm_conv_fold_builds
-    first = conv.folded()
-    assert conv.folded() is first
-    assert pnn.norm_conv_fold_builds == n0 + 1
-    change(conv)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_norm_conv_folded_weights_in_the_compute_dtype(dtype):
+    """W' = gamma * W in the compute dtype and b' = gamma * bias + beta in
+    f32, both from the f32 parameters."""
+    conv = _norm_conv(5, 6, 3, pad=1, dtype=dtype)
     w, b = conv.folded()
-    assert pnn.norm_conv_fold_builds == n0 + 2
-    assert conv.folded()[0] is w
-    assert w.dtype == conv.dtype
+    assert w.dtype == dtype and b.dtype == torch.float32
     with torch.no_grad():
         gamma = conv.gamma.reshape(-1)
         torch.testing.assert_close(
-            w, (conv.kernel() * gamma[:, None, None, None]).to(conv.dtype))
+            w, (conv.kernel() * gamma[:, None, None, None]).to(dtype))
         torch.testing.assert_close(
             b, gamma * conv.conv.bias + conv.beta.reshape(-1))
+
+
+# -- prepared kernel weights: one cache, four owners --------------------------
+#
+# An owner, by its slot in prepared_builds: (its module from a seed, its
+# prepared weights, the parameter that an in-place update changes).
+
+
+def _fold_owner(seed):
+    return _norm_conv(5, 6, 3, pad=1, seed=seed)
+
+
+def _int8_owner(seed):
+    conv = pnn.NormConv2d(8, 16, 3, padding=1, quant="int8")
+    return init_random_(conv, np.random.RandomState(seed))
+
+
+def _rnb_owner(seed):
+    return init_random_(pnn.VunetRNB(8, dtype=torch.bfloat16,
+                                     rnb_impl="fused"),
+                        np.random.RandomState(seed))
+
+
+def _decoder_owner(seed):
+    return init_random_(ResidualBehaviorNet(5, 16),
+                        np.random.RandomState(seed)).decoder
+
+
+OWNERS = {
+    "fold": (_fold_owner, lambda m: m.folded(), lambda m: m.gamma),
+    "int8": (_int8_owner, lambda m: m._int8_weights(None),
+             lambda m: m.conv.weight_v),
+    "fused_rnb": (_rnb_owner, lambda m: m.fused_operands(),
+                  lambda m: m.conv.conv.weight_g),
+    "rollout": (_decoder_owner, lambda m: m.rollout_operands(),
+                lambda m: m.rnn.weight_hh)}
+
+
+def _load(m, make, param):
+    m.load_state_dict(make(9).state_dict())
+
+
+def _step(m, make, param):
+    opt = torch.optim.SGD(m.parameters(), lr=0.1)
+    for p in m.parameters():
+        p.grad = torch.ones_like(p)
+    opt.step()
+
+
+def _in_place(m, make, param):
+    with torch.no_grad():
+        param(m).mul_(2)
+
+
+def _to(m, make, param):
+    m.to(torch.float64)
+
+
+def _compute_dtype(m, make, param):
+    m.dtype = torch.bfloat16
+
+
+CHANGES = {"load_state_dict": _load, "optimizer step": _step,
+           "in-place update": _in_place, ".to()": _to,
+           "compute dtype": _compute_dtype}
+
+
+def _tensors(v):
+    if isinstance(v, torch.Tensor):
+        return [v]
+    if isinstance(v, (tuple, list)):
+        return [t for u in v for t in _tensors(u)]
+    return []
+
+
+@pytest.mark.parametrize("owner,change", [
+    (o, c) for o in OWNERS
+    for c in ("load_state_dict", "optimizer step", "in-place update", ".to()")]
+    + [("fold", "compute dtype"), ("int8", "fan-in split")])
+def test_prepared_weights_are_kept_until_their_key_changes(owner, change):
+    """Every owner of kernel weights (a NormConv2d's folded and int8
+    weights, a fused VunetRNB's packed operands, a ResidualDecoder's
+    rollout operands) builds them once through ``prepared`` and keeps
+    them; a load_state_dict, an optimizer step, an in-place update of one
+    parameter, ``.to()``, and a new extra key (the compute dtype; the
+    fan-in split, at which a call with aux input splits W) each rebuild
+    them once, into what a fresh module with the new parameters builds;
+    prepared_builds counts each build under the owner's slot, and each
+    module keeps its own."""
+    make, get, param = OWNERS[owner]
+    m = make(3)
+    n0 = pnn.prepared_builds[owner]
+    first = get(m)
+    assert get(m) is first
+    assert pnn.prepared_builds[owner] == n0 + 1
+    if change == "fan-in split":
+        get = lambda m: m._int8_weights(3)  # noqa: E731
+    else:
+        CHANGES[change](m, make, param)
+    second = get(m)
+    assert second is not first
+    assert get(m) is second and pnn.prepared_builds[owner] == n0 + 2
+    fresh = copy.deepcopy(m)
+    del vars(fresh)["_prepared"]
+    want, got = _tensors(get(fresh)), _tensors(second)
+    assert len(got) == len(want) > 0
+    for u, v in zip(got, want):
+        assert u.dtype == v.dtype and torch.equal(u, v)
+    other = make(3)
+    assert get(other) is not second and get(m) is second
 
 
 @pytest.mark.parametrize("grad,dtype,cuda,folds", [
@@ -220,7 +306,7 @@ def test_norm_conv_folds_only_at_inference_on_the_card(grad, dtype, cuda,
         is_cuda = cuda
     conv = pnn.NormConv2d(5, 8, 3, padding=1, dtype=dtype)
     with torch.set_grad_enabled(grad):
-        assert conv._folds(_X()) == folds
+        assert conv.route(_X()) == ("folded" if folds else "unfolded")
 
 
 def test_norm_conv_with_grad_is_unfolded_and_trains_its_affine(rng):
@@ -229,13 +315,13 @@ def test_norm_conv_with_grad_is_unfolded_and_trains_its_affine(rng):
     weights, and gamma and beta receive gradients."""
     conv = _norm_conv(5, 5, 3, pad=1)
     x = torch.from_numpy(rng.randn(2, 6, 6, 5).astype(np.float32))
-    n0 = pnn.norm_conv_fold_builds
+    n0 = pnn.prepared_builds["fold"]
     out = conv(x, residual=x)
     y = pnn.conv2d_nhwc(x, conv.kernel(), conv.conv.bias, 1, 1)
     ref = x + (conv.gamma.reshape(-1) * y + conv.beta.reshape(-1))
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
     out.square().sum().backward()
-    assert pnn.norm_conv_fold_builds == n0
+    assert pnn.prepared_builds["fold"] == n0
     for p in (conv.gamma, conv.beta, conv.conv.weight_v, conv.conv.bias):
         assert p.grad is not None and float(p.grad.abs().sum()) > 0
     rnb = pnn.VunetRNB(5, residual=True, aux_channels=3)
@@ -244,7 +330,7 @@ def test_norm_conv_with_grad_is_unfolded_and_trains_its_affine(rng):
     out = rnb(x, a)
     out.sum().backward()
     assert rnb.conv.gamma.grad is not None and rnb.conv.beta.grad is not None
-    assert pnn.norm_conv_fold_builds == n0
+    assert pnn.prepared_builds["fold"] == n0
 
 
 @pytest.mark.parametrize("k,pad,aux,residual", [
@@ -358,7 +444,7 @@ def _aux_block(c, ca, seed):
         for m in (rnb.nin, rnb.conv):
             m.gamma.copy_(1 + 0.3 * torch.randn(m.gamma.shape, generator=g))
             m.beta.copy_(0.3 * torch.randn(m.beta.shape, generator=g))
-            m._folds = lambda x: True
+            m.route = lambda x: "folded"
     return rnb
 
 
@@ -440,13 +526,13 @@ def test_folded_route_matches_jax_in_bf16(rng, module, aux, residual):
         tree = _tree(rnb, pconv._rnb("x", (), aux))
         for m in rnb.modules():
             if isinstance(m, pnn.NormConv2d):
-                m._folds = lambda x: True
-        n0 = pnn.norm_conv_fold_builds
+                m.route = lambda x: "folded"
+        n0 = pnn.prepared_builds["fold"]
         ref = jnn.VunetRNB(c, residual=aux, dtype=jnp.bfloat16).apply(
             {"params": tree}, _jbf16(x), ja)
         with torch.no_grad():
             out = rnb(_bf16(x), None if a is None else _bf16(a))
-        assert pnn.norm_conv_fold_builds == n0 + (2 if aux else 1)
+        assert pnn.prepared_builds["fold"] == n0 + (2 if aux else 1)
     assert out.dtype == torch.bfloat16 and out.shape == ref.shape
     ref = np.asarray(ref, np.float32)
     np.testing.assert_allclose(out.float().numpy(), ref, rtol=0,

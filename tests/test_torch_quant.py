@@ -215,7 +215,7 @@ def test_norm_conv_quant_any_kernel_matches_jax(k, pad, quant, aux):
         variables = {**variables, **mut}
         with pnn.quant_calibration(conv):
             conv(*targs)
-    assert conv.quant_active(targs[0])
+    assert conv.route(targs[0]) == "int8"
     ref = jm.apply(variables, *args)
     with torch.no_grad():
         out = conv(*targs)
@@ -271,7 +271,7 @@ def test_small_heads_stay_full_precision(features, k, pad):
     plain.load_state_dict(conv.state_dict())
     x = torch.from_numpy(np.random.RandomState(4).randn(2, 8, 8, 4)
                          .astype(np.float32))
-    assert not conv.quant_active(x)
+    assert conv.route(x) != "int8"
     with torch.no_grad(), pnn.quant_calibration(conv):
         torch.testing.assert_close(conv(x), plain(x), rtol=0, atol=0)
     assert conv.act_amax == {}
@@ -294,7 +294,7 @@ def test_quant_max_hw_gates_by_input_height(hw, max_hw, quantizes):
     ref = jnn.NormConv2d(16, kernel_size=3, padding=1, quant="int8",
                          quant_max_hw=max_hw).apply({"params": tree},
                                                     jnp.asarray(x))
-    assert conv.quant_active(torch.from_numpy(x)) == quantizes
+    assert (conv.route(torch.from_numpy(x)) == "int8") == quantizes
     assert (not torch.equal(yq, yf)) == quantizes
     np.testing.assert_allclose(_np(yq), _np(ref), rtol=0,
                                atol=1e-5 * (1 + np.abs(_np(ref)).max()))
@@ -303,14 +303,14 @@ def test_quant_max_hw_gates_by_input_height(hw, max_hw, quantizes):
 def test_int8_weights_are_built_once_per_parameter_version():
     conv, _ = _norm_conv_pair(8, 16, 3, 1, quant="int8")
     x = torch.randn(1, 6, 6, 8)
-    before = pnn.int8_weight_builds
+    before = pnn.prepared_builds["int8"]
     with torch.no_grad():
         conv(x)
         conv(x)
-        assert pnn.int8_weight_builds == before + 1
+        assert pnn.prepared_builds["int8"] == before + 1
         conv.conv.weight_v.mul_(2.0)
         conv(x)
-    assert pnn.int8_weight_builds == before + 2
+    assert pnn.prepared_builds["int8"] == before + 2
 
 
 # -- the VUNet ----------------------------------------------------------------
@@ -362,7 +362,7 @@ def check_int8_convs_in_place(net, tree, run):
     paths = pconv._quant_paths(net)
     held = 0
     for name, mod, x, aux, residual, out in calls:
-        if not mod.quant_active(x):
+        if mod.route(x) != "int8":
             continue
         variables = {"params": _subtree(tree, paths[name])}
         if mod.quant == "int8_static":
@@ -487,7 +487,7 @@ def test_calibrate_quant_matches_jax_and_serves(vunets):
         h.remove()
     paths = pconv._quant_paths(net)
     for name, mod, args in calls:
-        if not mod.quant_active(args[0]):
+        if mod.route(args[0]) != "int8":
             continue
         jm = jnn.NormConv2d(mod.features, kernel_size=3, stride=mod.stride,
                             padding=1, quant="int8_static")

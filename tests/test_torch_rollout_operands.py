@@ -2,7 +2,7 @@
 
 The kernel runs only on the card; what surrounds it runs here: packing the
 decoder's weights into the kernel's layout and back, the plain version on
-packed operands, and the per-decoder cache.  Weights and inputs come from
+packed operands, and the decoder's own operands.  Weights and inputs come from
 numpy and cross to JAX through the port's converter.  Tolerances are those
 of ``tests/test_torch_behavior.py``: the packed plain version rounds its
 operands to bf16, as the interpret-mode Pallas kernel does, so it meets that
@@ -20,6 +20,7 @@ from behavior_driven_video_synthesis_tpu.models import behavior as jbeh
 from behavior_driven_video_synthesis_tpu_torch.models import behavior as pbeh
 from behavior_driven_video_synthesis_tpu_torch.models import convert as pconv
 from behavior_driven_video_synthesis_tpu_torch.models.init import init_random_
+from behavior_driven_video_synthesis_tpu_torch.ops import nn as pnn
 from behavior_driven_video_synthesis_tpu_torch.ops.cuda import rollout as R
 
 
@@ -29,17 +30,11 @@ def _decoder(K, H, seed=0):
     return net, net.decoder
 
 
-def _weights(d):
-    r = d.rnn
-    return (r.weight_ih, r.weight_hh, r.bias_ih, r.bias_hh, d.n_out.weight,
-            d.n_out.bias)
-
-
 @pytest.mark.parametrize("H,K", [(8, 5), (16, 51), (64, 48)])
 def test_pack_unpack_round_trip(H, K):
     _, d = _decoder(K, H)
-    w_ih, w_hh, b_ih, b_hh, w_out, b_out = _weights(d)
-    ops = R.pack_operands(*_weights(d))
+    w_ih, w_hh, b_ih, b_hh, w_out, b_out = d.rollout_params()
+    ops = R.pack_operands(*d.rollout_params())
     w, bias, wo, bo = ops
     Hp, Kp = R.padded(H), R.padded(K)
     assert w.shape == (4 * H, Hp + Kp) and w.dtype == torch.bfloat16
@@ -78,7 +73,7 @@ def test_plain_on_packed_operands_matches_jax(Bc, Kc, Hc, Tc):
     with torch.no_grad():
         out = R.residual_lstm_rollout_prepared_plain(
             torch.from_numpy(b), torch.from_numpy(x0),
-            R.prepared_operands(d), Tc)
+            d.rollout_operands(), Tc)
     assert out.shape == (Bc, Tc, Kc) and out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), np.asarray(pallas), atol=1e-2,
                                rtol=1e-2)
@@ -86,23 +81,19 @@ def test_plain_on_packed_operands_matches_jax(Bc, Kc, Hc, Tc):
                                rtol=1e-2)
 
 
-def test_cache_reuses_operands_until_a_parameter_changes():
+def test_rollout_operands_unpack_to_the_decoders_weights():
+    """A decoder's operands hold its weights, the updated ones after an
+    in-place update."""
     _, d = _decoder(5, 16)
-    builds = R.operand_builds
-    first = R.prepared_operands(d)
-    assert R.prepared_operands(d) is first
-    assert R.operand_builds == builds + 1
     with torch.no_grad():
         d.rnn.weight_hh.add_(0.5)
-    second = R.prepared_operands(d)
-    assert second is not first and R.operand_builds == builds + 2
-    torch.testing.assert_close(R.unpack_operands(second)[1],
-                               d.rnn.weight_hh.detach().bfloat16(),
-                               rtol=0, atol=0)
-    # another decoder has operands of its own
-    _, other = _decoder(5, 16, seed=3)
-    assert R.prepared_operands(other) is not second
-    assert R.prepared_operands(d) is second
+    back = R.unpack_operands(d.rollout_operands())
+    r = d.rnn
+    for got, want in zip(back, (r.weight_ih.bfloat16(),
+                                r.weight_hh.bfloat16(),
+                                r.bias_ih + r.bias_hh,
+                                d.n_out.weight.bfloat16(), d.n_out.bias)):
+        torch.testing.assert_close(got, want.detach(), rtol=0, atol=0)
 
 
 def test_decoder_rollout_on_cpu_is_the_f32_loop():
@@ -110,11 +101,13 @@ def test_decoder_rollout_on_cpu_is_the_f32_loop():
     rng = np.random.RandomState(4)
     b = torch.from_numpy(rng.randn(3, 16).astype(np.float32))
     x0 = torch.from_numpy(rng.randn(3, 6).astype(np.float32))
-    launches, builds = R.rollout_launches, R.operand_builds
+    launches = R.rollout_launches
+    builds = pnn.prepared_builds["rollout"]
     with torch.no_grad():
         out = pbeh.decoder_rollout_kernel(d, b, x0, 5)
-        ref = R.residual_lstm_rollout_plain(b, x0, *_weights(d), 5)
+        ref = R.residual_lstm_rollout_plain(b, x0, *d.rollout_params(), 5)
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
-    assert (R.rollout_launches, R.operand_builds) == (launches, builds)
+    assert (R.rollout_launches, pnn.prepared_builds["rollout"]) == (
+        launches, builds)
     with pytest.raises(ValueError, match="no rollout for device"):
-        R.residual_lstm_rollout_prepared(b, x0, R.prepared_operands(d), 5)
+        R.residual_lstm_rollout_prepared(b, x0, d.rollout_operands(), 5)

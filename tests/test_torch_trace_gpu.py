@@ -195,10 +195,11 @@ def test_fused_rnb_kernel_launches_on_the_current_stream(cuda):
     g = torch.Generator(device=cuda).manual_seed(0)
     x = (torch.randn(2, 16, 16, 32, generator=g, device=cuda)
          * 0.5).bfloat16()
+    operands = block.fused_operands()
     with torch.no_grad():
-        ref = FR.fused_rnb(x, block)
-        out = _late_input_on_a_side_stream(x, lambda y: FR.fused_rnb(y,
-                                                                    block))
+        ref = FR.fused_rnb_prepared(x, operands)
+        out = _late_input_on_a_side_stream(
+            x, lambda y: FR.fused_rnb_prepared(y, operands))
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-2,
                                rtol=1e-2)
 

@@ -128,18 +128,18 @@ def test_training_forward_matches_jax(nets):
 
 
 def test_fused_route_takes_the_blocks_without_aux(nets, monkeypatch):
-    """Under rnb_impl "fused" the kernel's entry point runs every RNB
-    without auxiliary input: EncUp's two a scale, and at the prior's
-    latent scales the pre block; a serving transfer skips the prior."""
+    """Under rnb_impl "fused" the fused route runs every RNB without
+    auxiliary input: EncUp's two a scale, and at the prior's latent
+    scales the pre block; a serving transfer skips the prior."""
     net, _, _, x, c, post, prior = nets
     port = _port(net, "fused")
     calls = []
-    real = pnn.fused_rnb
+    real = pnn.VunetRNB._forward_fused
 
-    def spy(v, rnb):
+    def spy(rnb, v):
         calls.append(tuple(v.shape))
-        return real(v, rnb)
-    monkeypatch.setattr(pnn, "fused_rnb", spy)
+        return real(rnb, v)
+    monkeypatch.setattr(pnn.VunetRNB, "_forward_fused", spy)
     with torch.no_grad():
         means, _ = port.encode_means(torch.from_numpy(x), _t(post))
         n_encode = len(calls)
